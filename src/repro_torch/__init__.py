@@ -1,0 +1,22 @@
+"""PyTorch / CUDA port of the scheduling simulator, for NVIDIA Hopper.
+
+The JAX package ``repro`` is the reference; this package imports nothing of
+it.  This slice carries the single-cluster, scalar-counter engine with the
+six policies (fcfs, sjf, ljf, bestfit, backfill, preempt), whose every
+selection runs the ``queue_select`` CUDA kernel on a CUDA device:
+
+    import repro_torch as rt
+
+    scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=500, kind="sdsc_sp2"),
+                      total_nodes=128, policy="backfill")
+    res = rt.run(scn)            # on cuda; device="cpu" for the plain path
+    res.to_np(), res.summary()
+"""
+
+from repro_torch.api import (
+    ArrayTrace, Result, Scenario, SwfTrace, SyntheticTrace, run,
+)
+from repro_torch.core.engine import simulate
+
+__all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SyntheticTrace",
+           "run", "simulate"]

@@ -1,0 +1,74 @@
+"""Result wrapper of the PyTorch port.
+
+Counterpart of ``repro.api.result``: ``to_np()`` gives the reference's
+canonical numpy dict for a scalar-counter run (``submit``, ``nodes``,
+``runtime``, ``start``, ``finish``, ``ready``, ``wait``, ``makespan``,
+``n_events``, ``done``, ``valid``), so the two engines' results compare key
+by key, and ``summary()`` derives the same scalar metrics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch.api.scenario import Scenario
+from repro_torch.core import metrics
+from repro_torch.core.jobs import JobSet, SimResult
+
+
+@dataclasses.dataclass
+class Result:
+    """One simulation outcome: the scenario, the engine's ``SimResult``
+    (``raw``, tensors on the run's device) and its job table."""
+
+    scenario: Scenario
+    raw: SimResult
+    jobs: JobSet
+    _np: Optional[Dict[str, np.ndarray]] = dataclasses.field(
+        default=None, repr=False)
+
+    def to_np(self) -> Dict[str, np.ndarray]:
+        """Canonical host-side result dict (cached)."""
+        if self._np is None:
+            self._np = simresult_to_np(self.raw, self.jobs)
+        return self._np
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        return self.to_np()[key]
+
+    def summary(self) -> Dict[str, float]:
+        """n_jobs, wait statistics, bounded slowdown, makespan,
+        utilization and throughput."""
+        return metrics.summary(self.to_np(), int(self.scenario.total_nodes))
+
+    @property
+    def makespan(self) -> int:
+        return int(self.to_np()["makespan"])
+
+    def matches(self, other) -> bool:
+        """Bit-exact start/finish agreement with another result (of either
+        engine) over the shorter table."""
+        a, b = self.to_np(), other.to_np()
+        n = min(int(a["valid"].sum()), int(b["valid"].sum()))
+        return all(bool(np.array_equal(a[k][:n], b[k][:n]))
+                   for k in ("start", "finish"))
+
+
+def simresult_to_np(res: SimResult, jobs: JobSet) -> Dict[str, np.ndarray]:
+    """``SimResult`` + ``JobSet`` -> the canonical numpy dict."""
+    return {
+        "submit": jobs.submit.cpu().numpy(),
+        "nodes": jobs.nodes.cpu().numpy(),
+        "runtime": jobs.runtime.cpu().numpy(),
+        "start": res.start.cpu().numpy(),
+        "finish": res.finish.cpu().numpy(),
+        "ready": res.ready.cpu().numpy(),
+        "wait": res.wait.cpu().numpy(),
+        "makespan": int(res.makespan),
+        "n_events": int(res.n_events),
+        "done": res.done.cpu().numpy(),
+        "valid": jobs.valid.cpu().numpy(),
+    }

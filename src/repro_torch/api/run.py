@@ -1,0 +1,38 @@
+"""The entry point of the PyTorch port: ``run(scenario) -> Result``."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.api.result import Result
+from repro_torch.api.scenario import Scenario
+from repro_torch.core import engine
+from repro_torch.core.jobs import JobSet, make_jobset, resolve_device
+
+
+def build_jobset(scenario: Scenario, *, capacity: Optional[int] = None,
+                 device=None) -> JobSet:
+    """Materialize the scenario's trace into a ``JobSet`` on ``device``
+    (``cuda`` by default)."""
+    trace = scenario.trace.materialize()
+    if capacity is None:
+        capacity = scenario.capacity
+    return make_jobset(
+        trace["submit"], trace["runtime"], trace["nodes"],
+        trace.get("estimate"), trace.get("priority"),
+        deps=trace.get("deps"),
+        capacity=capacity,
+        total_nodes=int(scenario.total_nodes),
+        device=device,
+    )
+
+
+def run(scenario: Scenario, device=None) -> Result:
+    """Run one scenario on the PyTorch engine.  ``device=None`` runs on
+    ``cuda`` and raises when there is none; pass ``device="cpu"`` for the
+    plain PyTorch path."""
+    device = resolve_device(device)
+    jobs = build_jobset(scenario, device=device)
+    res = engine.simulate(jobs, scenario.policy, int(scenario.total_nodes),
+                          max_events=scenario.max_events, device=device)
+    return Result(scenario=scenario, raw=res, jobs=jobs)

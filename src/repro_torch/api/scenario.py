@@ -1,0 +1,174 @@
+"""Declarative experiment specs of the PyTorch port.
+
+Counterpart of ``repro.api.scenario`` for the scalar-counter slice: a
+:class:`Scenario` names a trace (:class:`SyntheticTrace`, :class:`SwfTrace`
+or :class:`ArrayTrace`), the cluster size, the policy, and optionally the
+padded table capacity and an event cap.  The same field values describe
+the same run as the reference's ``Scenario``.  Features of the reference
+that the port does not carry yet raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+
+from repro_torch.core.jobs import INF_TIME
+from repro_torch.traces.swf import load_swf
+from repro_torch.traces.synthetic import das2_like, sdsc_sp2_like, synthetic_trace
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticTrace:
+    """Deterministic synthetic workload (``repro_torch.traces.synthetic``).
+
+    ``kind`` selects the generator: ``"generic"``, ``"das2"`` or
+    ``"sdsc_sp2"``.  ``params`` are extra generator keyword arguments as
+    (name, value) pairs.  ``congest`` divides submit times by an integer
+    factor to densify arrivals, so that the policies diverge.
+    """
+
+    n_jobs: int = 1000
+    seed: int = 0
+    kind: str = "generic"
+    params: Tuple[Tuple[str, Any], ...] = ()
+    congest: int = 1
+
+    _GENERATORS = {"generic": synthetic_trace, "das2": das2_like,
+                   "sdsc_sp2": sdsc_sp2_like}
+
+    def materialize(self) -> Dict[str, np.ndarray]:
+        try:
+            gen = self._GENERATORS[self.kind]
+        except KeyError:
+            raise ValueError(
+                f"unknown synthetic trace kind {self.kind!r}; "
+                f"known: {sorted(self._GENERATORS)}") from None
+        trace = gen(self.n_jobs, seed=self.seed, **dict(self.params))
+        if self.congest != 1:
+            trace["submit"] = trace["submit"] // int(self.congest)
+        return trace
+
+
+@dataclasses.dataclass(frozen=True)
+class SwfTrace:
+    """A Standard Workload Format log on disk (optionally gzipped).
+
+    ``strict=True`` raises on the first malformed line instead of counting
+    it.  The one-shot engine keeps its clock in int32, so a log whose span
+    plus twice its longest job reaches ``INF_TIME`` is refused.
+    """
+
+    path: str
+    max_jobs: Optional[int] = None
+    strict: bool = False
+
+    def materialize(self) -> Dict[str, np.ndarray]:
+        trace, _report = load_swf(self.path, max_jobs=self.max_jobs,
+                                  strict=self.strict)
+        sub = np.asarray(trace["submit"], dtype=np.int64)
+        if len(sub):
+            run = np.asarray(trace["runtime"], dtype=np.int64)
+            est = np.asarray(trace.get("estimate", run), dtype=np.int64)
+            top = int(sub.max() - sub.min()) + 2 * int(
+                max(run.max(initial=1), est.max(initial=1)))
+            if top >= INF_TIME:
+                raise ValueError(
+                    f"SWF trace {self.path!r} overflows int32 clock range: "
+                    f"submit span + 2*max runtime = {top} >= {INF_TIME} "
+                    "(INF_TIME); trim the log with max_jobs= or rescale "
+                    "its time unit")
+        return trace
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ArrayTrace:
+    """Explicit host arrays.  ``deps`` is accepted so that a workflow table
+    fails loudly: dependency edges are not ported yet."""
+
+    submit: Any
+    runtime: Any
+    nodes: Any
+    estimate: Any = None
+    priority: Any = None
+    deps: Any = None
+
+    @classmethod
+    def from_dict(cls, trace: Dict[str, Any]) -> "ArrayTrace":
+        return cls(submit=trace["submit"], runtime=trace["runtime"],
+                   nodes=trace["nodes"], estimate=trace.get("estimate"),
+                   priority=trace.get("priority"), deps=trace.get("deps"))
+
+    def materialize(self) -> Dict[str, np.ndarray]:
+        out = {"submit": np.asarray(self.submit),
+               "runtime": np.asarray(self.runtime),
+               "nodes": np.asarray(self.nodes)}
+        if self.estimate is not None:
+            out["estimate"] = np.asarray(self.estimate)
+        if self.priority is not None:
+            out["priority"] = np.asarray(self.priority)
+        if self.deps is not None:
+            out["deps"] = self.deps
+        return out
+
+
+TraceSpec = Union[SyntheticTrace, SwfTrace, ArrayTrace]
+
+
+def as_trace_spec(trace) -> TraceSpec:
+    """Accept a spec, a plain dict of arrays, or an .swf path string."""
+    if isinstance(trace, (SyntheticTrace, SwfTrace, ArrayTrace)):
+        return trace
+    if isinstance(trace, dict):
+        return ArrayTrace.from_dict(trace)
+    if isinstance(trace, str):
+        return SwfTrace(trace)
+    raise NotImplementedError(
+        f"trace {type(trace).__name__} is not ported yet: workflow DAGs are "
+        "ROADMAP Queue 1 item 3, service traces item 5, per-cluster trace "
+        "tuples item 6, injected what-if jobs item 8")
+
+
+# fields of the reference's Scenario that later slices of the port bring
+_NOT_PORTED = {
+    "topology": "ROADMAP Queue 1 item 2 (topology-aware allocation)",
+    "alloc": "ROADMAP Queue 1 item 2 (topology-aware allocation)",
+    "contention": "ROADMAP Queue 1 item 2 (topology-aware allocation)",
+    "failures": "ROADMAP Queue 1 item 5 (extra event sources)",
+    "malleable": "ROADMAP Queue 1 item 5 (extra event sources)",
+    "multicluster": "ROADMAP Queue 1 item 6 (multicluster windows)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One single-cluster, scalar-counter experiment.
+
+    ``trace`` is a trace spec, a dict of arrays or an .swf path;
+    ``total_nodes`` the cluster size; ``policy`` a name or id;
+    ``capacity`` pads the job table; ``max_events`` caps the event loop.
+    Passing any of the reference's other fields raises
+    ``NotImplementedError``.
+    """
+
+    trace: Union[TraceSpec, Dict[str, Any], str]
+    total_nodes: int
+    policy: Union[str, int] = "fcfs"
+    capacity: Optional[int] = None
+    max_events: Optional[int] = None
+    topology: Any = None
+    alloc: Any = None
+    contention: Any = None
+    failures: Any = None
+    malleable: Any = None
+    multicluster: Any = None
+
+    def __post_init__(self):
+        for name, item in _NOT_PORTED.items():
+            if getattr(self, name) is not None:
+                raise NotImplementedError(
+                    f"Scenario.{name} is not ported yet: {item}")
+        object.__setattr__(self, "trace", as_trace_spec(self.trace))

@@ -1,0 +1,234 @@
+"""Job table and simulation state of the PyTorch engine (scalar-counter mode).
+
+Counterpart of ``repro.core.jobs``.  The job table is a struct of int32
+tensors sorted by (submit, id); ``SimState`` holds the per-job state
+tensors plus the three scalars the host-driven event loop reads on every
+event (``clock``, ``free``, ``n_events``), which live on the host as Python
+ints.  Per-job times and counts are ``torch.int32`` with the sentinel
+``INF_TIME = 2**30 - 1``, as in the reference.
+
+Only scalar-counter mode is carried here: no machine, no failures, no
+service plan, no malleable plan, and no dependency edges.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+# Job lifecycle states.
+PENDING = 0   # submit time is in the future
+WAITING = 1   # in the wait queue
+RUNNING = 2   # allocated nodes, executing
+DONE = 3      # completed; resources reclaimed
+
+# Sentinel "infinite" time, kept well under int32 max so that sentinel
+# arithmetic (e.g. INF + estimate) cannot wrap.
+INF_TIME = 2**30 - 1
+
+# Scheduling policies.
+FCFS = 0
+SJF = 1
+LJF = 2
+BESTFIT = 3
+BACKFILL = 4
+PREEMPT = 5
+
+POLICY_NAMES = {
+    FCFS: "fcfs",
+    SJF: "sjf",
+    LJF: "ljf",
+    BESTFIT: "bestfit",
+    BACKFILL: "backfill",
+    PREEMPT: "preempt",
+}
+POLICY_IDS = {v: k for k, v in POLICY_NAMES.items()}
+
+JOB_FIELDS = ("submit", "runtime", "estimate", "nodes", "priority", "valid")
+STATE_TENSORS = ("jstate", "start", "finish", "rsv_finish", "remaining")
+STATE_SCALARS = ("clock", "free", "n_events")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``cuda`` unless the caller names
+    another.  Without a CUDA device the default raises instead of running
+    on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class JobSet:
+    """Immutable struct-of-arrays job table, sorted by (submit, id).
+
+    ``valid`` masks padding rows.  ``estimate`` is the user's walltime
+    request (SJF/LJF order, EASY reservations); ``runtime`` the actual
+    duration.  ``host`` is a numpy copy the event loop reads single rows
+    from without a device round trip.
+    """
+
+    submit: torch.Tensor    # i32[J]
+    runtime: torch.Tensor   # i32[J] actual duration, >= 1
+    estimate: torch.Tensor  # i32[J] requested walltime, >= 1
+    nodes: torch.Tensor     # i32[J] requested nodes, >= 1
+    priority: torch.Tensor  # i32[J] lower = more important (preempt)
+    valid: torch.Tensor     # bool[J]
+
+    @property
+    def capacity(self) -> int:
+        return self.submit.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.submit.device
+
+    @functools.cached_property
+    def host(self) -> dict:
+        return {f: getattr(self, f).cpu().numpy() for f in JOB_FIELDS}
+
+    def to(self, device) -> "JobSet":
+        return JobSet(**{f: getattr(self, f).to(device) for f in JOB_FIELDS})
+
+
+def make_jobset(
+    submit,
+    runtime,
+    nodes,
+    estimate=None,
+    priority=None,
+    *,
+    deps=None,
+    capacity: int | None = None,
+    total_nodes: int | None = None,
+    device=None,
+) -> JobSet:
+    """Build a normalized ``JobSet`` from host arrays.
+
+    The same normalization as the reference: sort by (submit, original
+    index), clamp node requests to ``total_nodes``, pad to ``capacity``
+    with invalid rows, and refuse a horizon that would overflow the int32
+    sentinel.  ``device=None`` means ``cuda``.
+    """
+    if deps is not None:
+        raise NotImplementedError(
+            "dependency edges are not ported yet (ROADMAP Queue 1 item 3)")
+    device = resolve_device(device)
+    submit = np.asarray(submit, dtype=np.int64)
+    runtime = np.asarray(runtime, dtype=np.int64)
+    nodes = np.asarray(nodes, dtype=np.int64)
+    estimate = (np.asarray(estimate, dtype=np.int64) if estimate is not None
+                else runtime.copy())
+    n = submit.shape[0]
+    priority = (np.asarray(priority, dtype=np.int64) if priority is not None
+                else np.zeros(n, dtype=np.int64))
+    if not (runtime.shape[0] == nodes.shape[0] == estimate.shape[0] == n):
+        raise ValueError("job attribute arrays must have equal length")
+
+    submit = submit - (submit.min() if n else 0)
+    runtime = np.maximum(runtime, 1)
+    estimate = np.maximum(estimate, 1)
+    nodes = np.maximum(nodes, 1)
+    if total_nodes is not None:
+        nodes = np.minimum(nodes, total_nodes)
+
+    horizon = submit.max(initial=0) + 2 * max(int(runtime.max(initial=1)),
+                                              int(estimate.max(initial=1)))
+    if horizon >= INF_TIME:
+        raise ValueError(
+            f"trace horizon {horizon} overflows int32 sentinel; rescale the "
+            "trace")
+
+    order = np.lexsort((np.arange(n), submit))
+    cap = capacity or n
+    if cap < n:
+        raise ValueError(f"capacity {cap} < number of jobs {n}")
+
+    def pad(a, fill):
+        out = np.full((cap,), fill, dtype=np.int32)
+        out[:n] = a[order].astype(np.int32)
+        return torch.from_numpy(out).to(device)
+
+    valid = np.zeros((cap,), dtype=bool)
+    valid[:n] = True
+    return JobSet(
+        submit=pad(submit, INF_TIME),
+        runtime=pad(runtime, 1),
+        estimate=pad(estimate, 1),
+        nodes=pad(nodes, 1),
+        priority=pad(priority, 0),
+        valid=torch.from_numpy(valid).to(device),
+    )
+
+
+@dataclasses.dataclass
+class SimState:
+    """Simulation state of one cluster, updated in place by the engine.
+
+    The reference threads an immutable state through ``lax.while_loop``;
+    here the host drives the loop, so the per-job tensors are written in
+    place (no copy per start) and the scalars are host ints.
+    """
+
+    clock: int
+    jstate: torch.Tensor      # i32[J] in {PENDING, WAITING, RUNNING, DONE}
+    start: torch.Tensor       # i32[J] FIRST start time (INF until started)
+    finish: torch.Tensor      # i32[J] completion time (INF until started)
+    rsv_finish: torch.Tensor  # i32[J] start + estimate (EASY shadow input)
+    remaining: torch.Tensor   # i32[J] runtime left (preemption suspends work)
+    free: int                 # nodes currently free
+    n_events: int             # events processed
+
+    @classmethod
+    def init(cls, jobs: JobSet, total_nodes: int) -> "SimState":
+        J, dev = jobs.capacity, jobs.device
+        inf = torch.full((J,), INF_TIME, dtype=torch.int32, device=dev)
+        return cls(
+            clock=0,
+            jstate=torch.where(jobs.valid, PENDING, DONE).to(torch.int32),
+            start=inf,
+            finish=inf.clone(),
+            rsv_finish=inf.clone(),
+            remaining=jobs.runtime.clone(),
+            free=int(total_nodes),
+            n_events=0,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SimResult:
+    """Per-job outcome of a scalar-counter run."""
+
+    start: torch.Tensor   # i32[J]
+    finish: torch.Tensor  # i32[J]
+    ready: torch.Tensor   # i32[J] == submit (no dependencies)
+    wait: torch.Tensor    # i32[J] start - ready
+    makespan: int
+    n_events: int
+    done: torch.Tensor    # bool[J] reached DONE (False => event cap hit)
+
+
+def result_from_state(jobs: JobSet, state: SimState) -> SimResult:
+    ready = jobs.submit
+    wait = torch.where(jobs.valid, state.start - ready, 0).to(torch.int32)
+    done = (state.jstate == DONE) & jobs.valid
+    fin = torch.where(done, state.finish, 0)
+    return SimResult(
+        start=state.start,
+        finish=state.finish,
+        ready=ready,
+        wait=wait,
+        makespan=int(fin.max()),
+        n_events=state.n_events,
+        done=done,
+    )

@@ -1,0 +1,78 @@
+"""Offline metrics of a scalar-counter run (paper Fig. 4b).
+
+The PyTorch port's own copy of ``percentiles`` and ``summary`` from
+``repro.core.metrics``: pure numpy functions of the canonical result dict
+(submit, start, finish, nodes, runtime, ready, valid, done), identical to
+the reference's, so both engines' summaries agree bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+
+def percentiles(values, qs, mask=None):
+    """Exact linear-interpolation percentiles over (optionally masked)
+    job columns, numerically identical to ``numpy.percentile`` (the same
+    ``(q/100)·(n-1)`` position with the lerp evaluated from the nearer
+    endpoint).  ``qs`` may be a scalar (returns ``float``) or a sequence
+    (returns ``float64[len(qs)]``); an empty selection returns NaN."""
+    scalar = np.ndim(qs) == 0
+    values = np.asarray(values, dtype=np.float64).ravel()
+    if mask is not None:
+        values = values[np.asarray(mask, dtype=bool).ravel()]
+    qs_arr = np.atleast_1d(np.asarray(qs, dtype=np.float64))
+    if np.any((qs_arr < 0) | (qs_arr > 100)):
+        raise ValueError(f"percentiles must lie in [0, 100]; got {qs!r}")
+    if values.size == 0:
+        out = np.full(qs_arr.shape, np.nan)
+    else:
+        s = np.sort(values)
+        pos = qs_arr / 100.0 * (s.size - 1)
+        lo = np.floor(pos).astype(np.int64)
+        hi = np.minimum(lo + 1, s.size - 1)
+        t = pos - lo
+        d = s[hi] - s[lo]
+        out = np.where(t >= 0.5, s[hi] - d * (1.0 - t), s[lo] + d * t)
+    return float(out[0]) if scalar else out
+
+
+def _select_valid(res: Dict[str, np.ndarray]):
+    v = np.asarray(res["valid"], dtype=bool) & np.asarray(res["done"], dtype=bool)
+    return (
+        np.asarray(res["submit"])[v],
+        np.asarray(res["start"])[v],
+        np.asarray(res["finish"])[v],
+        np.asarray(res["nodes"])[v],
+        np.asarray(res["runtime"])[v],
+        np.asarray(res["ready"])[v],
+    )
+
+
+def summary(res, total_nodes: int) -> Dict[str, float]:
+    """Scalar metrics of the policy comparison (paper Fig. 4b), over the
+    valid jobs that finished; wait = start - ready."""
+    submit, start, finish, nodes, runtime, ready = _select_valid(res)
+    if len(submit) == 0:
+        return {k: 0.0 for k in (
+            "n_jobs", "avg_wait", "p50_wait", "p95_wait", "max_wait",
+            "avg_bounded_slowdown", "makespan", "utilization", "throughput")}
+    wait = (start - ready).astype(np.float64)
+    run = runtime.astype(np.float64)
+    bsld = np.maximum((wait + run) / np.maximum(run, 10.0), 1.0)
+    makespan = float(finish.max() - submit.min())
+    node_seconds = float((nodes.astype(np.float64) * run).sum())
+    util = node_seconds / (total_nodes * makespan) if makespan > 0 else 0.0
+    return {
+        "n_jobs": float(len(submit)),
+        "avg_wait": float(wait.mean()),
+        "p50_wait": percentiles(wait, 50),
+        "p95_wait": percentiles(wait, 95),
+        "max_wait": float(wait.max()),
+        "avg_bounded_slowdown": float(bsld.mean()),
+        "makespan": makespan,
+        "utilization": util,
+        "throughput": float(len(submit)) / makespan if makespan > 0 else 0.0,
+    }

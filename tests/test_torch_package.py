@@ -1,0 +1,61 @@
+"""Package rules of the PyTorch port: it stands alone beside the JAX package
+and builds nothing when imported."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+
+FORBIDDEN = [re.compile(p, re.MULTILINE) for p in (
+    r"^\s*(import|from)\s+jax\b",
+    r"^\s*from\s+repro(\.|\s)",
+    r"^\s*import\s+repro(\.|\s|,|$)",
+)]
+
+
+def _run(code: str) -> str:
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    return out.stdout
+
+
+def test_import_loads_no_jax_and_no_repro():
+    out = _run(
+        "import sys, repro_torch, repro_torch.convert, repro_torch.traces\n"
+        "import repro_torch.kernels._build, repro_torch.kernels.queue_select.ops\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n")
+    assert out.strip() == "[]"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(PORT)) for p in PORT.rglob("*.py")))
+def test_source_imports_neither_jax_nor_repro(path):
+    text = (PORT / path).read_text()
+    for pat in FORBIDDEN:
+        assert not pat.search(text), (path, pat.pattern)
+
+
+def test_import_and_cpu_run_build_no_kernel():
+    """Importing every module and running on the CPU neither starts nvcc
+    nor loads a kernel library."""
+    out = _run(
+        "import subprocess\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a subprocess was started')\n"
+        "subprocess.Popen = refuse\n"
+        "import repro_torch as rt\n"
+        "from repro_torch.kernels.queue_select import ops\n"
+        "scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=30), "
+        "total_nodes=64, policy='backfill')\n"
+        "rt.run(scn, device='cpu')\n"
+        "print(ops._lib.cache_info().currsize, ops.queue_select.launches)\n")
+    assert out.split() == ["0", "0"]
