@@ -1,9 +1,11 @@
 """PyTorch / CUDA port of the scheduling simulator, for NVIDIA Hopper.
 
 The JAX package ``repro`` is the reference; this package imports nothing of
-it.  This slice carries the single-cluster, scalar-counter engine with the
-six policies (fcfs, sjf, ljf, bestfit, backfill, preempt), whose every
-selection runs the ``queue_select`` CUDA kernel on a CUDA device:
+it.  It carries the single-cluster, scalar-counter engine with the six
+policies (fcfs, sjf, ljf, bestfit, backfill, preempt), whose every
+selection runs the ``queue_select`` CUDA kernel on a CUDA device, and the
+dense-family LM serving path (``repro_torch.launch.serve``), whose prefill
+runs the ``flash_attention`` CUDA kernel in every layer:
 
     import repro_torch as rt
 

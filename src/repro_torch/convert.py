@@ -1,10 +1,13 @@
-"""Carry job tables and simulation state between numpy and the port.
+"""Carry job tables, simulation state and model weights between numpy and
+the port.
 
 The tests hand the identical job table and mid-run state to both engines:
 ``{name: np.ndarray}`` dicts read off the reference's ``JobSet`` /
 ``SimState`` go in through :func:`jobset_from_numpy` and
 :func:`simstate_from_numpy`, and :func:`to_numpy` turns the port's objects
-back into such dicts.
+back into such dicts.  LM weights cross as numpy trees:
+:func:`lm_params_from_numpy` takes the JAX package's parameters (or the
+seeded ones of :func:`numpy_lm_params`) into the port's ``LM``.
 """
 
 from __future__ import annotations
@@ -15,9 +18,12 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import (
     JOB_FIELDS, STATE_SCALARS, STATE_TENSORS, JobSet, SimState,
 )
+from repro_torch.models.lm import LM, param_defs
+from repro_torch.sharding.rules import ParamDef, map_defs
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -48,3 +54,35 @@ def to_numpy(obj) -> Dict[str, np.ndarray]:
         out[f.name] = (v.cpu().numpy() if isinstance(v, torch.Tensor)
                        else np.asarray(v, dtype=np.int32))
     return out
+
+
+def lm_params_from_numpy(tree, device) -> LM:
+    """The port's LM parameters from a numpy tree of the JAX package's
+    parameters (``jax.tree.map(np.asarray, params)``) or of
+    :func:`numpy_lm_params`: the same names, shapes and dtypes, one tensor
+    per leaf, on ``device``."""
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: convert(x) for k, x in t.items()}
+        return torch.from_numpy(np.array(t)).to(device)
+    return LM(convert(tree))
+
+
+def numpy_lm_params(cfg: ModelConfig, seed: int) -> dict:
+    """Seeded numpy weights over the port's ``param_defs``: each leaf drawn
+    in turn (sorted key order) from ``np.random.default_rng(seed)`` and
+    scaled as ``init_from_defs`` scales.  The same tree feeds the JAX
+    package (``jnp.asarray`` per leaf) and, through
+    :func:`lm_params_from_numpy`, the port: this is how the golden file
+    ``tests/data/torch_lm_golden.json`` and ``chip_smoke.py`` give a card
+    without JAX the weights of a JAX run."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(d: ParamDef) -> np.ndarray:
+        if d.init == "zeros":
+            return np.zeros(d.shape, np.float32)
+        if d.init == "ones":
+            return np.ones(d.shape, np.float32)
+        return rng.standard_normal(d.shape, dtype=np.float32) * np.float32(d.std())
+
+    return map_defs(leaf, param_defs(cfg))

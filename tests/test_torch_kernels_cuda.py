@@ -50,3 +50,47 @@ def test_kernel_corners_on_card():
     with pytest.raises(ValueError, match="contiguous"):
         ops.queue_select(torch.zeros(8, dtype=torch.int32, device="cuda")[::2],
                          torch.ones(4, dtype=torch.bool, device="cuda"))
+
+
+# (B, Sq, Sk, H, KV, hd): the CPU sweep's shapes, plus the models' head
+# dims 80 and 128 with GQA and the serve shape's groups (G = 3)
+FLASH_SHAPES = [
+    (2, 256, 256, 4, 2, 64),
+    (1, 128, 384, 8, 8, 128),
+    (2, 200, 200, 4, 1, 64),
+    (1, 1, 256, 8, 2, 64),
+    (2, 64, 512, 4, 4, 32),
+    (2, 160, 160, 8, 2, 80),
+    (1, 300, 300, 24, 8, 128),
+]
+FLASH_MASKS = [(True, None), (True, 96), (False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    rng = np.random.default_rng(0)
+    for B, Sq, Sk, H, KV, hd in FLASH_SHAPES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, s, n, hd), dtype=np.float32)).to("cuda", dt)
+            for s, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+        qoff = Sk - Sq
+        for causal, window in FLASH_MASKS:
+            before = fops.flash_attention.launches
+            got = fops.flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=qoff)
+            assert fops.flash_attention.launches == before + 1
+            want = attention_reference(q, k, v, causal=causal, window=window,
+                                       q_offset=qoff)
+            torch.cuda.synchronize()
+            assert got.dtype == dt and got.shape == q.shape
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       atol=tol, rtol=tol)
