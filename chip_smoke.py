@@ -41,19 +41,46 @@ Phases, each printing one JSON line with its wall time:
              layer (28); then one profiled prefill and one profiled
              decode step, each with the top device operations, the card's
              busy share and the kernel's share of device time.
+10. linattn - linattn_scan on the card against its plain PyTorch version
+             (a token scan), y and final state, over the CPU tests' shape
+             grid in f32 and bf16, a steep-decay case, a slow-decay case
+             of ragged length 2,045 and the serve shape; then its time at
+             the serve shape beside the plain version and the bound (no
+             PyTorch call computes WKV6, so no library time).
+11. rwkv_golden - reduced rwkv6-7b in f32 on the kernel path, with its
+             zero-init leaves drawn live, held to the JAX package's
+             prefill logits and generated tokens (the rwkv entry of
+             tests/data/torch_lm_golden.json).
+12. rwkv_serve - rwkv6-7b at full width and depth, with live leaves
+             (29.06 GB of f32 weights, after the llama weights are freed):
+             (a) an f32 prefill of one 512-token prompt on the kernel path
+             against the plain wkv_chunked path, last-position logits and
+             every layer's final WKV state; (b) the bf16 serve of 4 prompts
+             of 2,048 tokens plus 32 generated tokens each through
+             serve_batch, cold then warm, which must launch the kernel once
+             per layer (32); then one profiled prefill and one profiled
+             decode step, as in phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4 and 5 for queue_select, the serve of phase 9 for flash_attention)
-and read after it; a run that did not launch the kernel fails.  TF32 is
-off for matrix products and convolutions throughout.  The script catches
-nothing: any failed check exits non-zero.  The last lines are the kernels
-table, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
+(phases 4 and 5 for queue_select, the serve of phase 9 for flash_attention,
+the serve of phase 12 for linattn_scan) and read after it; a run that did
+not launch the kernel fails.  TF32 is off for matrix products and
+convolutions throughout.  The script catches nothing: any failed check
+exits non-zero.  The last lines are the kernels table, the nvidia-smi line
+and ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --only linattn,rwkv_golden
+
+runs the env and build phases and the named ones alone (a rehearsal: it
+prints neither the kernels table nor the ok line).
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -65,6 +92,7 @@ GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 LM_GOLDEN = ROOT / "tests" / "data" / "torch_lm_golden.json"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 BIG = 2**30 - 1
 TIMED_LAUNCHES = 200
 ARCHIVE_JOBS = 73_496            # SDSC-SP2 log's job count
@@ -84,7 +112,20 @@ FLASH_TIMED = 50
 SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
 CHECK_LEN = 512                  # phase 9a's prompt
 LM_TOL = 5e-4                    # f32 logits, see tests/test_torch_lm.py
-CHECK_TOL = 1e-4                 # phase 9a, f32, kernel vs plain path
+CHECK_TOL = 1e-4                 # phases 9a and 12a, f32, kernel vs plain path
+# linattn grid: (B, H, S, K, logw), logw None for -exp(N(0, 0.5^2)) as in
+# test_kernels.py::test_linattn_sweep, else a constant
+LINATTN_CASES = [
+    (2, 3, 64, 16, None), (1, 2, 128, 64, None), (2, 1, 100, 32, None),
+    (1, 4, 256, 64, None), (1, 2, 77, 128, None), (2, 2, 33, 64, None),
+    (1, 2, 256, 32, -6.0),                    # steep decay
+    (2, 4, 2045, 64, -math.exp(-6.0)),        # slow decay, ragged length
+    (4, 64, 2048, 64, None),                  # the serve shape
+]
+LINATTN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # as tests/test_kernels.py
+LINATTN_TIMED, LINATTN_PLAIN_TIMED = 50, 3
+RWKV_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
+RWKV_LIVE_SEED = 7
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -111,10 +152,10 @@ def digest(a) -> str:
                           ).hexdigest()
 
 
-def time_ms(fn, n: int = TIMED_LAUNCHES) -> float:
+def time_ms(fn, n: int = TIMED_LAUNCHES, warm: int = 10) -> float:
     """Median of ``n`` calls, each timed with a CUDA event pair."""
     import torch
-    for _ in range(10):
+    for _ in range(warm):
         fn()
     pairs = []
     for _ in range(n):
@@ -357,23 +398,26 @@ def phase_flash(torch, np):
     return max(max_err.values()), timing
 
 
-def phase_lm_golden(torch, np):
-    """Reduced llama3.2-3b, f32, on the kernel path: the JAX package's
-    prefill logits and generated tokens."""
+def phase_lm_golden(torch, np, arch="llama3.2-3b", phase="lm_golden"):
+    """A reduced model, f32, on the kernel path: the JAX package's prefill
+    logits and generated tokens, from its entry of the golden file."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
-    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.linattn_scan.ops import linattn
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import lm
     t0 = time.time()
-    g = json.loads(LM_GOLDEN.read_text())
+    g, = [e for e in json.loads(LM_GOLDEN.read_text()) if e["arch"] == arch]
     cfg = dataclasses.replace(get_config(g["arch"]).reduced(), use_pallas=True)
-    params = lm_params_from_numpy(numpy_lm_params(cfg, g["seed"]), "cuda")
-    before = ops.flash_attention.launches
+    op = linattn if cfg.family == "rwkv" else flash_attention
+    params = lm_params_from_numpy(numpy_lm_params(
+        cfg, g["seed"], live_seed=g.get("live_seed")), "cuda")
+    before = op.launches
     last, _ = lm.prefill(
         params, {"tokens": torch.tensor(g["prompts"], device="cuda")}, cfg)
-    check(ops.flash_attention.launches == before + cfg.n_layers,
+    check(op.launches == before + cfg.n_layers,
           "the golden prefill did not run the kernel in every layer")
     last = last.cpu().numpy()
     err = float(np.abs(last - np.asarray(g["last_logits"])).max())
@@ -382,9 +426,10 @@ def phase_lm_golden(torch, np):
     seqs, _ = serve_batch(cfg, g["batch"], g["prompt_len"], g["gen"],
                           seed=g["seed"], params=params, device="cuda")
     check(seqs.tolist() == g["tokens"], "golden tokens differ from JAX's")
-    ops.flash_attention.launches = 0
-    emit("lm_golden", t0, arch=g["arch"], reduced=True, dtype=cfg.dtype,
+    op.launches = 0
+    emit(phase, t0, arch=g["arch"], reduced=True, dtype=cfg.dtype,
          batch=g["batch"], prompt_len=g["prompt_len"], gen=g["gen"],
+         live_leaves=g.get("live_seed") is not None,
          max_abs_err=err, tol=LM_TOL, tokens_equal_jax=True)
 
 
@@ -477,26 +522,215 @@ def phase_serve(torch, np):
     tok = seqs[:, SERVE["prompt_len"]]
     step = lambda: lm.decode_step(params, tok, SERVE["prompt_len"], cache, cfg)  # noqa: E731
     step()                                     # warm
-    for name, fn in (("prefill", lambda: lm.prefill(params, batch, cfg)),
-                     ("decode_step", step)):
-        t0 = time.time()
-        dev, wall_us = profiled(torch, fn)
-        busy_us = sum(us for _, us in dev.values())
-        flash_us = sum(us for n, (_, us) in dev.items() if "flash_fwd" in n)
-        top = sorted(dev.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
-        emit("serve_profile", t0, what=name, wall_s=wall_us / 1e6,
-             device_busy_s=busy_us / 1e6,
-             device_busy_share=busy_us / wall_us if dev else "not measured",
-             device_events=sum(k for k, _ in dev.values()),
-             flash_device_s=flash_us / 1e6,
-             flash_share_of_device=flash_us / busy_us if dev
-             else "not measured",
-             top_device_us={n[:60]: us for n, (_, us) in top})
+    profile_serve(torch, "serve_profile", "flash",
+                  lambda: lm.prefill(params, batch, cfg), step)
     ops.flash_attention.launches = 0
     return launches
 
 
-def main() -> int:
+def profile_serve(torch, phase, kernel, prefill, step) -> None:
+    """One profiled prefill and one profiled decode step: top device
+    operations, the device's busy share, the kernel's share (by the name
+    of its CUDA function, ``<kernel>_fwd``)."""
+    for name, fn in (("prefill", prefill), ("decode_step", step)):
+        t0 = time.time()
+        dev, wall_us = profiled(torch, fn)
+        busy_us = sum(us for _, us in dev.values())
+        kernel_us = sum(us for n, (_, us) in dev.items()
+                        if f"{kernel}_fwd" in n)
+        top = sorted(dev.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
+        emit(phase, t0, what=name, wall_s=wall_us / 1e6,
+             device_busy_s=busy_us / 1e6,
+             device_busy_share=busy_us / wall_us if dev else "not measured",
+             device_events=sum(k for k, _ in dev.values()),
+             **{f"{kernel}_device_s": kernel_us / 1e6,
+                f"{kernel}_share_of_device": kernel_us / busy_us if dev
+                else "not measured"},
+             top_device_us={n[:60]: us for n, (_, us) in top})
+
+
+def phase_linattn(torch, np):
+    from repro_torch.kernels.linattn_scan import ops, ref
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    n_checks, max_err = 0, dict.fromkeys(LINATTN_TOL, 0.0)
+    max_rel = dict.fromkeys(LINATTN_TOL, 0.0)
+    for B, H, S, K, logw in LINATTN_CASES:
+        base = [rng.standard_normal((B, H, S, K), dtype=np.float32) * 0.5
+                for _ in range(3)]
+        lw = (-np.exp(rng.standard_normal((B, H, S, K), dtype=np.float32)
+                      * 0.5) if logw is None
+              else np.full((B, H, S, K), logw, np.float32))
+        lw = torch.from_numpy(lw).to("cuda")
+        u = torch.from_numpy(rng.standard_normal((H, K), dtype=np.float32)
+                             * 0.5).to("cuda")
+        for dtype, tol in LINATTN_TOL.items():
+            r, k, v = (torch.from_numpy(a).to("cuda", getattr(torch, dtype))
+                       for a in base)
+            y, st = ops.linattn(r, k, v, lw, u, return_state=True)
+            wy, wst = ref.linattn_reference(r, k, v, lw, u)
+            d = (y.float() - wy.float()).abs().max().item()
+            ds = (st - wst).abs().max().item()
+            ey = d / (wy.float().abs().max().item() + 1e-6)
+            es = ds / (wst.abs().max().item() + 1e-6)
+            check(y.dtype == r.dtype and st.dtype == torch.float32
+                  and bool(torch.isfinite(y).all())
+                  and ey < tol and es < LINATTN_TOL["float32"],
+                  f"linattn {dtype} {(B, H, S, K)} logw={logw}: y off by "
+                  f"{ey} of its largest entry, state by {es}")
+            max_err[dtype] = max(max_err[dtype], d)
+            max_rel[dtype] = max(max_rel[dtype], ey, es)
+            n_checks += 1
+    del r, k, v, y, st, wy, wst, lw
+
+    # timing at the serve shape, in the model's layout: bf16 r/k/v and f32
+    # logw as [B, H, S, K] views of [B, S, H, K] tensors
+    B, H, S, K = 4, 64, RWKV_SERVE["prompt_len"], 64
+    r, k, v = (0.5 * torch.randn((B, S, H, K), device="cuda",
+                                 dtype=torch.bfloat16) for _ in range(3))
+    lw = -torch.exp(0.5 * torch.randn((B, S, H, K), device="cuda"))
+    r, k, v, lw = (x.transpose(1, 2) for x in (r, k, v, lw))
+    u = 0.5 * torch.randn((H, K), device="cuda")
+    y, st = ops.linattn(r, k, v, lw, u, return_state=True)
+    wy, wst = ref.linattn_reference(r, k, v, lw, u)
+    check(float((y.float() - wy.float()).abs().max()
+                / wy.float().abs().max()) < LINATTN_TOL["bfloat16"]
+          and float((st - wst).abs().max() / wst.abs().max())
+          < LINATTN_TOL["float32"], "linattn at the serve shape, model layout")
+    del y, st, wy, wst
+    kernel_ms = time_ms(lambda: ops.linattn(r, k, v, lw, u, return_state=True),
+                        LINATTN_TIMED)
+    plain_ms = time_ms(lambda: ref.linattn_reference(r, k, v, lw, u),
+                       LINATTN_PLAIN_TIMED, warm=1)
+    # each input read once, y and the state written once; the recurrence's
+    # least arithmetic, 4 K^2 f32 flops a step and head (r.S, and the
+    # decay and rank-1 update of S), at the f32 rate outside the tensor cores
+    nbytes = (3 * r.numel() * r.element_size() + lw.numel() * lw.element_size()
+              + u.numel() * 4 + r.numel() * r.element_size() + B * H * K * K * 4)
+    flops = 4 * K * K * B * H * S
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    # what the Pallas kernel's chunk form does at its chunk of 128, for
+    # comparison: 7 Q^2 K + 4 Q K^2 flops and Q^2 K exponentials a chunk
+    Q = 128
+    chunks = B * H * -(-S // Q)
+    ops.linattn.launches = 0
+    timing = {"shape": f"B={B} H={H} S={S} K={K} r/k/v bf16 logw f32, "
+                       "[B, S, H, K] layout",
+              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "library_ms": None,
+              "library_call": "none: no PyTorch call computes WKV6",
+              "flops": flops, "bytes": nbytes,
+              "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+              "bytes_ms": bytes_ms,
+              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+              "pallas_chunk_form_flops": chunks * (7 * Q * Q * K + 4 * Q * K * K),
+              "pallas_chunk_form_exps": chunks * Q * Q * K}
+    emit("linattn", t0, checks=n_checks, tf32=False,
+         max_abs_err_f32=max_err["float32"],
+         max_abs_err_bf16=max_err["bfloat16"],
+         max_rel_err_f32=max_rel["float32"],
+         max_rel_err_bf16=max_rel["bfloat16"], **timing)
+    return max(max_err.values()), timing
+
+
+def phase_rwkv_serve(torch, np):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import set_rwkv_live_leaves
+    from repro_torch.kernels.linattn_scan import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+    from repro_torch.models.api import get_model
+    torch.cuda.empty_cache()        # the llama weights are gone by now
+    t0 = time.time()
+    base = get_config("rwkv6-7b")
+    model = get_model(base)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    set_rwkv_live_leaves(params.tree(), base, RWKV_LIVE_SEED)
+
+    # (a) f32 at full width: the kernel path against the plain path
+    cfg32 = dataclasses.replace(base, dtype="float32", use_pallas=True)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, base.vocab - 1, (1, CHECK_LEN))).to("cuda")
+    got, gc = lm.prefill(params, {"tokens": toks}, cfg32)
+    want, wc = lm.prefill(params, {"tokens": toks},
+                          dataclasses.replace(cfg32, use_pallas=False))
+    state_err = float((gc["wkv"] - wc["wkv"]).abs().max()
+                      / wc["wkv"].abs().max())
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    err = float(np.abs(got - want).max())
+    check(bool(np.isfinite(got).all()) and got.shape == (1, base.vocab)
+          and tuple(gc["wkv"].shape) == (base.n_layers, 1, base.d_model // 64,
+                                         64, 64),
+          "full-width f32 rwkv prefill: logits or state not finite or "
+          "misshapen")
+    check(np.allclose(got, want, atol=CHECK_TOL, rtol=CHECK_TOL),
+          f"full-width f32 rwkv prefill: kernel path off the plain path by "
+          f"{err}")
+    check(state_err < CHECK_TOL, f"full-width f32 rwkv prefill: final WKV "
+          f"states off the plain path's by {state_err} of their largest entry")
+    emit("rwkv_serve_check", t0, arch=base.name, dtype="float32",
+         prompt_len=CHECK_LEN, live_leaves=True, max_abs_err=err,
+         tol=CHECK_TOL, max_abs_logit=float(np.abs(want).max()),
+         state_max_rel_err=state_err,
+         argmax_equal=bool((got.argmax(-1) == want.argmax(-1)).all()))
+    del gc, wc
+
+    # (b) the bf16 serve through serve_batch, twice (cold, then warm)
+    t0 = time.time()
+    cfg = dataclasses.replace(base, use_pallas=True)
+    prompts = np.random.default_rng(0).integers(
+        1, base.vocab - 1, (RWKV_SERVE["batch"], RWKV_SERVE["prompt_len"]))
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        ops.linattn.launches = 0
+        seqs, stats = serve_batch(cfg, **RWKV_SERVE, seed=0, params=params,
+                                  device="cuda")
+        launches = ops.linattn.launches
+        check(launches == base.n_layers,
+              f"serve launched linattn_scan {launches} times, expected "
+              f"{base.n_layers}")
+        out = seqs.cpu().numpy()
+        total = RWKV_SERVE["prompt_len"] + RWKV_SERVE["gen"]
+        check(out.shape == (RWKV_SERVE["batch"], total)
+              and (out[:, :RWKV_SERVE["prompt_len"]] == prompts).all()
+              and ((out >= 0) & (out < base.vocab)).all(),
+              "rwkv serve returned malformed sequences")
+        emit("rwkv_serve", t0, run=run, arch=base.name, dtype=cfg.dtype,
+             **RWKV_SERVE, n_params=model.n_params(), live_leaves=True,
+             linattn_launches=launches,
+             prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+             decode_tok_per_s=stats["decode_tok_per_s"],
+             total_tok_per_s=stats["tok_per_s"], seconds=stats["seconds"],
+             prefill_tok_per_s=RWKV_SERVE["batch"] * RWKV_SERVE["prompt_len"]
+             / stats["prefill_s"],
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # (c) one profiled prefill and one profiled decode step
+    batch = {"tokens": torch.from_numpy(prompts).to("cuda")}
+    _, cache = lm.prefill(params, batch, cfg)
+    tok = seqs[:, RWKV_SERVE["prompt_len"]]
+    step = lambda: lm.decode_step(params, tok, RWKV_SERVE["prompt_len"],  # noqa: E731
+                                  cache, cfg)
+    step()                                     # warm
+    profile_serve(torch, "rwkv_serve_profile", "linattn",
+                  lambda: lm.prefill(params, batch, cfg), step)
+    ops.linattn.launches = 0
+    return launches
+
+
+PHASES = ("kernel", "golden", "archive", "profile", "flash", "lm_golden",
+          "serve", "linattn", "rwkv_golden", "rwkv_serve")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", type=lambda a: a.split(","), default=None,
+                    help="comma-separated phases to run after env and build "
+                         f"(of {', '.join(PHASES)}); a rehearsal")
+    only = ap.parse_args(argv).only
+    if only is not None and not set(only) <= set(PHASES):
+        ap.error(f"unknown phases {sorted(set(only) - set(PHASES))}")
     t_all = time.time()
     import torch
     if not torch.cuda.is_available():
@@ -530,12 +764,30 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     emit("build", t0, sources=list(logs), ptxas=ptxas)
 
-    max_err, timing = phase_kernel(torch, np, ops, ref)
-    launches = phase_golden(rt, ops) + phase_archive(rt, ops, np)
-    phase_profile(torch, rt)
-    flash_err, flash = phase_flash(torch, np)
-    phase_lm_golden(torch, np)
-    flash_launches = phase_serve(torch, np)
+    phases = {
+        "kernel": lambda: phase_kernel(torch, np, ops, ref),
+        "golden": lambda: phase_golden(rt, ops),
+        "archive": lambda: phase_archive(rt, ops, np),
+        "profile": lambda: phase_profile(torch, rt),
+        "flash": lambda: phase_flash(torch, np),
+        "lm_golden": lambda: phase_lm_golden(torch, np),
+        "serve": lambda: phase_serve(torch, np),
+        "linattn": lambda: phase_linattn(torch, np),
+        "rwkv_golden": lambda: phase_lm_golden(torch, np, "rwkv6-7b",
+                                               "rwkv_golden"),
+        "rwkv_serve": lambda: phase_rwkv_serve(torch, np)}
+    out = {name: phases[name]() for name in PHASES
+           if only is None or name in only}
+    if only is not None:
+        emit("total", t_all, only=only)
+        return 0
+
+    max_err, timing = out["kernel"]
+    launches = out["golden"] + out["archive"]
+    flash_err, flash = out["flash"]
+    flash_launches = out["serve"]
+    lin_err, lin = out["linattn"]
+    lin_launches = out["rwkv_serve"]
 
     print(json.dumps({"kernels": [{
         "name": "queue_select",
@@ -570,6 +822,22 @@ def main() -> int:
         "shape": flash["shape"],
         "flops": flash["flops"],
         "bytes": flash["bytes"],
+    }, {
+        "name": "linattn_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/linattn_scan/csrc/linattn_scan.cu",
+        "replaces": "src/repro/kernels/linattn_scan/kernel.py:23",
+        "launches": lin_launches,
+        "max_abs_err": lin_err,
+        "ms": lin["kernel_ms"],
+        "plain_ms": lin["plain_ms"],
+        "bound_ms": lin["bound_ms"],
+        "bound_by": lin["bound_by"],
+        "library_ms": lin["library_ms"],
+        "library_call": lin["library_call"],
+        "shape": lin["shape"],
+        "flops": lin["flops"],
+        "bytes": lin["bytes"],
     }]}), flush=True)
     emit("total", t_all)
     print(smi, flush=True)

@@ -7,13 +7,15 @@ The tests hand the identical job table and mid-run state to both engines:
 :func:`simstate_from_numpy`, and :func:`to_numpy` turns the port's objects
 back into such dicts.  LM weights cross as numpy trees:
 :func:`lm_params_from_numpy` takes the JAX package's parameters (or the
-seeded ones of :func:`numpy_lm_params`) into the port's ``LM``.
+seeded ones of :func:`numpy_lm_params`) into the port's ``LM``, and
+:func:`set_rwkv_live_leaves` draws the rwkv leaves that the initializer
+leaves at zero.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -68,14 +70,16 @@ def lm_params_from_numpy(tree, device) -> LM:
     return LM(convert(tree))
 
 
-def numpy_lm_params(cfg: ModelConfig, seed: int) -> dict:
+def numpy_lm_params(cfg: ModelConfig, seed: int,
+                    live_seed: Optional[int] = None) -> dict:
     """Seeded numpy weights over the port's ``param_defs``: each leaf drawn
     in turn (sorted key order) from ``np.random.default_rng(seed)`` and
-    scaled as ``init_from_defs`` scales.  The same tree feeds the JAX
-    package (``jnp.asarray`` per leaf) and, through
-    :func:`lm_params_from_numpy`, the port: this is how the golden file
-    ``tests/data/torch_lm_golden.json`` and ``chip_smoke.py`` give a card
-    without JAX the weights of a JAX run."""
+    scaled as ``init_from_defs`` scales; with ``live_seed``, an rwkv
+    model's zero-init leaves are then drawn by :func:`set_rwkv_live_leaves`
+    from that seed.  The same tree feeds the JAX package (``jnp.asarray``
+    per leaf) and, through :func:`lm_params_from_numpy`, the port: this is
+    how the golden file ``tests/data/torch_lm_golden.json`` and
+    ``chip_smoke.py`` give a card without JAX the weights of a JAX run."""
     rng = np.random.default_rng(seed)
 
     def leaf(d: ParamDef) -> np.ndarray:
@@ -85,4 +89,35 @@ def numpy_lm_params(cfg: ModelConfig, seed: int) -> dict:
             return np.ones(d.shape, np.float32)
         return rng.standard_normal(d.shape, dtype=np.float32) * np.float32(d.std())
 
-    return map_defs(leaf, param_defs(cfg))
+    tree = map_defs(leaf, param_defs(cfg))
+    if live_seed is not None:
+        set_rwkv_live_leaves(tree, cfg, live_seed)
+    return tree
+
+
+def set_rwkv_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
+    """Draw, in place, the rwkv leaves that ``init`` leaves at zero, so that
+    a random model exercises what they switch on.  Test data, not a
+    feature: with ``mu = 0`` the token shifts do nothing, with ``u = 0`` the
+    bonus does nothing, and with ``w0 = 0`` the per-step decay is about
+    e^-1, so the state carried from one chunk to the next barely reaches
+    the output.  Drawn here: ``time_mix.mu`` and ``channel_mix.mu`` in
+    (0, 1), ``u`` ~ N(0, 0.5^2), and ``w0`` per channel in (-6, -1) (the
+    span of RWKV6's own init: per-step decays from 0.998 down).
+
+    ``tree`` is a parameter tree with numpy or torch leaves (an ``LM``'s
+    ``tree()``); the values come from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    L, D = cfg.n_layers, cfg.d_model
+    new = {("time_mix", "mu"): rng.uniform(0.0, 1.0, (L, 5, D)),
+           ("channel_mix", "mu"): rng.uniform(0.0, 1.0, (L, 2, D)),
+           ("time_mix", "u"): rng.normal(0.0, 0.5, (L, D)),
+           ("time_mix", "w0"): rng.uniform(-6.0, -1.0, (L, D))}
+    for (group, name), a in new.items():
+        leaf = tree["blocks"][group][name]
+        a = a.astype(np.float32)
+        if isinstance(leaf, torch.Tensor):
+            with torch.no_grad():
+                leaf.copy_(torch.from_numpy(a))
+        else:
+            tree["blocks"][group][name] = a

@@ -4,13 +4,16 @@
         --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --reduced --batch 2 --prompt-len 24 --gen 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --batch 4 --prompt-len 2048 --gen 32
 
-The request path: a batch of prompts -> ``prefill`` (every layer's
-attention on the flash-attention CUDA kernel when ``use_pallas`` is set)
--> its K/V laid into the decode cache -> greedy ``decode_step`` with
-ring-buffer caches for sliding-window configs.  The JAX package's
-``serve_batch`` prefills through decode steps instead; both give the same
-tokens.
+The request path: a batch of prompts -> ``prefill`` (with ``use_pallas``
+set, every layer's attention on the flash-attention CUDA kernel, or, for
+rwkv, every layer's time-mix on the linattn_scan CUDA kernel) -> its
+K/V laid into the decode cache, or for rwkv the recurrent cache it leaves
+-> greedy ``decode_step`` with ring-buffer caches for sliding-window
+configs.  The JAX package's ``serve_batch`` prefills through decode steps
+instead; both give the same tokens.
 """
 
 from __future__ import annotations
@@ -75,8 +78,11 @@ def serve_batch(cfg, batch: int, prompt_len: int, gen: int, seed: int = 0,
     _sync(device)
     t0 = time.perf_counter()
     logits, prefilled = model.prefill(params, {"tokens": prompts})
-    cache = _prefill_cache(model, prefilled, batch, prompt_len, total_len,
-                           device)
+    if cfg.family == "rwkv":   # a recurrent cache has no sequence axis
+        cache = prefilled
+    else:
+        cache = _prefill_cache(model, prefilled, batch, prompt_len,
+                               total_len, device)
     del prefilled
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     _sync(device)

@@ -1,5 +1,5 @@
-"""Family-dispatching facade over the port's models (the dense family so
-far): counterpart of ``repro.models.api``."""
+"""Family-dispatching facade over the port's models (the dense and rwkv
+families so far): counterpart of ``repro.models.api``."""
 
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ class ModelAPI:
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    lm.require_dense(cfg)
+    lm.require_ported(cfg)
     return ModelAPI(
         cfg=cfg,
         param_defs=lm.param_defs(cfg),

@@ -1,6 +1,7 @@
-"""Decoder-only LM, dense family: parameters, full forward, prefill, decode.
+"""Decoder-only LM, dense and rwkv families: parameters, full forward,
+prefill, decode.
 
-Counterpart of the dense-family half of ``repro.models.lm``.  One
+Counterpart of the dense and rwkv parts of ``repro.models.lm``.  One
 declarative ``param_defs`` tree with stacked ``[L, ...]`` layer leaves, the
 JAX package's names and shapes, held in an :class:`LM` module; the building
 blocks are plain functions on its tree:
@@ -12,7 +13,9 @@ blocks are plain functions on its tree:
 A Python loop over the layers takes the place of ``lax.scan``.  The
 projections and the unembedding are plain matrix products; attention over
 the whole sequence goes through ``attention.attend``, which runs the CUDA
-kernel when ``cfg.use_pallas`` is set.
+kernel when ``cfg.use_pallas`` is set, and the rwkv time-mix over the whole
+sequence through ``rwkv.apply_time_mix``, which runs the ``linattn_scan``
+CUDA kernel when it is set.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, apply_rope, compute_dtype, embed_defs,
     embed_tokens, logits_from_hidden, mlp_defs, norm_defs, rms_norm_simple,
@@ -33,13 +37,17 @@ from repro_torch.sharding.rules import ParamDef
 Tree = Dict[str, Any]
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """The port carries the dense family so far; the others raise."""
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "rwkv")
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """The port carries the dense and rwkv families so far; the others
+    raise."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
-            "yet (ROADMAP Queue 1 item 10: moe, hybrid, rwkv, vlm and encdec "
-            "come after the dense family)")
+            "yet (ROADMAP Queue 1 item 10: moe, hybrid, vlm and encdec come "
+            "after the dense and rwkv families)")
 
 
 # ---------------------------------------------------------------------------
@@ -56,17 +64,33 @@ def _block_defs(cfg: ModelConfig, layers: tuple[int, ...]):
 
 
 def param_defs(cfg: ModelConfig) -> Tree:
-    require_dense(cfg)
+    require_ported(cfg)
+    L = (cfg.n_layers,)
+    if cfg.family == "rwkv":
+        blocks = {"ln1": norm_defs(cfg, L), "ln2": norm_defs(cfg, L),
+                  **rwkv_mod.rwkv_defs(cfg, L)}
+    else:
+        blocks = _block_defs(cfg, L)
     return {"embed": embed_defs(cfg), "final_norm": norm_defs(cfg),
-            "blocks": _block_defs(cfg, (cfg.n_layers,))}
+            "blocks": blocks}
 
 
 def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> Tree:
-    """Decode-cache ParamDef tree: per-layer K and V, ``[L, B, C, KV, hd]``
-    in the compute dtype, where C is ``seq`` or, for a sliding-window
-    config, at most the window (a ring buffer)."""
-    require_dense(cfg)
+    """Decode-cache ParamDef tree.  Dense: per-layer K and V,
+    ``[L, B, C, KV, hd]`` in the compute dtype, where C is ``seq`` or, for
+    a sliding-window config, at most the window (a ring buffer).  rwkv:
+    per-layer WKV state ``[L, B, H, 64, 64]`` in f32 and the two token-shift
+    inputs ``[L, B, D]`` in the compute dtype, whatever ``seq``."""
+    require_ported(cfg)
     dt = compute_dtype(cfg)
+    if cfg.family == "rwkv":
+        H, hd = cfg.d_model // rwkv_mod.HEAD, rwkv_mod.HEAD
+        shift = ParamDef((cfg.n_layers, batch, cfg.d_model),
+                         ("layers", "cache_batch", None), init="zeros", dtype=dt)
+        return {"wkv": ParamDef((cfg.n_layers, batch, H, hd, hd),
+                                ("layers", "cache_batch", "state", None, None),
+                                init="zeros", dtype=torch.float32),
+                "shift_att": shift, "shift_ffn": shift}
     cache_len = min(seq, cfg.window) if cfg.window else seq
     shape = (cfg.n_layers, batch, cache_len, cfg.kv_heads_c, cfg.head_dim)
     axes = ("layers", "cache_batch", "cache_seq", "kv", None)
@@ -157,6 +181,17 @@ def _block(cfg, p, h, positions, *, cache=None, pos=None):
     return h + apply_mlp(p["mlp"], m, cfg), new_cache
 
 
+def _rwkv_block(cfg, p, h, *, cache=None):
+    """One rwkv layer; returns (h, the layer's cache after it)."""
+    a = apply_norm(p["ln1"], h, cfg)
+    y, c_att = rwkv_mod.apply_time_mix(p["time_mix"], a, cfg, cache=cache)
+    h = h + y
+    m = apply_norm(p["ln2"], h, cfg)
+    y, c_ffn = rwkv_mod.apply_channel_mix(p["channel_mix"], m, cfg,
+                                          cache=cache)
+    return h + y, {**c_att, **c_ffn}
+
+
 # ---------------------------------------------------------------------------
 # full forward passes
 # ---------------------------------------------------------------------------
@@ -165,7 +200,11 @@ def _stack_forward(cfg, params, h, positions, collect_cache: bool):
     """The layers in turn; returns (h, cache tree or None)."""
     cache = None
     for i in range(cfg.n_layers):
-        h, kv = _block(cfg, _layer(params["blocks"], i), h, positions)
+        lp = _layer(params["blocks"], i)
+        if cfg.family == "rwkv":
+            h, kv = _rwkv_block(cfg, lp, h)
+        else:
+            h, kv = _block(cfg, lp, h, positions)
         if collect_cache:
             if cache is None:
                 cache = {n: t.new_empty((cfg.n_layers,) + t.shape)
@@ -186,7 +225,7 @@ def _embed_inputs(cfg, params, batch):
 
 def _backbone(params, batch, cfg: ModelConfig, *, collect_cache):
     """Embed + blocks + final norm; returns (h, cache)."""
-    require_dense(cfg)
+    require_ported(cfg)
     h, positions = _embed_inputs(cfg, params, batch)
     h, cache = _stack_forward(cfg, params, h, positions, collect_cache)
     return apply_norm(params["final_norm"], h, cfg), cache
@@ -211,8 +250,14 @@ def forward(params: LM, batch, cfg: ModelConfig, *, collect_cache=False,
 # ---------------------------------------------------------------------------
 
 def prefill(params: LM, batch, cfg: ModelConfig):
-    """Process a full prompt; emit last-position logits and the per-layer
-    K/V of every prompt position, ``[L, B, S, KV, hd]``."""
+    """Process a full prompt; emit last-position logits and a cache.
+
+    Dense: the per-layer K/V of every prompt position,
+    ``[L, B, S, KV, hd]``.  rwkv: the decode cache itself (``cache_defs``),
+    the per-layer final WKV state and the last prompt position of the ln1
+    and ln2 outputs that enter the token shifts.  (The JAX package's
+    ``prefill`` returns no cache for rwkv, and its ``serve_batch`` builds
+    the cache through decode steps instead.)"""
     logits, cache = forward(params, batch, cfg, collect_cache=True,
                             last_only=True)
     return logits[:, -1], cache
@@ -222,12 +267,18 @@ def decode_step(params: LM, tokens: torch.Tensor, pos: int, cache: Tree,
                 cfg: ModelConfig):
     """One decode step.  tokens: [B] ints; pos: the position they take;
     cache: the ``cache_defs`` tree, updated in place and returned."""
-    require_dense(cfg)
+    require_ported(cfg)
     params = params.tree()
     h = embed_tokens(params["embed"], tokens[:, None], cfg)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)
     for i in range(cfg.n_layers):
-        h, _ = _block(cfg, _layer(params["blocks"], i), h, positions,
-                      cache={"k": cache["k"][i], "v": cache["v"][i]}, pos=pos)
+        lp = _layer(params["blocks"], i)
+        layer_cache = {n: t[i] for n, t in cache.items()}
+        if cfg.family == "rwkv":
+            h, new = _rwkv_block(cfg, lp, h, cache=layer_cache)
+            for n, t in new.items():      # in place, as the dense K/V
+                cache[n][i] = t
+        else:
+            h, _ = _block(cfg, lp, h, positions, cache=layer_cache, pos=pos)
     h = apply_norm(params["final_norm"], h, cfg)
     return logits_from_hidden(params["embed"], h, cfg)[:, 0], cache

@@ -94,3 +94,79 @@ def test_flash_kernel_matches_plain_on_card(dtype):
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(),
                                        atol=tol, rtol=tol)
+
+
+# (B, H, S, K): the CPU sweep's shapes (test_kernels.py::test_linattn_sweep)
+# plus K = 128 and ragged lengths past one 32-step tile
+LINATTN_SHAPES = [
+    (2, 3, 64, 16),
+    (1, 2, 128, 64),
+    (2, 1, 100, 32),
+    (1, 4, 256, 64),
+    (1, 2, 77, 128),
+    (2, 2, 33, 64),
+]
+
+
+def _linattn_inputs(rng, B, H, S, K, dt, logw=None):
+    r, k, v = (torch.from_numpy(rng.standard_normal(
+        (B, H, S, K), dtype=np.float32) * 0.5).to("cuda", dt)
+        for _ in range(3))
+    if logw is None:
+        lw = -np.exp(rng.standard_normal((B, H, S, K), dtype=np.float32) * 0.5)
+    else:
+        lw = np.full((B, H, S, K), logw, np.float32)
+    u = torch.from_numpy(rng.standard_normal((H, K), dtype=np.float32)
+                         * 0.5).cuda()
+    return r, k, v, torch.from_numpy(lw).cuda(), u
+
+
+def _linattn_errs(got, want):
+    """Errors relative to the largest reference entry, as test_kernels.py
+    measures them: (y, state)."""
+    (y, s), (wy, ws) = got, want
+    ey = (y.float() - wy.float()).abs().max() / (wy.float().abs().max() + 1e-6)
+    es = (s - ws).abs().max() / (ws.abs().max() + 1e-6)
+    return float(ey), float(es)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_linattn_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.linattn_scan import ops as lops
+    from repro_torch.kernels.linattn_scan.ref import linattn_reference
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 5e-2
+    rng = np.random.default_rng(0)
+    for B, H, S, K in LINATTN_SHAPES:
+        args = _linattn_inputs(rng, B, H, S, K, dt)
+        before = lops.linattn.launches
+        got = lops.linattn(*args, return_state=True)
+        assert lops.linattn.launches == before + 1
+        want = linattn_reference(*args)
+        torch.cuda.synchronize()
+        assert got[0].dtype == dt and got[1].dtype == torch.float32
+        ey, es = _linattn_errs(got, want)
+        assert ey < tol and es < 1e-4, ((B, H, S, K), ey, es)
+        # the model's layout: [B, H, S, K] views of [B, S, H, K] tensors
+        views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                 for x in args[:4]]
+        y, s = lops.linattn(*views, args[4], return_state=True)
+        assert torch.equal(y, got[0]) and torch.equal(s, got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logw,S", [(-6.0, 256), (-float(np.exp(-6.0)), 2045)])
+def test_linattn_kernel_steep_and_slow_decay_on_card(logw, S):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.linattn_scan import ops as lops
+    from repro_torch.kernels.linattn_scan.ref import linattn_reference
+    args = _linattn_inputs(np.random.default_rng(1), 1, 2, S, 64,
+                           torch.float32, logw=logw)
+    got = lops.linattn(*args, return_state=True)
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    ey, es = _linattn_errs(got, linattn_reference(*args))
+    assert ey < 1e-4 and es < 1e-4, (ey, es)

@@ -84,9 +84,10 @@ def _close_cache(port, jax_out):
     assert err <= TOL * np.abs(want).max(), (err, np.abs(want).max())
 
 
-def test_registry_lists_the_dense_configs():
+def test_registry_lists_the_ported_configs():
+    """The dense configs and rwkv6-7b, each equal to the JAX package's."""
     assert list_archs() == ["h2o-danube-1.8b", "llama3.2-3b",
-                            "mistral-nemo-12b", "stablelm-3b"]
+                            "mistral-nemo-12b", "rwkv6-7b", "stablelm-3b"]
     for name in list_archs():
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))

@@ -31,6 +31,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import sys, repro_torch, repro_torch.convert, repro_torch.traces\n"
         "import repro_torch.kernels._build, repro_torch.kernels.queue_select.ops\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.configs\n"
+        "import repro_torch.kernels.linattn_scan.ops, repro_torch.models.rwkv\n"
         "import repro_torch.models.api, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
@@ -49,7 +50,7 @@ def test_source_imports_neither_jax_nor_repro(path):
 def test_import_and_cpu_run_build_no_kernel():
     """Importing every module and running on the CPU neither starts nvcc
     nor loads a kernel library: neither the engine nor the LM's serve path
-    with ``use_pallas`` set."""
+    with ``use_pallas`` set, dense or rwkv."""
     out = _run(
         "import subprocess\n"
         "def refuse(*a, **k):\n"
@@ -67,6 +68,11 @@ def test_import_and_cpu_run_build_no_kernel():
         "cfg = dataclasses.replace(get_config('llama3.2-3b').reduced(), "
         "use_pallas=True)\n"
         "serve_batch(cfg, 2, 8, 3, device='cpu')\n"
+        "from repro_torch.kernels.linattn_scan import ops as lops\n"
+        "cfg = dataclasses.replace(get_config('rwkv6-7b').reduced(), "
+        "use_pallas=True)\n"
+        "serve_batch(cfg, 2, 40, 3, device='cpu')\n"
         "print(ops._lib.cache_info().currsize, ops.queue_select.launches,\n"
-        "      fops._lib.cache_info().currsize, fops.flash_attention.launches)\n")
-    assert out.split() == ["0", "0", "0", "0"]
+        "      fops._lib.cache_info().currsize, fops.flash_attention.launches,\n"
+        "      lops._lib.cache_info().currsize, lops.linattn.launches)\n")
+    assert out.split() == ["0"] * 6
