@@ -8,7 +8,9 @@ Phases, each printing one JSON line with its wall time:
 1. env     - the card (name and power limit from nvidia-smi), torch and
              CUDA versions; the compute capability must be (9, 0).
 2. build   - every CUDA kernel of the port, compiled from the sources in
-             this checkout with nvcc (one process per source, in parallel).
+             this checkout with nvcc (one process per source, in parallel);
+             ptxas's registers and spills per source, and the sm90 flash
+             kernel's dynamic shared memory per head dim.
 3. kernel  - queue_select on the card against its plain PyTorch version,
              bit for bit, over sizes, feasibility rates, negative scores,
              ties and the feasible-BIG corner; then its time (median of
@@ -25,10 +27,16 @@ Phases, each printing one JSON line with its wall time:
 6. profile - the card's busy share of a short backfill run.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
-             128 and the serve shape, f32 and bf16, causal, windowed and
-             full; then its time at the serve shape beside the plain
+             128 and the serve shape, f32 (the CUDA-core kernel) and bf16
+             (the tensor-core sm90 kernel), causal, windowed and full, and
+             bf16 cases that stress the sm90 tiling: stablelm-3b's heads
+             (hd 80), h2o-danube-1.8b's heads with its window of 4,096
+             over 4,608 positions, and Sk = 2,049; each call counted on
+             its dtype's route.  Then, at the serve shape, the sm90
+             kernel's time beside the f32 kernel's (in f32), the plain
              version, F.scaled_dot_product_attention (the library
-             yardstick, never called by the port) and the compute bound.
+             yardstick, never called by the port) and the compute bound,
+             and the sm90 kernel's time at the hd-80 shape.
 8. lm_golden - reduced llama3.2-3b in f32 on the kernel path, held to the
              JAX package's prefill logits and generated tokens in
              tests/data/torch_lm_golden.json.
@@ -37,10 +45,11 @@ Phases, each printing one JSON line with its wall time:
              (blockwise) path, with the attention projections drawn at
              their true fan-in (see fan_in_attention); (b) the bf16 serve
              of 4 prompts of 2,048 tokens plus 32 generated tokens each,
-             through serve_batch, which must launch the kernel once per
-             layer (28); then one profiled prefill and one profiled
-             decode step, each with the top device operations, the card's
-             busy share and the kernel's share of device time.
+             through serve_batch, which must launch the sm90 kernel once
+             per layer (28) and the f32 kernel never; then one profiled
+             prefill and one profiled decode step, each with the top
+             device operations, the card's busy share and the kernel's
+             share of device time.
 10. linattn - linattn_scan on the card against its plain PyTorch version
              (a token scan), y and final state, over the CPU tests' shape
              grid in f32 and bf16, a steep-decay case, a slow-decay case
@@ -69,7 +78,7 @@ convolutions throughout.  The script catches nothing: any failed check
 exits non-zero.  The last lines are the kernels table, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
 
-    python3 chip_smoke.py --only linattn,rwkv_golden
+    python3 chip_smoke.py --only flash,serve
 
 runs the env and build phases and the named ones alone (a rehearsal: it
 prints neither the kernels table nor the ok line).
@@ -107,6 +116,16 @@ FLASH_SHAPES = [
     (4, 2048, 2048, 24, 8, 128),
 ]
 FLASH_MASKS = [(True, None), (True, 96), (False, None)]
+# bf16 only, the sm90 kernel's tiling: hd 80 (stablelm-3b's 32 heads),
+# h2o-danube-1.8b's 32 over 8 heads with its window of 4,096 cutting tiles,
+# and Sk = 2,049 (one key past a tile), whole and after a cache
+FLASH_BF16_CASES = [
+    ((1, 2048, 2048, 32, 32, 80), FLASH_MASKS),
+    ((1, 4608, 4608, 32, 8, 80), [(True, 4096)]),
+    ((1, 2049, 2049, 24, 8, 128), FLASH_MASKS),
+    ((2, 77, 2049, 24, 8, 128), FLASH_MASKS),
+]
+FLASH_HD80 = (1, 2048, 2048, 32, 32, 80)   # timed, causal
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py
 FLASH_TIMED = 50
 SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
@@ -341,29 +360,45 @@ def phase_profile(torch, rt):
          top_device_us={name[:60]: us for name, (_, us) in top})
 
 
+def flash_check(torch, ops, ref, q, k, v, causal, window, tol) -> float:
+    """One kernel call against the plain version; the largest error."""
+    kw = dict(causal=causal, window=window, q_offset=k.shape[1] - q.shape[1])
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_reference(q, k, v, **kw).float()
+    d = (got.float() - want).abs()
+    bad = int((d > tol + tol * want.abs()).sum())
+    check(bad == 0 and got.dtype == q.dtype and bool(torch.isfinite(got).all()),
+          f"flash_attention {q.dtype} q {tuple(q.shape)} k {tuple(k.shape)} "
+          f"{kw}: {bad} entries off by up to {float(d.max())}")
+    return float(d.max())
+
+
 def phase_flash(torch, np):
     from repro_torch.kernels.flash_attention import ops, ref
     t0 = time.time()
     rng = np.random.default_rng(0)
-    n_checks, max_err = 0, dict.fromkeys(FLASH_TOL, 0.0)
-    for B, Sq, Sk, H, KV, hd in FLASH_SHAPES:
+    ops.reset_launches()
+    n_checks = dict.fromkeys(FLASH_TOL, 0)
+    max_err = dict.fromkeys(FLASH_TOL, 0.0)
+    cases = [(shape, FLASH_TOL, FLASH_MASKS) for shape in FLASH_SHAPES]
+    cases += [(shape, {"bfloat16": FLASH_TOL["bfloat16"]}, masks)
+              for shape, masks in FLASH_BF16_CASES]
+    for (B, Sq, Sk, H, KV, hd), tols, masks in cases:
         base = [rng.standard_normal((B, s, n, hd), dtype=np.float32)
                 for s, n in ((Sq, H), (Sk, KV), (Sk, KV))]
-        for dtype, tol in FLASH_TOL.items():
+        for dtype, tol in tols.items():
             q, k, v = (torch.from_numpy(a).to("cuda", getattr(torch, dtype))
                        for a in base)
-            for causal, window in FLASH_MASKS:
-                kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
-                got = ops.flash_attention(q, k, v, **kw)
-                want = ref.attention_reference(q, k, v, **kw).float()
-                d = (got.float() - want).abs()
-                bad = int((d > tol + tol * want.abs()).sum())
-                check(bad == 0 and got.dtype == q.dtype,
-                      f"flash_attention {dtype} {(B, Sq, Sk, H, KV, hd)} "
-                      f"{kw}: {bad} entries off by up to {float(d.max())}")
-                max_err[dtype] = max(max_err[dtype], float(d.max()))
-                n_checks += 1
-    del q, k, v, got, want, d
+            for causal, window in masks:
+                err = flash_check(torch, ops, ref, q, k, v, causal, window, tol)
+                max_err[dtype] = max(max_err[dtype], err)
+                n_checks[dtype] += 1
+    # every bf16 call on the tensor-core kernel, every f32 call on the other
+    by_route = dict(ops.flash_attention.launches_by_route)
+    check(by_route == {"sm90_bf16": n_checks["bfloat16"],
+                       "f32": n_checks["float32"]},
+          f"flash_attention routes {by_route} for checks {n_checks}")
+    del q, k, v
 
     # timing at the serve shape: bf16, causal, every layer's prefill call
     B, S, H, KV, hd = (SERVE["batch"], SERVE["prompt_len"], 24, 8, 128)
@@ -377,22 +412,41 @@ def phase_flash(torch, np):
                        FLASH_TIMED)
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                       enable_gqa=True), FLASH_TIMED)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    f32_ms = time_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True),
+                     FLASH_TIMED)
+    del q32, k32, v32
     # 4 hd flops (q.k and p.v) for each (query, key) pair the causal mask
     # leaves: S (S + 1) / 2 of them for each (batch, head)
     flops = 4 * hd * B * H * (S * (S + 1) // 2)
     nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
     ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    ops.flash_attention.launches = 0
+    del q, k, v, qt, kt, vt
+
+    # the hd-80 shape (stablelm-3b's heads), causal
+    B8, S8, _, H8, KV8, hd8 = FLASH_HD80
+    q, k, v = (torch.randn((B8, S8, n, hd8), device="cuda",
+                           dtype=torch.bfloat16) for n in (H8, KV8, KV8))
+    hd80_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                      FLASH_TIMED)
+    hd80_flops = 4 * hd8 * B8 * H8 * (S8 * (S8 + 1) // 2)
+    del q, k, v
+    ops.reset_launches()
     timing = {"shape": f"B={B} Sq=Sk={S} H={H} KV={KV} hd={hd} bf16 causal",
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "kernel_ms": kernel_ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
               "library_ms": library_ms,
               "library_call": "F.scaled_dot_product_attention(is_causal=True, "
                               "enable_gqa=True) on [B, heads, S, hd] views",
               "flops": flops, "bytes": nbytes,
               "bound_ms": max(ops_ms, bytes_ms),
               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-              "tflops": flops / kernel_ms / 1e9}
-    emit("flash", t0, checks=n_checks, tf32=False,
+              "share_of_bound": max(ops_ms, bytes_ms) / kernel_ms,
+              "tflops": flops / kernel_ms / 1e9,
+              "f32_tflops": flops / f32_ms / 1e9,
+              "hd80_shape": "B={} Sq=Sk={} H={} KV={} hd={} bf16 causal".format(
+                  B8, S8, H8, KV8, hd8),
+              "hd80_ms": hd80_ms, "hd80_tflops": hd80_flops / hd80_ms / 1e9}
+    emit("flash", t0, checks=n_checks, launches_by_route=by_route, tf32=False,
          max_abs_err_f32=max_err["float32"],
          max_abs_err_bf16=max_err["bfloat16"], **timing)
     return max(max_err.values()), timing
@@ -490,13 +544,15 @@ def phase_serve(torch, np):
         1, base.vocab - 1, (SERVE["batch"], SERVE["prompt_len"]))
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        ops.flash_attention.launches = 0
+        ops.reset_launches()
         seqs, stats = serve_batch(cfg, **SERVE, seed=0, params=params,
                                   device="cuda")
         launches = ops.flash_attention.launches
-        check(launches == base.n_layers,
-              f"serve launched flash_attention {launches} times, "
-              f"expected {base.n_layers}")
+        by_route = dict(ops.flash_attention.launches_by_route)
+        check(launches == base.n_layers
+              and by_route == {"sm90_bf16": base.n_layers, "f32": 0},
+              f"serve launched flash_attention {launches} times by route "
+              f"{by_route}, expected {base.n_layers}, all sm90_bf16")
         out = seqs.cpu().numpy()
         total = SERVE["prompt_len"] + SERVE["gen"]
         check(out.shape == (SERVE["batch"], total)
@@ -505,6 +561,7 @@ def phase_serve(torch, np):
               "serve returned malformed sequences")
         emit("serve", t0, run=run, arch=base.name, dtype=cfg.dtype,
              **SERVE, n_params=model.n_params(), flash_launches=launches,
+             flash_launches_by_route=by_route,
              prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
              decode_tok_per_s=stats["decode_tok_per_s"],
              total_tok_per_s=stats["tok_per_s"], seconds=stats["seconds"],
@@ -524,7 +581,7 @@ def phase_serve(torch, np):
     step()                                     # warm
     profile_serve(torch, "serve_profile", "flash",
                   lambda: lm.prefill(params, batch, cfg), step)
-    ops.flash_attention.launches = 0
+    ops.reset_launches()
     return launches
 
 
@@ -760,9 +817,13 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     logs = _build.build_all()
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", t0, sources=list(logs), ptxas=ptxas)
+    ptxas = {src: [ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln or "smem" in ln]
+             for src, log in logs.items()}
+    from repro_torch.kernels.flash_attention import ops as fops
+    emit("build", t0, sources=list(logs), ptxas=ptxas,
+         sm90_flash_dynamic_smem_bytes={
+             hd: fops.sm90_smem_bytes(hd) for hd in fops.HEAD_DIMS})
 
     phases = {
         "kernel": lambda: phase_kernel(torch, np, ops, ref),
@@ -810,11 +871,15 @@ def main(argv=None) -> int:
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_sm90.cu",
+        "f32_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
         "launches": flash_launches,
         "max_abs_err": flash_err,
         "ms": flash["kernel_ms"],
+        "f32_ms": flash["f32_ms"],
+        "hd80_ms": flash["hd80_ms"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],

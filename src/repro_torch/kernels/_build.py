@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # every kernel source of the port, relative to KERNELS_DIR
 SOURCES = ("queue_select/csrc/queue_select.cu",
            "flash_attention/csrc/flash_attention.cu",
+           "flash_attention/csrc/flash_attention_sm90.cu",
            "linattn_scan/csrc/linattn_scan.cu")
 
 

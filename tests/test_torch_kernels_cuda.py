@@ -96,6 +96,64 @@ def test_flash_kernel_matches_plain_on_card(dtype):
                                        atol=tol, rtol=tol)
 
 
+# bf16 only, the sm90 kernel's tiling: hd 80 with stablelm-3b's heads,
+# h2o-danube-1.8b's heads and window over 4,608 positions, Sk = 2,049
+FLASH_BF16_CASES = [
+    ((1, 2048, 2048, 32, 32, 80), FLASH_MASKS),
+    ((1, 4608, 4608, 32, 8, 80), [(True, 4096)]),
+    ((1, 2049, 2049, 24, 8, 128), FLASH_MASKS),
+    ((2, 77, 2049, 24, 8, 128), FLASH_MASKS),
+]
+
+
+@pytest.mark.cuda
+def test_flash_sm90_tiling_cases_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    rng = np.random.default_rng(1)
+    for (B, Sq, Sk, H, KV, hd), masks in FLASH_BF16_CASES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, s, n, hd), dtype=np.float32)).to("cuda", torch.bfloat16)
+            for s, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+        for causal, window in masks:
+            kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
+            got = fops.flash_attention(q, k, v, **kw)
+            want = attention_reference(q, k, v, **kw)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_routes_by_dtype_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import ops as fops
+    q = torch.randn(1, 256, 8, 128, device="cuda")
+    k = torch.randn(1, 256, 2, 128, device="cuda")
+    fops.reset_launches()
+    fops.flash_attention(q, k, k)
+    assert fops.flash_attention.launches_by_route == {"sm90_bf16": 0, "f32": 1}
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    out = fops.flash_attention(qb, kb, kb)
+    assert out.dtype == torch.bfloat16
+    assert fops.flash_attention.launches_by_route == {"sm90_bf16": 1, "f32": 1}
+    assert fops.flash_attention.launches == 2
+    # a [B, S, H, hd] view of a [B, H, S, hd] tensor goes to TMA as it is
+    qt = qb.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(fops.flash_attention(qt, kb, kb), out)
+    # what TMA cannot take raises, and launches nothing
+    odd = torch.zeros(1, 256, 8, 132, device="cuda",
+                      dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        fops.flash_attention(odd, kb, kb)
+    assert fops.flash_attention.launches == 3
+    fops.reset_launches()
+
+
 # (B, H, S, K): the CPU sweep's shapes (test_kernels.py::test_linattn_sweep)
 # plus K = 128 and ragged lengths past one 32-step tile
 LINATTN_SHAPES = [

@@ -74,5 +74,6 @@ def test_import_and_cpu_run_build_no_kernel():
         "serve_batch(cfg, 2, 40, 3, device='cpu')\n"
         "print(ops._lib.cache_info().currsize, ops.queue_select.launches,\n"
         "      fops._lib.cache_info().currsize, fops.flash_attention.launches,\n"
+        "      fops._sm90_lib.cache_info().currsize,\n"
         "      lops._lib.cache_info().currsize, lops.linattn.launches)\n")
-    assert out.split() == ["0"] * 6
+    assert out.split() == ["0"] * 7
