@@ -12,18 +12,29 @@ Phases, each printing one JSON line with its wall time:
              ptxas's registers and spills per source, and the sm90 flash
              kernel's dynamic shared memory per head dim.
 3. kernel  - queue_select on the card against its plain PyTorch version,
-             bit for bit, over sizes, feasibility rates, negative scores,
-             ties and the feasible-BIG corner; then its time (median of
-             CUDA-event-timed launches) beside the plain version, a
-             two-call PyTorch yardstick and the memory-bandwidth bound.
+             bit for bit: the generic op (scores and mask given) over sizes,
+             feasibility rates, negative scores, ties and the feasible-BIG
+             corner; every fused mode (key and mask built in the kernel)
+             and the shadow walk over random job tables at N = 7, 1,000,
+             8,191-8,193 (one cluster's threads) and 73,496.  Then, at N =
+             73,496, each one's time: the generic op CUDA-event-timed beside
+             its plain version, a two-call PyTorch yardstick and its bound;
+             each fused mode and the walk by the host clock around the call
+             (which returns only once the answer is in host memory) beside
+             its plain version and the bound of the columns it reads; and
+             the device operations per call from the profiler (one).
 4. golden  - the engine on cuda, 10,000-job SDSC-SP2-like (six policies)
              and DAS-2-like (fcfs, backfill) traces, each held to the JAX
              engine's n_events, makespan and start/finish digests in
-             tests/data/torch_port_golden.json; events/s per run.
+             tests/data/torch_port_golden.json; per run events/s,
+             queue_select and walk launches, launches per event, and the
+             batched backfill pass's redo walks; a backfill run must
+             launch the walk, at most once an event besides its redos.
 5. archive - backfill over 73,496 SDSC-SP2-like jobs on 128 nodes (the
              SDSC-SP2 log's job count on its machine), checked for
              completion, start >= submit, finish == start + runtime and a
-             busy-node count that never exceeds the machine.
+             busy-node count that never exceeds the machine; the counts of
+             phase 4.
 6. profile - the card's busy share of a short backfill run.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
@@ -71,7 +82,8 @@ Phases, each printing one JSON line with its wall time:
              decode step, as in phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4 and 5 for queue_select, the serve of phase 9 for flash_attention,
+(phases 4 and 5 for queue_select and its walk, the serve of phase 9 for
+flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  TF32 is off for matrix products and
 convolutions throughout.  The script catches nothing: any failed check
@@ -104,6 +116,9 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 BIG = 2**30 - 1
 TIMED_LAUNCHES = 200
+# fused-select and walk checks: sizes around one cluster's 8,192 threads
+SELECT_SIZES = (7, 1000, 8191, 8192, 8193, 73_496)
+SELECT_STATES = 3                # random job tables per size
 ARCHIVE_JOBS = 73_496            # SDSC-SP2 log's job count
 ARCHIVE_NODES = 128
 PROFILE_JOBS = 250
@@ -212,6 +227,161 @@ def profiled(torch, fn):
     return device_events(prof), wall_us
 
 
+def wall_ms(fn, n: int = TIMED_LAUNCHES, warm: int = 10) -> float:
+    """Median host-clock time of ``n`` calls of a function that returns
+    only after the device has finished (it reads its answer on the host)."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def random_table(torch, np, rng, n: int, running_share: float):
+    """A random job table and mid-run state on the card: ties in submit
+    and estimate, priorities on either side of BIG, reservations before and
+    after the clock.  Returns (TableSelect, jstate, rsv_finish, clock)."""
+    from repro_torch.kernels.queue_select.ops import COLUMNS, TableSelect
+    cols = {"submit": np.sort(rng.integers(0, max(n // 3, 1), n)),
+            "estimate": rng.choice([60, 600, 3600, 7200, 43_200], n),
+            "nodes": rng.integers(1, 129, n),
+            "priority": BIG + rng.integers(-3, 3, n)}
+    wait_share = (1 - running_share) / 2
+    jstate = rng.choice([0, 1, 2, 3], n, p=[(1 - running_share) / 4,
+                                             wait_share, running_share,
+                                             (1 - running_share) / 4])
+    clock = 50_000
+    rsv = np.where(jstate == 2, clock + rng.integers(-3000, 40_000, n), BIG)
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).to("cuda")
+    table = TableSelect({c: dev(cols[c]) for c in COLUMNS})
+    return table, dev(jstate), dev(rsv), clock
+
+
+def select_params(ref, table, jstate, rsv, clock, free, need):
+    """Every mode's scalars as the engine derives them, from the plain
+    versions: the FCFS head excluded, its shadow, the least waiting
+    priority as the tier."""
+    head, _ = ref.fused_select_reference(ref.HEAD_SUBMIT, table.cols, jstate)
+    shadow, extra, _ = ref.shadow_walk_reference(
+        table.cols["nodes"], jstate, rsv, clock, free, need)
+    _, tier = ref.fused_select_reference(ref.PREEMPT_TIER, table.cols, jstate)
+    return {"clock": clock, "free": free, "cap": free, "shadow": shadow,
+            "extra": extra, "exclude": head, "tier": tier}
+
+
+# columns each fused mode reads, jstate included (bytes a row)
+MODE_BYTES = {"head_submit": 8, "head_estimate": 8, "head_neg_estimate": 8,
+              "bestfit": 8, "any_fit": 8, "backfill_cand": 16,
+              "preempt_tier": 8, "preempt_head": 12}
+WALK_BYTES = 12
+WALK_STEPS = 4                   # the timed walk's releases
+
+
+def phase_fused(torch, np, ops, ref):
+    """Every fused mode and the walk against their plain versions, bit
+    for bit; then their times and device operations per call."""
+    t0 = time.time()
+    rng = np.random.default_rng(1)
+    n_checks, max_err, walk_err = 0, 0, 0
+
+    def err(got, want) -> int:
+        return max(abs(a - b) for a, b in zip(got, want))
+
+    for n in SELECT_SIZES:
+        for k in range(SELECT_STATES):
+            # the engine's few running rows, then many (long walks)
+            table, jstate, rsv, clock = random_table(
+                torch, np, rng, n, (0.02, 0.1, 0.4)[k])
+            run_nodes = int(torch.where(jstate == 2, table.cols["nodes"],
+                                        0).sum())
+            for free, need in ((0, 1), (37, 90), (5, run_nodes // 2),
+                               (3, run_nodes + 4), (1, run_nodes + 9)):
+                got = ops.shadow_walk(table, jstate, rsv, clock, free, need)
+                want = ref.shadow_walk_reference(
+                    table.cols["nodes"], jstate, rsv, clock, free, need)
+                walk_err = max(walk_err, err(got, want))
+                check(got == want, f"shadow walk N={n} free={free} "
+                      f"need={need}: {got} != plain {want}")
+                n_checks += 1
+                p = select_params(ref, table, jstate, rsv, clock, free, need)
+                for extra in (p["extra"], -1, 10**6):
+                    for name, mode in ref.MODES.items():
+                        q = dict(p, extra=extra)
+                        got = table.select(mode, jstate, **q)
+                        want = ref.fused_select_reference(
+                            mode, table.cols, jstate, **q)
+                        max_err = max(max_err, err(got, want))
+                        check(got == want, f"fused {name} N={n} {q}: {got} "
+                              f"!= plain {want}")
+                        n_checks += 1
+
+    # times at the archive run's shape with the engine's running share
+    n = ARCHIVE_JOBS
+    table, jstate, rsv, clock = random_table(torch, np, rng, n, 0.01)
+    nodes = table.cols["nodes"]
+    run_nodes = int(torch.where(jstate == 2, nodes, 0).sum())
+    order = torch.sort(torch.where(jstate == 2,
+                                   torch.clamp(rsv, min=clock + 1), BIG),
+                       stable=True)[1]
+    free = 3
+    cum = free + torch.cumsum(nodes[order], 0)
+    check(int((jstate == 2).sum()) >= 65, "too few running rows for a "
+          "65-step walk")
+    need = int(cum[WALK_STEPS - 1])      # a walk of WALK_STEPS releases
+    p = select_params(ref, table, jstate, rsv, clock, free, need)
+    ops.reset_launches()
+    modes = {}
+    for name, mode in ref.MODES.items():
+        nbytes = MODE_BYTES[name] * n
+        modes[name] = {
+            "ms": wall_ms(lambda: table.select(mode, jstate, **p)),
+            "plain_ms": wall_ms(lambda: ref.fused_select_reference(
+                mode, table.cols, jstate, **p), 50),
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    walk_args = (table, jstate, rsv, clock, free, need)
+    # a walk's cost a step: device time of walks of 1 and 65 steps
+    step_us = []
+    for k in (1, 65):
+        args = (table, jstate, rsv, clock, free, int(cum[k - 1]))
+        dev, _ = profiled(torch, lambda: [ops.shadow_walk(*args)
+                                          for _ in range(20)])
+        step_us.append(sum(us for _, us in dev.values()) / 20 if dev
+                       else None)
+    walk = {"ms": wall_ms(lambda: ops.shadow_walk(*walk_args)),
+            "plain_ms": wall_ms(lambda: ref.shadow_walk_reference(
+                nodes, jstate, rsv, clock, free, need), 50),
+            "bytes": WALK_BYTES * n,
+            "bound_ms": WALK_BYTES * n / HBM_BYTES_PER_S * 1e3,
+            "steps": WALK_STEPS, "running_rows": int((jstate == 2).sum()),
+            "device_us_1_step": step_us[0] or "not measured",
+            "device_us_per_step": (step_us[1] - step_us[0]) / 64
+            if step_us[0] else "not measured",
+            "max_abs_err": walk_err}
+
+    # device operations and device time per call, every mode and the walk
+    calls = 50
+    calls_of = {name: (lambda mode=mode: table.select(mode, jstate, **p))
+                for name, mode in ref.MODES.items()}
+    calls_of["walk"] = lambda: ops.shadow_walk(*walk_args)
+    for what, fn in calls_of.items():
+        dev, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
+        ops_per_call = sum(k for k, _ in dev.values()) / calls
+        check(not dev or ops_per_call == 1,
+              f"{what}: {ops_per_call} device operations a call, expected 1")
+        d = modes[what] if what in modes else walk
+        d["device_ops_per_call"] = ops_per_call if dev else "not measured"
+        d["device_us_per_call"] = (sum(us for _, us in dev.values()) / calls
+                                   if dev else "not measured")
+    ops.reset_launches()
+    emit("fused", t0, checks=n_checks, sizes=list(SELECT_SIZES),
+         max_abs_err=max_err, n=n, modes=modes, walk=walk)
+    return max_err, modes, walk
+
+
 def phase_kernel(torch, np, ops, ref):
     t0 = time.time()
     rng = np.random.default_rng(0)
@@ -255,16 +425,17 @@ def phase_kernel(torch, np, ops, ref):
     calls = 100
     dev, _ = profiled(torch, lambda: [ops.queue_select(s, m)
                                       for _ in range(calls)])
-    reduce_us = [us / k for name, (k, us) in dev.items()
-                 if "select_reduce" in name]
     device_us = sum(us for _, us in dev.values()) / calls
+    ops_per_call = sum(k for k, _ in dev.values()) / calls
+    check(not dev or ops_per_call == 1,
+          f"generic queue_select: {ops_per_call} device operations a call, "
+          "expected 1")
     bytes_moved = n * (4 + 1) + 2 * 4     # scores + bool mask read, i32[2]
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops.queue_select.launches = 0
+    ops.reset_launches()
     timing = {"n": n, "mask": "bool", "kernel_ms": kernel_ms,
               "device_us_per_call": device_us if dev else "not measured",
-              "reduce_device_us": reduce_us[0] if reduce_us
-              else "not measured",
+              "device_ops_per_call": ops_per_call if dev else "not measured",
               "plain_ms": plain_ms, "library_ms": library_ms,
               "library_call": "torch.min(torch.where(feasible, packed_key, "
                               "INT64_MAX)): two calls, packed key built "
@@ -276,30 +447,51 @@ def phase_kernel(torch, np, ops, ref):
 
 
 def run_counted(rt, ops, scn):
-    """One engine run on cuda with the kernel's launch count around it."""
+    """One engine run on cuda with the kernels' launch counts around it:
+    ``(result, wall seconds, counts)``."""
     import torch
-    ops.queue_select.launches = 0
+    from repro_torch.core import engine
+    ops.reset_launches()
+    engine.reset_counters()
     t = time.time()
     res = rt.run(scn, device="cuda")
     out = res.to_np()
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = ops.queue_select.launches
-    check(launches > 0, f"{scn.policy} run launched no queue_select kernel")
-    return out, wall, launches
+    counts = {"launches": ops.queue_select.launches,
+              "walk_launches": ops.shadow_walk.launches,
+              "walk_steps": ops.shadow_walk.steps,
+              "redo_walks": engine.counters["redo"],
+              "max_walks_per_event": engine.counters["max_walks_per_event"]}
+    check(counts["launches"] > 0,
+          f"{scn.policy} run launched no queue_select kernel")
+    if scn.policy == "backfill":
+        check(counts["walk_launches"] > 0,
+              "backfill run launched no shadow-walk kernel")
+        check(counts["max_walks_per_event"] <= 1,
+              f"an event launched the walk {counts['max_walks_per_event']} "
+              "times besides its redo walks")
+    if counts["walk_launches"]:
+        counts["steps_per_walk"] = (counts["walk_steps"]
+                                    / counts["walk_launches"])
+    counts["launches_per_event"] = ((counts["launches"]
+                                     + counts["walk_launches"])
+                                    / out["n_events"])
+    return out, wall, counts
 
 
 def phase_golden(rt, ops):
     t0 = time.time()
     entries = json.loads(GOLDEN.read_text())["runs"]
-    launches = 0
+    launches = walks = 0
     for e in entries:
         scn = rt.Scenario(
             trace=rt.SyntheticTrace(n_jobs=e["n_jobs"], seed=e["seed"],
                                     kind=e["kind"]),
             total_nodes=e["total_nodes"], policy=e["policy"])
-        out, wall, n = run_counted(rt, ops, scn)
-        launches += n
+        out, wall, counts = run_counted(rt, ops, scn)
+        launches += counts["launches"]
+        walks += counts["walk_launches"]
         v = out["valid"]
         got = {"n_events": out["n_events"], "makespan": out["makespan"],
                "start_sha256": digest(out["start"][v]),
@@ -310,9 +502,9 @@ def phase_golden(rt, ops):
         emit("golden", t0, kind=e["kind"], policy=e["policy"],
              n_jobs=e["n_jobs"], total_nodes=e["total_nodes"],
              n_events=out["n_events"], run_seconds=wall,
-             events_per_s=out["n_events"] / wall, launches=n,
+             events_per_s=out["n_events"] / wall, **counts,
              matches_jax=True)
-    return launches
+    return launches, walks
 
 
 def phase_archive(rt, ops, np):
@@ -320,7 +512,7 @@ def phase_archive(rt, ops, np):
     scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=ARCHIVE_JOBS, seed=1,
                                               kind="sdsc_sp2"),
                       total_nodes=ARCHIVE_NODES, policy="backfill")
-    out, wall, launches = run_counted(rt, ops, scn)
+    out, wall, counts = run_counted(rt, ops, scn)
     v = out["valid"]
     sub, st, fin, run, nodes = (out[k][v].astype(np.int64) for k in
                                 ("submit", "start", "finish", "runtime",
@@ -337,8 +529,8 @@ def phase_archive(rt, ops, np):
     emit("archive", t0, policy="backfill", n_jobs=int(v.sum()),
          total_nodes=ARCHIVE_NODES, n_events=out["n_events"],
          run_seconds=wall, events_per_s=out["n_events"] / wall,
-         makespan=out["makespan"], peak_busy_nodes=peak, launches=launches)
-    return launches
+         makespan=out["makespan"], peak_busy_nodes=peak, **counts)
+    return counts["launches"], counts["walk_launches"]
 
 
 def phase_profile(torch, rt):
@@ -776,7 +968,7 @@ def phase_rwkv_serve(torch, np):
     return launches
 
 
-PHASES = ("kernel", "golden", "archive", "profile", "flash", "lm_golden",
+PHASES = ("kernel", "fused", "golden", "archive", "profile", "flash", "lm_golden",
           "serve", "linattn", "rwkv_golden", "rwkv_serve")
 
 
@@ -827,6 +1019,7 @@ def main(argv=None) -> int:
 
     phases = {
         "kernel": lambda: phase_kernel(torch, np, ops, ref),
+        "fused": lambda: phase_fused(torch, np, ops, ref),
         "golden": lambda: phase_golden(rt, ops),
         "archive": lambda: phase_archive(rt, ops, np),
         "profile": lambda: phase_profile(torch, rt),
@@ -844,29 +1037,45 @@ def main(argv=None) -> int:
         return 0
 
     max_err, timing = out["kernel"]
-    launches = out["golden"] + out["archive"]
+    fused_err, modes, walk = out["fused"]
+    launches = out["golden"][0] + out["archive"][0]
+    walk_launches = out["golden"][1] + out["archive"][1]
+    cand = modes["backfill_cand"]
     flash_err, flash = out["flash"]
     flash_launches = out["serve"]
     lin_err, lin = out["linattn"]
     lin_launches = out["rwkv_serve"]
 
+    # queue_select's numbers are those of the main path's widest fused
+    # mode, the backfill candidate pick; every mode, the generic op and the
+    # walk follow under their own keys
     print(json.dumps({"kernels": [{
         "name": "queue_select",
         "route": "cuda",
         "source": "src/repro_torch/kernels/queue_select/csrc/queue_select.cu",
         "replaces": "src/repro/kernels/queue_select/kernel.py:23",
         "launches": launches,
-        "max_abs_err": max_err,
-        "ms": timing["kernel_ms"],
-        "kernel_ms": timing["kernel_ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_us": timing["bound_us"],
+        "max_abs_err": max(max_err, fused_err),
+        "ms": cand["ms"],
+        "plain_ms": cand["plain_ms"],
+        "bound_ms": cand["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": timing["library_ms"],
-        "shape": f"N={timing['n']}, bool mask",
-        "device_us_per_call": timing["device_us_per_call"],
-        "reduce_device_us": timing["reduce_device_us"],
+        "library_ms": None,
+        "shape": f"N={timing['n']}, fused backfill_cand mode, host clock "
+                 "around the call (launch, wait, answer in host memory)",
+        "device_us_per_call": cand["device_us_per_call"],
+        "modes": modes,
+        "generic": {"ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
+                    "bound_ms": timing["bound_ms"], "bound_by": "bytes",
+                    "library_ms": timing["library_ms"],
+                    "device_us_per_call": timing["device_us_per_call"],
+                    "shape": f"N={timing['n']}, bool mask, CUDA events"},
+        "walk": {"name": "shadow_walk", "launches": walk_launches,
+                 "max_abs_err": walk["max_abs_err"], "ms": walk["ms"],
+                 "plain_ms": walk["plain_ms"], "bound_ms": walk["bound_ms"],
+                 "bound_by": "bytes", "library_ms": None,
+                 "device_us_per_call": walk["device_us_per_call"],
+                 "steps": walk["steps"]},
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -19,6 +19,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels.queue_select import ops as select_ops
+
 # Job lifecycle states.
 PENDING = 0   # submit time is in the future
 WAITING = 1   # in the wait queue
@@ -75,7 +77,8 @@ class JobSet:
     ``valid`` masks padding rows.  ``estimate`` is the user's walltime
     request (SJF/LJF order, EASY reservations); ``runtime`` the actual
     duration.  ``host`` is a numpy copy the event loop reads single rows
-    from without a device round trip.
+    from without a device round trip; ``selector`` the fused selections
+    (the ``queue_select`` kernels) over this table.
     """
 
     submit: torch.Tensor    # i32[J]
@@ -96,6 +99,11 @@ class JobSet:
     @functools.cached_property
     def host(self) -> dict:
         return {f: getattr(self, f).cpu().numpy() for f in JOB_FIELDS}
+
+    @functools.cached_property
+    def selector(self) -> select_ops.TableSelect:
+        return select_ops.TableSelect(
+            {f: getattr(self, f) for f in select_ops.COLUMNS})
 
     def to(self, device) -> "JobSet":
         return JobSet(**{f: getattr(self, f).to(device) for f in JOB_FIELDS})

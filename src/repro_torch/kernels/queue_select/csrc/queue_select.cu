@@ -4,109 +4,502 @@
 // (launched by queue_select_tiled).  It computes what
 // repro_torch/kernels/queue_select/ref.py computes: the first index attaining
 // the minimum score among feasible entries, and that score, or (-1, BIG) when
-// no entry is feasible.  It is not a port of the TPU's sequential tile loop,
-// which carried its best pair in SMEM from one grid step to the next: blocks
-// on this card run in no order, so every block reduces its share to one
-// 64-bit key and folds it into one word with atomicMin.
+// no entry is feasible.  Three entry points share one reduction:
 //
-// Key: ((uint32)score ^ 0x80000000) << 32 | index.  Flipping the sign bit
+//   queue_select_launch   the TPU kernel's function: scores and mask given,
+//                         (index, score) written to device memory;
+//   queue_select_fused    the engine's selections: the key and the mask are
+//                         built in registers from the job table's columns
+//                         (one mode per argmin of the selectors), and
+//                         (index, score) lands in mapped host memory;
+//   queue_select_walk     the EASY shadow walk: the running jobs' releases
+//                         (max(rsv_finish, clock + 1), row) taken in order
+//                         until they cover the head, all in one launch.
+//
+// Key: ((uint32)score ^ 0x80000000) << 32 | row.  Flipping the sign bit
 // makes the unsigned order of the key the signed order of the score (LJF
-// keys on -estimate, priorities come from the user), and the index in the
-// low word breaks ties to the lowest index.  An infeasible entry maps to
-// UINT64_MAX, which no feasible entry can reach (its index would have to be
-// 2^32 - 1), so a feasible entry scoring BIG is still found.
+// keys on -estimate, priorities come from the user), and the row in the low
+// word breaks ties to the lowest row.  An infeasible row maps to UINT64_MAX,
+// which no feasible row can reach (its row would have to be 2^32 - 1), so a
+// feasible row scoring BIG is still found.
 //
-// Bound: the kernel reads N * (4 + mask bytes) bytes once (mask bytes = 1
-// for a bool mask, the engine's case, 4 for int32) and writes 8.  At the
-// engine's N <= 73,496 that is at most 368 KB, about 0.11 us at 3.35 TB/s,
-// so a call is bound by launch latency, not bandwidth.  The design does one
-// pass over the data and one atomic per block, with a grid capped at two
-// blocks per SM, and the wrapper's C entry point enqueues the scratch reset,
-// the reduction and the decode in one call.
+// Design: one launch per call.  The TPU carried its best pair in SMEM from
+// one sequential grid step to the next; here one thread-block cluster of 8
+// CTAs x 1,024 threads (8 is the portable cluster size) reads the rows in a
+// grid-stride loop, each CTA folds its threads' keys (warp shuffles, then
+// shared memory), and the CTAs exchange their keys through distributed
+// shared memory under one cluster barrier.  No scratch word survives a call,
+// so there is no memset and no decode kernel.  The cluster's first barrier
+// phase (arrive at entry, wait before the first remote store) proves that
+// every CTA of the cluster has started before its shared memory is written.
+//
+// The walk keeps, in each thread, the least key of its own running rows
+// above the last release taken.  One step is one cluster-wide fold of those
+// keys; after it only the thread that owned the winner rescans its rows (at
+// N = 73,496, nine of them), so a step costs one fold and not a pass over
+// the table, and the walk is right for any number of running rows.
+//
+// Bound: the bytes of the columns a mode reads, each once: 4 (jstate) plus
+// 4 per key or predicate column: HEAD_*, BESTFIT, ANY_FIT and PREEMPT_TIER
+// 8 B a row, PREEMPT_HEAD 12, BACKFILL_CAND 16, the walk 12 (jstate,
+// rsv_finish, nodes).
+// At the engine's N <= 73,496 that is at most 1.2 MB, ~0.35 us at 3.35 TB/s,
+// and the table stays in the 50 MB L2 between calls: a call is bound by its
+// launch and the host's wait, which is why there is one launch and one wait.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 264;  // two blocks on each of the H100's 132 SMs
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCluster = 8;
+constexpr int kStride = kThreads * kCluster;
 constexpr int32_t kBig = (1 << 30) - 1;
+constexpr int32_t kWaiting = 1;
+constexpr int32_t kRunning = 2;
+constexpr int32_t kSentinel = INT32_MIN;  // "not written" in the host buffer
 constexpr unsigned long long kNone = ~0ull;
+
+// Key modes; the same numbers as ref.py.
+enum Mode : int {
+  HEAD_SUBMIT = 0,
+  HEAD_ESTIMATE = 1,
+  HEAD_NEG_ESTIMATE = 2,
+  BESTFIT = 3,
+  ANY_FIT = 4,
+  BACKFILL_CAND = 5,
+  PREEMPT_TIER = 6,
+  PREEMPT_HEAD = 7,
+};
+
+}  // namespace
+
+// The fused entry points' argument block, passed by value to the kernel.
+// Column pointers are int32[n] on the device; sums wrap in int32 as JAX's.
+struct SelectArgs {
+  const int32_t* submit;
+  const int32_t* estimate;
+  const int32_t* nodes;
+  const int32_t* priority;
+  const int32_t* jstate;
+  const int32_t* rsv_finish;
+  long long n;
+  int32_t mode;
+  int32_t clock;
+  int32_t free;
+  int32_t cap;
+  int32_t shadow;
+  int32_t extra;
+  int32_t exclude;
+  int32_t tier;
+  int32_t head_need;
+};
+
+namespace {
 
 __device__ __forceinline__ unsigned long long umin(unsigned long long a,
                                                    unsigned long long b) {
   return b < a ? b : a;
 }
 
-template <typename Mask>
-__global__ void __launch_bounds__(kThreads)
-select_reduce(const int32_t* __restrict__ scores,
-              const Mask* __restrict__ feasible, long long n,
-              unsigned long long* __restrict__ best) {
-  unsigned long long key = kNone;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    if (feasible[i] != 0) {
-      const uint32_t s = (uint32_t)scores[i] ^ 0x80000000u;
-      key = umin(key, ((unsigned long long)s << 32) | (uint32_t)i);
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    key = umin(key, __shfl_down_sync(0xffffffffu, key, off));
-
-  __shared__ unsigned long long warp_best[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_best[warp] = key;
-  __syncthreads();
-  if (warp == 0) {
-    key = lane < kThreads / 32 ? warp_best[lane] : kNone;
-    for (int off = 16; off > 0; off >>= 1)
-      key = umin(key, __shfl_down_sync(0xffffffffu, key, off));
-    if (lane == 0 && key != kNone) atomicMin(best, key);
-  }
+__device__ __forceinline__ unsigned long long pack(int32_t score, long long i) {
+  return ((unsigned long long)((uint32_t)score ^ 0x80000000u) << 32) |
+         (uint32_t)i;
 }
 
-__global__ void select_decode(const unsigned long long* __restrict__ best,
-                              int32_t* __restrict__ out) {
-  const unsigned long long key = *best;
+__device__ __forceinline__ int32_t key_row(unsigned long long key) {
+  return (int32_t)(uint32_t)(key & 0xffffffffull);
+}
+
+__device__ __forceinline__ int32_t key_score(unsigned long long key) {
+  return (int32_t)((uint32_t)(key >> 32) ^ 0x80000000u);
+}
+
+__device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+
+__device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+
+__device__ __forceinline__ unsigned long long warp_min(unsigned long long k) {
+  for (int off = 16; off > 0; off >>= 1)
+    k = umin(k, __shfl_xor_sync(0xffffffffu, k, off));
+  return k;
+}
+
+// Cluster barrier halves (PTX barrier.cluster); every thread takes part.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The CTA's least key, valid in every lane of warp 0.  `warp_best` is
+// reused by the next call only after a barrier that warp 0 has passed.
+__device__ __forceinline__ unsigned long long cta_min(
+    unsigned long long key, unsigned long long* warp_best) {
+  key = warp_min(key);
+  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = key;
+  __syncthreads();
+  if (threadIdx.x < 32) key = warp_min(warp_best[threadIdx.x]);
+  return key;
+}
+
+// One fold of every thread's key across the cluster; CTA 0's thread 0
+// returns true with the least key in `*out_key`.  Called once per launch,
+// after cluster_arrive_relaxed() at the kernel's entry.
+__device__ __forceinline__ bool cluster_fold_once(unsigned long long key,
+                                                  unsigned long long* out_key) {
+  __shared__ unsigned long long warp_best[kWarps];
+  __shared__ unsigned long long slots[kCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  key = cta_min(key, warp_best);
+  cluster_wait();  // every CTA has started: its shared memory exists
+  if (threadIdx.x == 0) *cluster.map_shared_rank(&slots[rank], 0) = key;
+  cluster_arrive();
+  cluster_wait();
+  if (rank != 0 || threadIdx.x >= 32) return false;
+  key = warp_min(threadIdx.x < kCluster ? slots[threadIdx.x] : kNone);
+  *out_key = key;
+  return threadIdx.x == 0;
+}
+
+__device__ __forceinline__ void write_pair(unsigned long long key,
+                                           volatile int32_t* out) {
   if (key == kNone) {
     out[0] = -1;
     out[1] = kBig;
   } else {
-    out[0] = (int32_t)(uint32_t)(key & 0xffffffffull);
-    out[1] = (int32_t)((uint32_t)(key >> 32) ^ 0x80000000u);
+    out[0] = key_row(key);
+    out[1] = key_score(key);
   }
+}
+
+// Every scan below reads its rows kUnroll at a time, all loads of a batch
+// issued before any is used: a thread's rows are independent, so a batch
+// costs one memory latency and not one per row and column.  Ten rows a
+// thread cover 81,920 rows, the archive run's table, in one batch.
+constexpr int kUnroll = 10;
+
+template <typename Mask>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+select_generic(const int32_t* __restrict__ scores,
+               const Mask* __restrict__ feasible, long long n,
+               int32_t* __restrict__ out) {
+  cluster_arrive_relaxed();
+  unsigned long long key = kNone;
+  for (long long base = (long long)blockIdx.x * kThreads + threadIdx.x;
+       base < n; base += (long long)kStride * kUnroll) {
+    Mask f[kUnroll];
+    int32_t sc[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + (long long)u * kStride;
+      f[u] = i < n ? feasible[i] : Mask(0);
+      sc[u] = i < n ? scores[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (f[u] != 0) key = umin(key, pack(sc[u], base + (long long)u * kStride));
+  }
+  if (cluster_fold_once(key, &key)) write_pair(key, out);
+}
+
+// The columns mode M reads, besides jstate.
+template <int M> struct Reads {
+  static constexpr bool submit = M == HEAD_SUBMIT || M == BACKFILL_CAND ||
+                                 M == PREEMPT_HEAD;
+  static constexpr bool estimate = M == HEAD_ESTIMATE ||
+                                   M == HEAD_NEG_ESTIMATE || M == BACKFILL_CAND;
+  static constexpr bool nodes = M == BESTFIT || M == ANY_FIT ||
+                                M == BACKFILL_CAND;
+  static constexpr bool priority = M == PREEMPT_TIER || M == PREEMPT_HEAD;
+};
+
+struct Row {
+  int32_t jstate, submit, estimate, nodes, priority;
+};
+
+template <int M>
+__device__ __forceinline__ Row load_row(const SelectArgs& a, long long i) {
+  Row r{0, 0, 0, 0, 0};
+  r.jstate = a.jstate[i];
+  if (Reads<M>::submit) r.submit = a.submit[i];
+  if (Reads<M>::estimate) r.estimate = a.estimate[i];
+  if (Reads<M>::nodes) r.nodes = a.nodes[i];
+  if (Reads<M>::priority) r.priority = a.priority[i];
+  return r;
+}
+
+// The key of row i under mode M, or kNone when the row is infeasible.
+template <int M>
+__device__ __forceinline__ unsigned long long row_key(const SelectArgs& a,
+                                                      const Row& r,
+                                                      long long i) {
+  const bool waiting = r.jstate == kWaiting;
+  switch (M) {
+    case HEAD_SUBMIT:
+      return waiting ? pack(r.submit, i) : kNone;
+    case HEAD_ESTIMATE:
+      return waiting ? pack(r.estimate, i) : kNone;
+    case HEAD_NEG_ESTIMATE:
+      return waiting ? pack(sub32(0, r.estimate), i) : kNone;
+    case BESTFIT:
+      return waiting && r.nodes <= a.cap ? pack(sub32(a.free, r.nodes), i)
+                                         : kNone;
+    case ANY_FIT:
+      return waiting && r.nodes <= a.cap && i != a.exclude ? pack(0, i)
+                                                           : kNone;
+    case BACKFILL_CAND: {
+      const bool ends_by = add32(r.estimate, a.clock) <= a.shadow;
+      const bool within = r.nodes <= min(a.free, a.extra);
+      return waiting && r.nodes <= a.cap && i != a.exclude &&
+                     (ends_by || within)
+                 ? pack(r.submit, i)
+                 : kNone;
+    }
+    case PREEMPT_TIER:
+      return pack(waiting ? r.priority : kBig, i);
+    default:  // PREEMPT_HEAD
+      return waiting && r.priority == a.tier ? pack(r.submit, i) : kNone;
+  }
+}
+
+template <int M>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+select_fused(const SelectArgs a, int32_t* out) {
+  cluster_arrive_relaxed();
+  unsigned long long key = kNone;
+  for (long long base = (long long)blockIdx.x * kThreads + threadIdx.x;
+       base < a.n; base += (long long)kStride * kUnroll) {
+    Row r[kUnroll] = {};
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + (long long)u * kStride;
+      if (i < a.n) r[u] = load_row<M>(a, i);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + (long long)u * kStride;
+      if (i < a.n) key = umin(key, row_key<M>(a, r[u], i));
+    }
+  }
+  if (cluster_fold_once(key, &key)) write_pair(key, out);
+}
+
+// A release: its key (max(rsv_finish, clock + 1), row) and its nodes.
+struct Release {
+  unsigned long long key;
+  int32_t nodes;
+};
+
+__device__ __forceinline__ Release rmin(Release a, Release b) {
+  return b.key < a.key ? b : a;
+}
+
+// The least release of this thread's running rows whose key is above
+// `after` (all of them for kNone).
+__device__ __forceinline__ Release next_release(const SelectArgs& a,
+                                                long long first,
+                                                unsigned long long after) {
+  Release best{kNone, 0};
+  const int32_t t_min = add32(a.clock, 1);
+  for (long long base = first; base < a.n;
+       base += (long long)kStride * kUnroll) {
+    int32_t js[kUnroll], rsv[kUnroll], nodes[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + (long long)u * kStride;
+      js[u] = i < a.n ? a.jstate[i] : 0;
+      rsv[u] = i < a.n ? a.rsv_finish[i] : 0;
+      nodes[u] = i < a.n ? a.nodes[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long i = base + (long long)u * kStride;
+      const unsigned long long k = pack(max(rsv[u], t_min), i);
+      if (js[u] == kRunning && (after == kNone || k > after))
+        best = rmin(best, Release{k, nodes[u]});
+    }
+  }
+  return best;
+}
+
+__device__ __forceinline__ Release warp_rmin(Release r) {
+  const unsigned long long k = warp_min(r.key);
+  // keys are unique, so one lane holds k (or every lane holds kNone)
+  const int src = __ffs(__ballot_sync(0xffffffffu, r.key == k)) - 1;
+  return Release{k, __shfl_sync(0xffffffffu, r.nodes, src)};
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+shadow_walk(const SelectArgs a, int32_t* out) {
+  __shared__ Release warp_best[kWarps];
+  __shared__ Release slots[2][kCluster];   // by step parity
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  cluster_arrive_relaxed();
+  Release mine = next_release(a, first, kNone);
+  cluster_wait();  // every CTA has started: its shared memory exists
+
+  // Every thread computes the same winner each step, so the loop's exits
+  // are uniform across the cluster.
+  int32_t cum = a.free, shadow = kBig, k_row = -1, taken = 0;
+  for (int step = 0;; ++step) {
+    // the CTA's least release, then into slot `rank` of every CTA
+    Release r = warp_rmin(mine);
+    if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = r;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      r = warp_rmin(warp_best[threadIdx.x]);
+      if (threadIdx.x < kCluster)
+        *cluster.map_shared_rank(&slots[step & 1][rank], threadIdx.x) = r;
+    }
+    cluster_arrive();
+    cluster_wait();
+    Release w = slots[step & 1][0];
+    for (int c = 1; c < kCluster; ++c) w = rmin(w, slots[step & 1][c]);
+    if (w.key == kNone) break;  // every release counted, head not covered
+    const int32_t row = key_row(w.key);
+    ++taken;
+    cum = add32(cum, w.nodes);
+    shadow = key_score(w.key);
+    k_row = row;
+    if (cum >= a.head_need) break;
+    if (row % kStride == first) mine = next_release(a, first, w.key);
+  }
+  // No CTA reads another's shared memory after the last barrier, so the
+  // CTAs may leave without another one.
+  if (rank == 0 && threadIdx.x == 0) {
+    volatile int32_t* o = out;
+    const bool covered = k_row >= 0 && cum >= a.head_need;
+    o[0] = covered ? shadow : kBig;
+    o[1] = covered ? sub32(cum, a.head_need) : a.free;
+    o[2] = covered ? k_row : -1;
+    o[3] = taken;  // releases counted: the walk's steps
+  }
+}
+
+// Mapped, pinned host words the fused kernels write their answer into: one
+// buffer per host thread, reused call after call.  A kernel's writes to it
+// are visible to the host once the kernel has completed, which the call
+// waits for (cudaStreamSynchronize) before it reads them and returns, so
+// the next call cannot overwrite words not yet read.
+int32_t* host_words(int32_t** dev) {
+  static thread_local int32_t* host = nullptr;
+  static thread_local int32_t* device = nullptr;
+  if (host == nullptr) {
+    void* p = nullptr;
+    if (cudaHostAlloc(&p, 64, cudaHostAllocMapped | cudaHostAllocPortable) !=
+        cudaSuccess)
+      return nullptr;
+    void* d = nullptr;
+    if (cudaHostGetDevicePointer(&d, p, 0) != cudaSuccess) {
+      cudaFreeHost(p);
+      return nullptr;
+    }
+    host = static_cast<int32_t*>(p);
+    device = static_cast<int32_t*>(d);
+  }
+  *dev = device;
+  return host;
+}
+
+template <int M>
+void launch_fused(const SelectArgs& a, int32_t* out, cudaStream_t s) {
+  select_fused<M><<<kCluster, kThreads, 0, s>>>(a, out);
+}
+
+// Enqueue `launch` writing `words` answers into the host buffer, wait for
+// the stream, copy the answers into `result`.  Returns a CUDA error code.
+template <typename Launch>
+int run_sync(Launch launch, int words, cudaStream_t s, int32_t* result) {
+  int32_t* dev = nullptr;
+  volatile int32_t* host = host_words(&dev);
+  if (host == nullptr) return (int)cudaErrorMemoryAllocation;
+  for (int w = 0; w < words; ++w) host[w] = kSentinel;
+  launch(dev);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaStreamSynchronize(s);
+  if (err != cudaSuccess) return (int)err;
+  for (int w = 0; w < words; ++w) {
+    result[w] = host[w];
+    if (result[w] == kSentinel && w == 0) return (int)cudaErrorUnknown;
+  }
+  return 0;
 }
 
 }  // namespace
 
-// scores: int32[n]; feasible: n entries of mask_bytes (1 = bool, 4 = int32);
-// scratch: one 8-byte-aligned uint64 word; out: int32[2].  All on the device
-// of `stream`.  Allocates nothing, does not synchronise, and returns the
-// CUDA error code of the enqueue (0 = success).
+// The TPU kernel's function.  scores: int32[n]; feasible: n entries of
+// mask_bytes (1 = bool, 4 = int32); out: int32[2] on the device.  All on the
+// device of `stream`.  Allocates nothing, does not synchronise, and returns
+// the CUDA error code of the enqueue (0 = success).
 extern "C" int queue_select_launch(const void* scores, const void* feasible,
-                                   int mask_bytes, long long n, void* scratch,
-                                   void* out, void* stream) {
+                                   int mask_bytes, long long n, void* out,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n < 1 || (mask_bytes != 1 && mask_bytes != 4))
+  if (n < 1 || n > INT32_MAX || (mask_bytes != 1 && mask_bytes != 4))
     return (int)cudaErrorInvalidValue;
-  unsigned long long* best = static_cast<unsigned long long*>(scratch);
-  cudaError_t err = cudaMemsetAsync(best, 0xff, sizeof(*best), s);
-  if (err != cudaSuccess) return (int)err;
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   const int32_t* sc = static_cast<const int32_t*>(scores);
+  int32_t* o = static_cast<int32_t*>(out);
   if (mask_bytes == 1)
-    select_reduce<uint8_t><<<(int)blocks, kThreads, 0, s>>>(
-        sc, static_cast<const uint8_t*>(feasible), n, best);
+    select_generic<uint8_t><<<kCluster, kThreads, 0, s>>>(
+        sc, static_cast<const uint8_t*>(feasible), n, o);
   else
-    select_reduce<int32_t><<<(int)blocks, kThreads, 0, s>>>(
-        sc, static_cast<const int32_t*>(feasible), n, best);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  select_decode<<<1, 1, 0, s>>>(best, static_cast<int32_t*>(out));
+    select_generic<int32_t><<<kCluster, kThreads, 0, s>>>(
+        sc, static_cast<const int32_t*>(feasible), n, o);
   return (int)cudaGetLastError();
+}
+
+// One fused selection: launch, wait for `stream`, and leave (index, score)
+// in result[0..1] on the host.  Returns a CUDA error code (0 = success).
+extern "C" int queue_select_fused(const SelectArgs* args, void* stream,
+                                  int32_t* result) {
+  const SelectArgs a = *args;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.n < 1 || a.n > INT32_MAX) return (int)cudaErrorInvalidValue;
+  auto launch = [&](int32_t* out) {
+    switch (a.mode) {
+      case HEAD_SUBMIT: launch_fused<HEAD_SUBMIT>(a, out, s); break;
+      case HEAD_ESTIMATE: launch_fused<HEAD_ESTIMATE>(a, out, s); break;
+      case HEAD_NEG_ESTIMATE: launch_fused<HEAD_NEG_ESTIMATE>(a, out, s); break;
+      case BESTFIT: launch_fused<BESTFIT>(a, out, s); break;
+      case ANY_FIT: launch_fused<ANY_FIT>(a, out, s); break;
+      case BACKFILL_CAND: launch_fused<BACKFILL_CAND>(a, out, s); break;
+      case PREEMPT_TIER: launch_fused<PREEMPT_TIER>(a, out, s); break;
+      case PREEMPT_HEAD: launch_fused<PREEMPT_HEAD>(a, out, s); break;
+    }
+  };
+  if (a.mode < HEAD_SUBMIT || a.mode > PREEMPT_HEAD)
+    return (int)cudaErrorInvalidValue;
+  return run_sync(launch, 2, s, result);
+}
+
+// The EASY shadow walk for a head needing args->head_need nodes: launch,
+// wait for `stream`, and leave (shadow, extra, k_row, releases counted) in
+// result[0..3].
+extern "C" int queue_select_walk(const SelectArgs* args, void* stream,
+                                 int32_t* result) {
+  const SelectArgs a = *args;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.n < 1 || a.n > INT32_MAX) return (int)cudaErrorInvalidValue;
+  auto launch = [&](int32_t* out) {
+    shadow_walk<<<kCluster, kThreads, 0, s>>>(a, out);
+  };
+  return run_sync(launch, 4, s, result);
 }

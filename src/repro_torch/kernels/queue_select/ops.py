@@ -1,8 +1,24 @@
-"""``queue_select``: dispatch between the Hopper kernel and its plain version.
+"""``queue_select``: dispatch between the Hopper kernels and their plain
+versions.
 
 A CPU tensor takes the plain PyTorch version (``ref.py``).  A CUDA tensor
-launches the CUDA kernel of ``csrc/queue_select.cu`` or raises; nothing
-falls back.  ``queue_select.launches`` counts kernel launches.
+launches a kernel of ``csrc/queue_select.cu`` or raises; nothing falls
+back.  Two ways in:
+
+- :func:`queue_select` (scores, mask) -> device i32[2], the TPU kernel's
+  function;
+- :class:`TableSelect`, bound to one job table: :meth:`TableSelect.select`
+  builds the key and the mask of a mode (``ref.MODES``) in the kernel and
+  returns ``(index, score)`` as Python ints;
+- :func:`shadow_walk` (a ``TableSelect``, the state) runs the EASY shadow
+  walk in one launch.
+
+On CUDA both of the latter wait for their stream once and read the answer
+from mapped host memory.
+
+``queue_select.launches`` counts the launches of the select kernels (any
+mode, and the generic op); ``shadow_walk.launches`` those of the walk, and
+``shadow_walk.steps`` the releases its launches counted.
 """
 
 from __future__ import annotations
@@ -13,9 +29,23 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.queue_select.ref import queue_select_reference
+from repro_torch.kernels.queue_select.ref import (
+    MODES, fused_select_reference, queue_select_reference,
+    shadow_walk_reference,
+)
 
 SOURCE = "queue_select/csrc/queue_select.cu"
+COLUMNS = ("submit", "estimate", "nodes", "priority")
+
+
+class _SelectArgs(ctypes.Structure):
+    """``SelectArgs`` of ``csrc/queue_select.cu``."""
+    _fields_ = [(c, ctypes.c_void_p) for c in COLUMNS] + [
+        ("jstate", ctypes.c_void_p), ("rsv_finish", ctypes.c_void_p),
+        ("n", ctypes.c_longlong)] + [
+        (f, ctypes.c_int32) for f in ("mode", "clock", "free", "cap", "shadow",
+                                      "extra", "exclude", "tier",
+                                      "head_need")]
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,11 +56,16 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p,   # feasible, bool or int32 [n]
         ctypes.c_int,      # bytes per mask entry (1 or 4)
         ctypes.c_longlong,  # n
-        ctypes.c_void_p,   # scratch, one uint64 word
         ctypes.c_void_p,   # out, int32[2]
         ctypes.c_void_p,   # cudaStream_t
     ]
-    lib.queue_select_launch.restype = ctypes.c_int
+    for fn in (lib.queue_select_fused, lib.queue_select_walk):
+        fn.argtypes = [ctypes.POINTER(_SelectArgs),
+                       ctypes.c_void_p,                  # cudaStream_t
+                       ctypes.POINTER(ctypes.c_int32)]   # result, on the host
+    for fn in (lib.queue_select_launch, lib.queue_select_fused,
+               lib.queue_select_walk):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -59,16 +94,124 @@ def queue_select(scores: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"queue_select runs on cpu or cuda, not {scores.device}")
     if not (scores.is_contiguous() and feasible.is_contiguous()):
         raise ValueError("queue_select needs contiguous tensors")
-    # out[0:2] is the answer; out[2:4] is the kernel's 8-byte scratch word
-    buf = torch.empty(4, dtype=torch.int32, device=scores.device)
+    out = torch.empty(2, dtype=torch.int32, device=scores.device)
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     err = _lib().queue_select_launch(
         scores.data_ptr(), feasible.data_ptr(), feasible.element_size(),
-        scores.numel(), buf.data_ptr() + 8, buf.data_ptr(), stream)
+        scores.numel(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"queue_select kernel launch failed: CUDA error {err}")
     queue_select.launches += 1
-    return buf[:2]
+    return out
+
+
+def shadow_walk(table: "TableSelect", jstate: torch.Tensor,
+                rsv_finish: torch.Tensor, clock: int, free: int,
+                head_need: int) -> tuple[int, int, int]:
+    """EASY shadow reservation ``(shadow, extra, k_row)`` over ``table``'s
+    running rows, for a head needing ``head_need`` nodes
+    (``ref.shadow_walk_reference``): one launch and one wait on CUDA."""
+    if not table.on_cuda:
+        return shadow_walk_reference(table.cols["nodes"], jstate, rsv_finish,
+                                     clock, free, head_need)
+    a = table._state(jstate, rsv_finish)
+    a.clock, a.free, a.head_need = clock, free, head_need
+    err = table._lib.queue_select_walk(table._args_p, table._stream,
+                                       table._result)
+    if err != 0:
+        raise RuntimeError(f"queue_select shadow walk: CUDA error {err}")
+    shadow_walk.launches += 1
+    r = table._result
+    shadow_walk.steps += r[3]
+    return r[0], r[1], r[2]
 
 
 queue_select.launches = 0
+shadow_walk.launches = shadow_walk.steps = 0
+
+
+def reset_launches() -> None:
+    queue_select.launches = 0
+    shadow_walk.launches = shadow_walk.steps = 0
+
+
+class TableSelect:
+    """The fused selections over one job table (and :func:`shadow_walk`'s).
+
+    ``columns`` maps ``submit``, ``estimate``, ``nodes`` and ``priority`` to
+    int32 tensors of one length on one device.  The per-call arguments are
+    the job states (and, for the walk, the reservations) and host ints.  On
+    a CUDA device each call launches one kernel on the stream bound by
+    :meth:`bind_stream` (the current stream when the table was made), waits
+    for it, and returns Python ints.
+    """
+
+    def __init__(self, columns: dict):
+        cols = {c: columns[c] for c in COLUMNS}
+        first = cols["submit"]
+        for c, t in cols.items():
+            if (t.dtype != torch.int32 or t.dim() != 1
+                    or t.shape != first.shape or t.device != first.device
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"column {c} must be a contiguous int32 vector like "
+                    f"submit ({first.dtype}, {tuple(first.shape)}, "
+                    f"{first.device}); got {t.dtype}, {tuple(t.shape)}, "
+                    f"{t.device}")
+        self.cols = cols
+        self.n = first.numel()
+        self.device = first.device
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(
+                f"TableSelect runs on cpu or cuda, not {self.device}")
+        self.on_cuda = self.device.type == "cuda"
+        if self.on_cuda:
+            self._lib = _lib()
+            self._args = _SelectArgs(*(t.data_ptr() for t in cols.values()),
+                                     0, 0, self.n)
+            self._args_p = ctypes.pointer(self._args)
+            self._result = (ctypes.c_int32 * 4)()
+            self.bind_stream()
+
+    def bind_stream(self) -> None:
+        """Launch on the device's current stream from now on."""
+        if self.on_cuda:
+            self._stream = torch.cuda.current_stream(self.device).cuda_stream
+
+    def _state(self, jstate: torch.Tensor, rsv_finish: torch.Tensor | None):
+        a = self._args
+        for t in (jstate,) if rsv_finish is None else (jstate, rsv_finish):
+            if (t.device != self.device or t.dtype != torch.int32
+                    or t.numel() != self.n or not t.is_contiguous()):
+                raise ValueError(
+                    f"state columns must be contiguous int32[{self.n}] on "
+                    f"{self.device}, got {t.dtype}[{t.numel()}] on {t.device}")
+        a.jstate = jstate.data_ptr()
+        a.rsv_finish = (a.jstate if rsv_finish is None
+                        else rsv_finish.data_ptr())
+        return a
+
+    def select(self, mode: int, jstate: torch.Tensor, clock: int = 0,
+               free: int = 0, cap: int = 0, shadow: int = 0, extra: int = 0,
+               exclude: int = -1, tier: int = 0) -> tuple[int, int]:
+        """``(index, score)`` of the masked lexicographic argmin of
+        ``mode``'s key and mask (``ref.fused_key_mask``); ``(-1, BIG)``
+        when no row is feasible."""
+        if not self.on_cuda:
+            return fused_select_reference(mode, self.cols, jstate, clock, free,
+                                          cap, shadow, extra, exclude, tier)
+        a = self._state(jstate, None)
+        a.mode, a.clock, a.free, a.cap = mode, clock, free, cap
+        a.shadow, a.extra, a.exclude, a.tier = shadow, extra, exclude, tier
+        err = self._lib.queue_select_fused(self._args_p, self._stream,
+                                           self._result)
+        if err != 0:
+            raise RuntimeError(
+                f"queue_select fused mode {mode}: CUDA error {err}")
+        queue_select.launches += 1
+        r = self._result
+        return r[0], r[1]
+
+
+__all__ = ["MODES", "TableSelect", "queue_select", "reset_launches",
+           "shadow_walk"]

@@ -1,10 +1,36 @@
-"""Plain PyTorch version of ``queue_select``: masked lexicographic argmin."""
+"""Plain PyTorch versions of the ``queue_select`` kernel family.
+
+- :func:`queue_select_reference`: the masked lexicographic argmin over a
+  given score vector and mask (the TPU kernel's function).
+- :func:`fused_select_reference`: the same argmin with the key and the
+  mask built from the job table's columns, one *mode* for each argmin of
+  the engine's selectors and batched passes.
+- :func:`shadow_walk_reference`: the EASY shadow walk over the running
+  jobs' releases.
+"""
 
 from __future__ import annotations
 
 import torch
 
 BIG = 2**30 - 1
+WAITING, RUNNING = 1, 2     # repro_torch.core.jobs' job states
+
+# Key modes of the fused selection.  Each builds (key, mask) per row:
+HEAD_SUBMIT = 0        # (submit, WAITING): the FCFS head, backfill's head
+HEAD_ESTIMATE = 1      # (estimate, WAITING): the SJF head
+HEAD_NEG_ESTIMATE = 2  # (-estimate, WAITING): the LJF head
+BESTFIT = 3            # (free - nodes, WAITING & nodes <= cap)
+ANY_FIT = 4            # (0, WAITING & nodes <= cap & row != exclude)
+BACKFILL_CAND = 5      # (submit, WAITING & nodes <= cap & row != exclude
+                       #  & (clock + estimate <= shadow
+                       #     | nodes <= min(free, extra)))
+PREEMPT_TIER = 6       # (where(WAITING, priority, BIG), every row)
+PREEMPT_HEAD = 7       # (submit, WAITING & priority == tier)
+MODES = {"head_submit": HEAD_SUBMIT, "head_estimate": HEAD_ESTIMATE,
+         "head_neg_estimate": HEAD_NEG_ESTIMATE, "bestfit": BESTFIT,
+         "any_fit": ANY_FIT, "backfill_cand": BACKFILL_CAND,
+         "preempt_tier": PREEMPT_TIER, "preempt_head": PREEMPT_HEAD}
 
 
 def queue_select_reference(scores: torch.Tensor,
@@ -24,3 +50,75 @@ def queue_select_reference(scores: torch.Tensor,
     found = torch.any(feas)
     return torch.stack([torch.where(found, idx, -1),
                         torch.where(found, best, BIG)]).to(torch.int32)
+
+
+def fused_key_mask(mode: int, cols: dict, jstate: torch.Tensor, clock: int,
+                   free: int, cap: int, shadow: int, extra: int,
+                   exclude: int, tier: int):
+    """(key i32[J], mask bool[J]) of ``mode`` over the job-table columns
+    ``cols`` (``submit``, ``estimate``, ``nodes``, ``priority``) and the
+    job states.  Sums wrap in int32, as the kernel's do."""
+    waiting = jstate == WAITING
+    rows = torch.arange(jstate.shape[0], device=jstate.device)
+    nodes = cols["nodes"]
+    if mode == HEAD_SUBMIT:
+        return cols["submit"], waiting
+    if mode == HEAD_ESTIMATE:
+        return cols["estimate"], waiting
+    if mode == HEAD_NEG_ESTIMATE:
+        return -cols["estimate"], waiting
+    if mode == BESTFIT:
+        return free - nodes, waiting & (nodes <= cap)
+    if mode == ANY_FIT:
+        return (torch.zeros_like(nodes),
+                waiting & (nodes <= cap) & (rows != exclude))
+    if mode == BACKFILL_CAND:
+        ends_by = (cols["estimate"] + clock) <= shadow
+        within = nodes <= min(free, extra)
+        return cols["submit"], (waiting & (nodes <= cap) & (rows != exclude)
+                                & (ends_by | within))
+    if mode == PREEMPT_TIER:
+        return (torch.where(waiting, cols["priority"], BIG).to(torch.int32),
+                torch.ones_like(waiting))
+    if mode == PREEMPT_HEAD:
+        return cols["submit"], waiting & (cols["priority"] == tier)
+    raise ValueError(f"unknown fused-select mode {mode}")
+
+
+def fused_select_reference(mode: int, cols: dict, jstate: torch.Tensor,
+                           clock: int = 0, free: int = 0, cap: int = 0,
+                           shadow: int = 0, extra: int = 0, exclude: int = -1,
+                           tier: int = 0) -> tuple[int, int]:
+    """``(index, score)`` of the masked lexicographic argmin of ``mode``'s
+    key and mask (see :func:`fused_key_mask`), as Python ints."""
+    key, mask = fused_key_mask(mode, cols, jstate, clock, free, cap, shadow,
+                               extra, exclude, tier)
+    idx, score = queue_select_reference(key, mask).tolist()
+    return idx, score
+
+
+def shadow_walk_reference(nodes: torch.Tensor, jstate: torch.Tensor,
+                          rsv_finish: torch.Tensor, clock: int, free: int,
+                          head_need: int) -> tuple[int, int, int]:
+    """EASY shadow reservation ``(shadow, extra, k_row)`` for a head that
+    needs ``head_need`` nodes.
+
+    The running jobs' releases ``(max(rsv_finish, clock + 1), row)`` are
+    taken in lexicographic order (a stable sort on the clamped time), and
+    their nodes added to ``free`` until the sum covers the head.  Coverage
+    is tested only after a release is added, so at least one is always
+    counted.  ``shadow`` is the covering release's time, ``extra`` the
+    spare nodes then, ``k_row`` its row; ``(BIG, free, -1)`` when the
+    whole running set cannot cover the head.
+    """
+    running = jstate == RUNNING
+    rows = torch.nonzero(running).flatten()
+    t = torch.clamp(rsv_finish[rows], min=clock + 1)
+    order = torch.sort(t, stable=True)[1]
+    rows, t = rows[order], t[order]
+    cum = free + torch.cumsum(nodes[rows], 0, dtype=torch.int32)
+    covered = torch.nonzero(cum >= head_need).flatten()
+    if covered.numel() == 0:
+        return BIG, free, -1
+    p = int(covered[0])
+    return int(t[p]), int(cum[p]) - head_need, int(rows[p])

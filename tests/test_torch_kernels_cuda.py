@@ -52,6 +52,85 @@ def test_kernel_corners_on_card():
                          torch.ones(4, dtype=torch.bool, device="cuda"))
 
 
+# the fused selections and the walk: sizes around one cluster's 8 x 1,024
+# threads, and the archive run's table
+SELECT_SIZES = (7, 1000, 8191, 8192, 8193, 73_496)
+BIG = 2**30 - 1
+
+
+def _random_table(rng, n, running_share):
+    """A random job table and mid-run state on the card (ties in submit and
+    estimate, priorities on either side of BIG, reservations before and
+    after the clock): (TableSelect, jstate, rsv_finish, clock)."""
+    cols = {"submit": np.sort(rng.integers(0, max(n // 3, 1), n)),
+            "estimate": rng.choice([60, 600, 3600, 43_200], n),
+            "nodes": rng.integers(1, 129, n),
+            "priority": BIG + rng.integers(-3, 3, n)}
+    rest = (1 - running_share) / 4
+    jstate = rng.choice([0, 1, 2, 3], n, p=[rest, 2 * rest, running_share,
+                                             rest])
+    clock = 50_000
+    rsv = np.where(jstate == 2, clock + rng.integers(-3000, 40_000, n), BIG)
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    table = ops.TableSelect({c: dev(cols[c]) for c in ops.COLUMNS})
+    return table, dev(jstate), dev(rsv), clock
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SELECT_SIZES)
+def test_fused_modes_and_walk_match_plain_on_card(n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.queue_select import ref
+    rng = np.random.default_rng(n)
+    for share in (0.02, 0.3):
+        table, jstate, rsv, clock = _random_table(rng, n, share)
+        nodes = table.cols["nodes"]
+        run_nodes = int(torch.where(jstate == 2, nodes, 0).sum())
+        for free, need in ((0, 1), (7, 40), (2, run_nodes // 2),
+                           (1, run_nodes + 2)):
+            before = ops.shadow_walk.launches
+            walk = ops.shadow_walk(table, jstate, rsv, clock, free, need)
+            assert ops.shadow_walk.launches == before + 1
+            assert walk == ref.shadow_walk_reference(nodes, jstate, rsv,
+                                                     clock, free, need)
+            head = ref.fused_select_reference(ref.HEAD_SUBMIT, table.cols,
+                                              jstate)[0]
+            tier = ref.fused_select_reference(ref.PREEMPT_TIER, table.cols,
+                                              jstate)[1]
+            for extra in (walk[1], -1):
+                p = dict(clock=clock, free=free, cap=free + 1, shadow=walk[0],
+                         extra=extra, exclude=head, tier=tier)
+                for name, mode in ref.MODES.items():
+                    before = ops.queue_select.launches
+                    got = table.select(mode, jstate, **p)
+                    assert ops.queue_select.launches == before + 1
+                    want = ref.fused_select_reference(mode, table.cols,
+                                                      jstate, **p)
+                    assert got == want, (name, p)
+
+
+@pytest.mark.cuda
+def test_backfill_run_on_card_equals_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import repro_torch as rt
+    from repro_torch.core import engine
+    scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=400, seed=2,
+                                              kind="das2"),
+                      total_nodes=400, policy="backfill")
+    ops.reset_launches()
+    engine.reset_counters()
+    card = rt.run(scn).to_np()
+    assert ops.shadow_walk.launches > 0 and ops.queue_select.launches > 0
+    assert engine.counters["max_walks_per_event"] <= 1
+    cpu = rt.run(scn, device="cpu").to_np()
+    for k in ("start", "finish", "n_events"):
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+
+
 # (B, Sq, Sk, H, KV, hd): the CPU sweep's shapes, plus the models' head
 # dims 80 and 128 with GQA and the serve shape's groups (G = 3)
 FLASH_SHAPES = [
