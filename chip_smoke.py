@@ -9,8 +9,9 @@ Phases, each printing one JSON line with its wall time:
              CUDA versions; the compute capability must be (9, 0).
 2. build   - every CUDA kernel of the port, compiled from the sources in
              this checkout with nvcc (one process per source, in parallel);
-             ptxas's registers and spills per source, and the sm90 flash
-             kernel's dynamic shared memory per head dim.
+             ptxas's registers and spills per source, the sm90 flash
+             kernel's dynamic shared memory per head dim and the sm90
+             linattn kernel's per key dim.
 3. kernel  - queue_select on the card against its plain PyTorch version,
              bit for bit: the generic op (scores and mask given) over sizes,
              feasibility rates, negative scores, ties and the feasible-BIG
@@ -64,22 +65,29 @@ Phases, each printing one JSON line with its wall time:
 10. linattn - linattn_scan on the card against its plain PyTorch version
              (a token scan), y and final state, over the CPU tests' shape
              grid in f32 and bf16, a steep-decay case, a slow-decay case
-             of ragged length 2,045 and the serve shape; then its time at
-             the serve shape beside the plain version and the bound (no
-             PyTorch call computes WKV6, so no library time).
+             of ragged length 2,045 and the serve shape, plus bf16 cases
+             on the sm90 route: steep decays at K 64 and 128 and per-channel
+             decays from -30 to -1e-6 a step; each call counted on its
+             route (bf16 with K 64 or 128: the tensor-core sm90 kernel;
+             the rest: the CUDA-core kernel).  Then, at the serve shape,
+             the sm90 kernel's time beside the CUDA-core kernel's on the
+             same bf16 inputs, the plain version and the bound (no PyTorch
+             call computes WKV6, so no library time).
 11. rwkv_golden - reduced rwkv6-7b in f32 on the kernel path, with its
              zero-init leaves drawn live, held to the JAX package's
              prefill logits and generated tokens (the rwkv entry of
              tests/data/torch_lm_golden.json).
 12. rwkv_serve - rwkv6-7b at full width and depth, with live leaves
              (29.06 GB of f32 weights, after the llama weights are freed):
-             (a) an f32 prefill of one 512-token prompt on the kernel path
+             (a) a prefill of one 512-token prompt on the kernel path
              against the plain wkv_chunked path, last-position logits and
-             every layer's final WKV state; (b) the bf16 serve of 4 prompts
+             every layer's final WKV state, in f32 (the CUDA-core kernel)
+             and in bf16 (the sm90 kernel); (b) the bf16 serve of 4 prompts
              of 2,048 tokens plus 32 generated tokens each through
-             serve_batch, cold then warm, which must launch the kernel once
-             per layer (32); then one profiled prefill and one profiled
-             decode step, as in phase 9.
+             serve_batch, cold then warm, which must launch the sm90
+             kernel once per layer (32) and the CUDA-core kernel never;
+             then one profiled prefill and one profiled decode step, as in
+             phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
 (phases 4 and 5 for queue_select and its walk, the serve of phase 9 for
@@ -147,6 +155,22 @@ SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
 CHECK_LEN = 512                  # phase 9a's prompt
 LM_TOL = 5e-4                    # f32 logits, see tests/test_torch_lm.py
 CHECK_TOL = 1e-4                 # phases 9a and 12a, f32, kernel vs plain path
+# phase 12a in bf16, kernel path vs plain path, as shares of the plain
+# path's largest logit and largest final state entry.  A bf16 model moves
+# both by itself: the CUDA-core kernel (f32 math, y rounded once, so it
+# differs from the plain path by summation order alone) reads 0.04775 and
+# 0.01180 on this prompt, the sm90 kernel (bf16 operands in its products)
+# 0.06320 and 0.01853; both readings are deterministic.  A wrong state
+# carry, decay or bonus is off by O(1).  The limits sit between the sm90
+# kernel's readings and those of lower-precision builds of it
+# (scripts/linattn_split.py --control, on an H100): kw truncated to 3
+# mantissa bits reads 0.160 and 0.0819 and fails both.  A 2^-9 fault (kw
+# rounded to bf16 once: 0.0597, 0.0199; the carried state rounded to bf16:
+# 0.0618, 0.0208) is within this check's noise; phase 10's per-call state
+# limit and the card test that holds the kernel to ref.py's statement of
+# it fail both.
+BF16_LOGIT_TOL = 0.08
+BF16_STATE_TOL = 0.035
 # linattn grid: (B, H, S, K, logw), logw None for -exp(N(0, 0.5^2)) as in
 # test_kernels.py::test_linattn_sweep, else a constant
 LINATTN_CASES = [
@@ -155,6 +179,12 @@ LINATTN_CASES = [
     (1, 2, 256, 32, -6.0),                    # steep decay
     (2, 4, 2045, 64, -math.exp(-6.0)),        # slow decay, ragged length
     (4, 64, 2048, 64, None),                  # the serve shape
+]
+# bf16 only, the sm90 route: steep decays at both key dims, and "mixed":
+# each channel its own decay, from -30 to -1e-6 a step
+LINATTN_BF16_CASES = [
+    (1, 2, 256, 64, -6.0), (1, 2, 200, 128, -30.0),
+    (2, 4, 333, 64, "mixed"), (1, 3, 130, 128, "mixed"),
 ]
 LINATTN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # as tests/test_kernels.py
 LINATTN_TIMED, LINATTN_PLAIN_TIMED = 50, 3
@@ -798,22 +828,37 @@ def profile_serve(torch, phase, kernel, prefill, step) -> None:
              top_device_us={n[:60]: us for n, (_, us) in top})
 
 
+def linattn_logw(np, rng, shape, logw):
+    """f32 log decays: -exp(N(0, 0.5^2)) for None, a constant, or "mixed"
+    (each channel's own scale, log-uniform from 1e-6 to 30)."""
+    if logw is None:
+        return -np.exp(rng.standard_normal(shape, dtype=np.float32) * 0.5)
+    if logw == "mixed":
+        scale = np.exp(rng.uniform(np.log(1e-6), np.log(30.0), shape[-1]))
+        return (-scale * np.exp(rng.standard_normal(shape) * 0.3)
+                ).astype(np.float32)
+    return np.full(shape, logw, np.float32)
+
+
 def phase_linattn(torch, np):
     from repro_torch.kernels.linattn_scan import ops, ref
     t0 = time.time()
     rng = np.random.default_rng(0)
     n_checks, max_err = 0, dict.fromkeys(LINATTN_TOL, 0.0)
     max_rel = dict.fromkeys(LINATTN_TOL, 0.0)
-    for B, H, S, K, logw in LINATTN_CASES:
+    want_routes = dict.fromkeys(ops.ROUTES, 0)
+    ops.reset_launches()
+    cases = [(c, LINATTN_TOL) for c in LINATTN_CASES]
+    cases += [(c, {"bfloat16": LINATTN_TOL["bfloat16"]})
+              for c in LINATTN_BF16_CASES]
+    for (B, H, S, K, logw), tols in cases:
         base = [rng.standard_normal((B, H, S, K), dtype=np.float32) * 0.5
                 for _ in range(3)]
-        lw = (-np.exp(rng.standard_normal((B, H, S, K), dtype=np.float32)
-                      * 0.5) if logw is None
-              else np.full((B, H, S, K), logw, np.float32))
-        lw = torch.from_numpy(lw).to("cuda")
+        lw = torch.from_numpy(linattn_logw(np, rng, (B, H, S, K), logw)
+                              ).to("cuda")
         u = torch.from_numpy(rng.standard_normal((H, K), dtype=np.float32)
                              * 0.5).to("cuda")
-        for dtype, tol in LINATTN_TOL.items():
+        for dtype, tol in tols.items():
             r, k, v = (torch.from_numpy(a).to("cuda", getattr(torch, dtype))
                        for a in base)
             y, st = ops.linattn(r, k, v, lw, u, return_state=True)
@@ -829,8 +874,12 @@ def phase_linattn(torch, np):
                   f"{ey} of its largest entry, state by {es}")
             max_err[dtype] = max(max_err[dtype], d)
             max_rel[dtype] = max(max_rel[dtype], ey, es)
+            want_routes[ops.route(r.dtype, K)] += 1
             n_checks += 1
     del r, k, v, y, st, wy, wst, lw
+    by_route = dict(ops.linattn.launches_by_route)
+    check(by_route == want_routes and ops.linattn.launches == n_checks,
+          f"linattn routes {by_route}, expected {want_routes}")
 
     # timing at the serve shape, in the model's layout: bf16 r/k/v and f32
     # logw as [B, H, S, K] views of [B, S, H, K] tensors
@@ -846,35 +895,50 @@ def phase_linattn(torch, np):
                 / wy.float().abs().max()) < LINATTN_TOL["bfloat16"]
           and float((st - wst).abs().max() / wst.abs().max())
           < LINATTN_TOL["float32"], "linattn at the serve shape, model layout")
+    check(ops.linattn.launches_by_route["sm90_bf16"] == by_route["sm90_bf16"] + 1,
+          "linattn at the serve shape did not take the sm90 route")
     del y, st, wy, wst
     kernel_ms = time_ms(lambda: ops.linattn(r, k, v, lw, u, return_state=True),
                         LINATTN_TIMED)
+    # the CUDA-core kernel on the same bf16 inputs (its route takes bf16
+    # only at K 16 and 32 now; the launcher is called directly)
+    y, st = torch.empty_like(r), torch.empty((B, H, K, K), device="cuda")
+    cuda_core_ms = time_ms(
+        lambda: ops._launch_cuda_core(r, k, v, lw, u, y, st), LINATTN_TIMED)
+    del y, st
     plain_ms = time_ms(lambda: ref.linattn_reference(r, k, v, lw, u),
                        LINATTN_PLAIN_TIMED, warm=1)
     # each input read once, y and the state written once; the recurrence's
-    # least arithmetic, 4 K^2 f32 flops a step and head (r.S, and the
-    # decay and rank-1 update of S), at the f32 rate outside the tensor cores
+    # least arithmetic, 4 K^2 flops a step and head (r.S, and the decay and
+    # rank-1 update of S), at the bf16 tensor-core rate that the sm90
+    # kernel runs its products at; the CUDA-core kernel's bound takes them
+    # at the f32 rate outside the tensor cores
     nbytes = (3 * r.numel() * r.element_size() + lw.numel() * lw.element_size()
               + u.numel() * 4 + r.numel() * r.element_size() + B * H * K * K * 4)
     flops = 4 * K * K * B * H * S
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms, bytes_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    f32_ops_ms = flops / F32_FLOPS * 1e3
     # what the Pallas kernel's chunk form does at its chunk of 128, for
     # comparison: 7 Q^2 K + 4 Q K^2 flops and Q^2 K exponentials a chunk
     Q = 128
     chunks = B * H * -(-S // Q)
-    ops.linattn.launches = 0
+    ops.reset_launches()
     timing = {"shape": f"B={B} H={H} S={S} K={K} r/k/v bf16 logw f32, "
                        "[B, S, H, K] layout",
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "kernel_ms": kernel_ms, "cuda_core_ms": cuda_core_ms,
+              "plain_ms": plain_ms,
               "library_ms": None,
               "library_call": "none: no PyTorch call computes WKV6",
               "flops": flops, "bytes": nbytes,
               "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
               "bytes_ms": bytes_ms,
               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+              "f32_ops_ms": f32_ops_ms,
+              "cuda_core_bound_ms": max(f32_ops_ms, bytes_ms),
               "pallas_chunk_form_flops": chunks * (7 * Q * Q * K + 4 * Q * K * K),
               "pallas_chunk_form_exps": chunks * Q * Q * K}
-    emit("linattn", t0, checks=n_checks, tf32=False,
+    emit("linattn", t0, checks=n_checks, launches_by_route=by_route,
+         tf32=False,
          max_abs_err_f32=max_err["float32"],
          max_abs_err_bf16=max_err["bfloat16"],
          max_rel_err_f32=max_rel["float32"],
@@ -882,25 +946,47 @@ def phase_linattn(torch, np):
     return max(max_err.values()), timing
 
 
-def phase_rwkv_serve(torch, np):
-    import dataclasses
+def rwkv_full_width(torch, np):
+    """rwkv6-7b at full width with random weights from seed 0 (``mu``,
+    ``u`` and ``w0`` drawn live), and phase 12a's prompt of CHECK_LEN
+    tokens: ``(config, model, params, tokens)``."""
     from repro_torch.configs import get_config
     from repro_torch.convert import set_rwkv_live_leaves
-    from repro_torch.kernels.linattn_scan import ops
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import lm
     from repro_torch.models.api import get_model
-    torch.cuda.empty_cache()        # the llama weights are gone by now
-    t0 = time.time()
     base = get_config("rwkv6-7b")
     model = get_model(base)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     set_rwkv_live_leaves(params.tree(), base, RWKV_LIVE_SEED)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, base.vocab - 1, (1, CHECK_LEN))).to("cuda")
+    return base, model, params, toks
+
+
+def bf16_prefill_errs(np, params, cfg, toks, want, wstate):
+    """A prefill of ``cfg`` against the plain path's logits ``want`` (numpy)
+    and final WKV states ``wstate``: ``(logits error over the largest
+    logit, states error over the largest state entry, argmax equal,
+    logits)``."""
+    from repro_torch.models import lm
+    got, gc = lm.prefill(params, {"tokens": toks}, cfg)
+    state_err = float((gc["wkv"] - wstate).abs().max() / wstate.abs().max())
+    got = got.float().cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    return (err, state_err, bool((got.argmax(-1) == want.argmax(-1)).all()),
+            got)
+
+
+def phase_rwkv_serve(torch, np):
+    import dataclasses
+    from repro_torch.kernels.linattn_scan import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+    torch.cuda.empty_cache()        # the llama weights are gone by now
+    t0 = time.time()
+    base, model, params, toks = rwkv_full_width(torch, np)
 
     # (a) f32 at full width: the kernel path against the plain path
     cfg32 = dataclasses.replace(base, dtype="float32", use_pallas=True)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        1, base.vocab - 1, (1, CHECK_LEN))).to("cuda")
     got, gc = lm.prefill(params, {"tokens": toks}, cfg32)
     want, wc = lm.prefill(params, {"tokens": toks},
                           dataclasses.replace(cfg32, use_pallas=False))
@@ -925,6 +1011,43 @@ def phase_rwkv_serve(torch, np):
          argmax_equal=bool((got.argmax(-1) == want.argmax(-1)).all()))
     del gc, wc
 
+    # (a') the same prompt in bf16: the sm90 kernel against the plain path
+    t0 = time.time()
+    cfg16 = dataclasses.replace(base, use_pallas=True)
+    want, wc = lm.prefill(params, {"tokens": toks},
+                          dataclasses.replace(cfg16, use_pallas=False))
+    want, wstate = want.float().cpu().numpy(), wc["wkv"]
+    ops.reset_launches()
+    err, state_err, argmax_equal, got = bf16_prefill_errs(
+        np, params, cfg16, toks, want, wstate)
+    check(ops.linattn.launches_by_route == {"sm90_bf16": base.n_layers,
+                                            "cuda_core": 0},
+          f"bf16 rwkv prefill routes {ops.linattn.launches_by_route}")
+    # yardstick, not checked: the CUDA-core kernel (f32 math, y rounded
+    # once) on the same bf16 prefill, its route forced for this call only
+    route = ops.route
+    ops.route = lambda dtype, K: "cuda_core"
+    try:
+        core_err, core_state_err, _, _ = bf16_prefill_errs(
+            np, params, cfg16, toks, want, wstate)
+    finally:
+        ops.route = route
+    check(bool(np.isfinite(got).all()) and got.shape == (1, base.vocab),
+          "full-width bf16 rwkv prefill logits not finite or misshapen")
+    check(err < BF16_LOGIT_TOL and state_err < BF16_STATE_TOL,
+          f"full-width bf16 rwkv prefill: kernel path off the plain path by "
+          f"{err} of the largest logit (limit {BF16_LOGIT_TOL}), states by "
+          f"{state_err} (limit {BF16_STATE_TOL})")
+    ops.reset_launches()
+    emit("rwkv_serve_check", t0, arch=base.name, dtype="bfloat16",
+         prompt_len=CHECK_LEN, live_leaves=True, max_rel_err=err,
+         tol=BF16_LOGIT_TOL, state_tol=BF16_STATE_TOL,
+         max_abs_logit=float(np.abs(want).max()),
+         state_max_rel_err=state_err, argmax_equal=argmax_equal,
+         cuda_core_max_rel_err=core_err,
+         cuda_core_state_max_rel_err=core_state_err)
+    del wc, wstate
+
     # (b) the bf16 serve through serve_batch, twice (cold, then warm)
     t0 = time.time()
     cfg = dataclasses.replace(base, use_pallas=True)
@@ -932,13 +1055,15 @@ def phase_rwkv_serve(torch, np):
         1, base.vocab - 1, (RWKV_SERVE["batch"], RWKV_SERVE["prompt_len"]))
     for run in ("cold", "warm"):
         torch.cuda.reset_peak_memory_stats()
-        ops.linattn.launches = 0
+        ops.reset_launches()
         seqs, stats = serve_batch(cfg, **RWKV_SERVE, seed=0, params=params,
                                   device="cuda")
         launches = ops.linattn.launches
-        check(launches == base.n_layers,
-              f"serve launched linattn_scan {launches} times, expected "
-              f"{base.n_layers}")
+        by_route = dict(ops.linattn.launches_by_route)
+        check(launches == base.n_layers
+              and by_route == {"sm90_bf16": base.n_layers, "cuda_core": 0},
+              f"serve launched linattn_scan {launches} times by route "
+              f"{by_route}, expected {base.n_layers}, all sm90_bf16")
         out = seqs.cpu().numpy()
         total = RWKV_SERVE["prompt_len"] + RWKV_SERVE["gen"]
         check(out.shape == (RWKV_SERVE["batch"], total)
@@ -947,7 +1072,7 @@ def phase_rwkv_serve(torch, np):
               "rwkv serve returned malformed sequences")
         emit("rwkv_serve", t0, run=run, arch=base.name, dtype=cfg.dtype,
              **RWKV_SERVE, n_params=model.n_params(), live_leaves=True,
-             linattn_launches=launches,
+             linattn_launches=launches, linattn_launches_by_route=by_route,
              prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
              decode_tok_per_s=stats["decode_tok_per_s"],
              total_tok_per_s=stats["tok_per_s"], seconds=stats["seconds"],
@@ -964,7 +1089,7 @@ def phase_rwkv_serve(torch, np):
     step()                                     # warm
     profile_serve(torch, "rwkv_serve_profile", "linattn",
                   lambda: lm.prefill(params, batch, cfg), step)
-    ops.linattn.launches = 0
+    ops.reset_launches()
     return launches
 
 
@@ -1013,9 +1138,12 @@ def main(argv=None) -> int:
                    if "registers" in ln or "spill" in ln or "smem" in ln]
              for src, log in logs.items()}
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.linattn_scan import ops as lops
     emit("build", t0, sources=list(logs), ptxas=ptxas,
          sm90_flash_dynamic_smem_bytes={
-             hd: fops.sm90_smem_bytes(hd) for hd in fops.HEAD_DIMS})
+             hd: fops.sm90_smem_bytes(hd) for hd in fops.HEAD_DIMS},
+         sm90_linattn_dynamic_smem_bytes={
+             K: lops.sm90_smem_bytes(K) for K in lops.SM90_KEY_DIMS})
 
     phases = {
         "kernel": lambda: phase_kernel(torch, np, ops, ref),
@@ -1099,11 +1227,16 @@ def main(argv=None) -> int:
     }, {
         "name": "linattn_scan",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/linattn_scan/csrc/linattn_scan.cu",
+        "source": "src/repro_torch/kernels/linattn_scan/csrc/"
+                  "linattn_scan_sm90.cu",
+        "f32_source": "src/repro_torch/kernels/linattn_scan/csrc/"
+                      "linattn_scan.cu",
         "replaces": "src/repro/kernels/linattn_scan/kernel.py:23",
         "launches": lin_launches,
         "max_abs_err": lin_err,
         "ms": lin["kernel_ms"],
+        "cuda_core_ms": lin["cuda_core_ms"],
+        "cuda_core_bound_ms": lin["cuda_core_bound_ms"],
         "plain_ms": lin["plain_ms"],
         "bound_ms": lin["bound_ms"],
         "bound_by": lin["bound_by"],

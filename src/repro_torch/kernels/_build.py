@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("queue_select/csrc/queue_select.cu",
            "flash_attention/csrc/flash_attention.cu",
            "flash_attention/csrc/flash_attention_sm90.cu",
-           "linattn_scan/csrc/linattn_scan.cu")
+           "linattn_scan/csrc/linattn_scan.cu",
+           "linattn_scan/csrc/linattn_scan_sm90.cu")
 
 
 def _nvcc() -> str:

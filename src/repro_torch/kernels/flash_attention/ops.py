@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tma import tma_view as _tma_view
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
 SOURCE = "flash_attention/csrc/flash_attention.cu"
@@ -144,29 +145,6 @@ def _kv_tile_plan(Sq: int, Sk: int, q_offset: int, causal: bool,
                   for k0 in range(lo * block_k, hi * block_k, block_k)]
         plan.append((lo, hi, masked))
     return plan
-
-
-def _tma_view(x: torch.Tensor, name: str):
-    """``x`` as the sm90 kernel's TMA reads it, and its (batch, seq, head)
-    strides in elements.  The last dim must be contiguous (else ``x`` is
-    copied so); the base address must be 16-byte aligned and every stride a
-    multiple of 16 bytes, else this raises.  A dim of size 1 is never
-    stepped, so its stride is taken as the extent of the dims inside it."""
-    if x.stride(-1) != 1:
-        x = x.contiguous()
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name}: TMA needs a 16-byte aligned base address, "
-                         f"got {x.data_ptr():#x}")
-    strides, inner = [], x.shape[3]
-    for d in (2, 1, 0):
-        st = x.stride(d) if x.shape[d] > 1 else inner
-        if st * x.element_size() % 16:
-            raise ValueError(
-                f"{name}: TMA needs strides of a multiple of 16 bytes; dim {d} "
-                f"of {tuple(x.shape)} steps {st * x.element_size()} bytes")
-        strides.append(st)
-        inner = st * x.shape[d]
-    return x, strides[::-1]
 
 
 def _launch_sm90(q, k, v, causal, window, q_offset) -> torch.Tensor:

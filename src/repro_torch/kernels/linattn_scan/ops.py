@@ -1,15 +1,27 @@
-"""``linattn``: dispatch between the Hopper kernel and its plain version.
+"""``linattn``: dispatch between the Hopper kernels and their plain version.
 
-A CPU tensor takes the plain PyTorch version (``ref.py``).  A CUDA tensor
-launches the CUDA kernel of ``csrc/linattn_scan.cu`` or raises; nothing
-falls back.  ``linattn.launches`` counts kernel launches.
+A CPU tensor takes the plain PyTorch version (``ref.py``), whatever the
+dtype.  A CUDA tensor launches a CUDA kernel or raises; nothing falls
+back.  The route is fixed by r's dtype and the key dim K, by
+:func:`route`:
 
-The kernel reads r, k, v and logw through their strides, so a
+- bf16 r/k/v with K 64 or 128 (the rwkv serve path) goes to
+  ``csrc/linattn_scan_sm90.cu``, on the tensor cores (wgmma, chunks of 64
+  steps fed by TMA);
+- everything else (f32, the checks' path, and bf16 with K 16 or 32) goes to
+  ``csrc/linattn_scan.cu``, f32 FMAs on the CUDA cores.
+
+``linattn.launches`` counts kernel launches (one a call) and
+``linattn.launches_by_route`` counts them by route; ``reset_launches()``
+zeroes both.
+
+Both kernels read r, k, v and logw through their strides, so a
 ``[B, H, S, K]`` view of the model's ``[B, S, H, K]`` activations
 (``x.transpose(1, 2)``) is read in place, without a copy; y comes back in
 r's layout (``torch.empty_like``), so the same view of it is contiguous
-again.  Only the key axis must be contiguous; a tensor whose key axis is
-not is copied first.
+again.  The key axis must be contiguous; a tensor whose key axis is not is
+copied first.  The sm90 kernel reads by TMA, which also needs 16-byte
+aligned bases and strides (``_tma.tma_view`` raises otherwise).
 """
 
 from __future__ import annotations
@@ -20,11 +32,16 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._tma import tma_view
 from repro_torch.kernels.linattn_scan.ref import linattn_reference
 
 SOURCE = "linattn_scan/csrc/linattn_scan.cu"
-KEY_DIMS = (16, 32, 64, 128)             # the kernel's instantiations
+SM90_SOURCE = "linattn_scan/csrc/linattn_scan_sm90.cu"
+KEY_DIMS = (16, 32, 64, 128)             # the CUDA-core kernel's instantiations
+SM90_KEY_DIMS = (64, 128)                # the sm90 kernel's
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("sm90_bf16", "cuda_core")
+_ERR_NO_ENCODER, _ERR_ENCODE = 900, 1000  # linattn_scan_sm90.cu's codes
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,6 +63,44 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.linattn_scan_launch.restype = ctypes.c_int
     return lib
+
+
+def _bind_sm90(path) -> ctypes.CDLL:
+    """Load a build of ``linattn_scan_sm90.cu`` and declare its C entry
+    points."""
+    lib = ctypes.CDLL(str(path))
+    lib.linattn_scan_sm90_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # r, k, v bf16
+        ctypes.c_void_p,    # logw
+        ctypes.c_void_p,    # u, [H, K] f32
+        ctypes.c_void_p,    # y, [B, H, S, K] bf16
+        ctypes.c_void_p,    # state, [B, H, K, K] f32
+        ctypes.c_int,       # dtype of logw: 0 = f32, 1 = bf16
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, S, K
+        ctypes.c_void_p,    # 15 int64 strides: (batch, head, time) x 5
+        ctypes.c_void_p,    # cudaStream_t
+    ]
+    lib.linattn_scan_sm90_launch.restype = ctypes.c_int
+    lib.linattn_scan_sm90_smem_bytes.argtypes = [ctypes.c_int]
+    lib.linattn_scan_sm90_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_lib() -> ctypes.CDLL:
+    return _bind_sm90(_build.build(SM90_SOURCE))
+
+
+def sm90_smem_bytes(K: int) -> int:
+    """Dynamic shared memory of one CTA of the sm90 kernel at key dim
+    ``K``, as the kernel requests it (builds the kernel if needed)."""
+    return _sm90_lib().linattn_scan_sm90_smem_bytes(K)
+
+
+def route(dtype: torch.dtype, K: int) -> str:
+    """The kernel a CUDA call of r's ``dtype`` and key dim ``K`` launches."""
+    return "sm90_bf16" if dtype == torch.bfloat16 and K in SM90_KEY_DIMS \
+        else "cuda_core"
 
 
 def _check(r, k, v, logw, u) -> None:
@@ -77,6 +132,41 @@ def _key_contiguous(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def _launch_cuda_core(r, k, v, logw, u, y, state) -> None:
+    B, H, S, K = r.shape
+    strides = (ctypes.c_longlong * 15)(
+        *(s for x in (r, k, v, logw, y) for s in x.stride()[:3]))
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _lib().linattn_scan_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), y.data_ptr(), state.data_ptr(), DTYPES[r.dtype],
+        DTYPES[logw.dtype], B, H, S, K, ctypes.addressof(strides), stream)
+    if err != 0:
+        raise RuntimeError(f"linattn_scan kernel launch failed: CUDA error {err}")
+
+
+def _launch_sm90(r, k, v, logw, u, y, state) -> None:
+    views = [tma_view(x, n) for x, n in ((r, "r"), (k, "k"), (v, "v"),
+                                         (logw, "logw"))]
+    (r, rs), (k, ks), (v, vs), (logw, ws) = views
+    B, H, S, K = r.shape
+    strides = (ctypes.c_longlong * 15)(*rs, *ks, *vs, *ws, *y.stride()[:3])
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _sm90_lib().linattn_scan_sm90_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), y.data_ptr(), state.data_ptr(), DTYPES[logw.dtype],
+        B, H, S, K, ctypes.addressof(strides), stream)
+    if err == _ERR_NO_ENCODER:
+        raise RuntimeError("linattn_scan sm90 kernel: the CUDA driver offers "
+                           "no cuTensorMapEncodeTiled")
+    if err >= _ERR_ENCODE:
+        raise RuntimeError(f"linattn_scan sm90 kernel: the driver refused a "
+                           f"TMA map (CUresult {err - _ERR_ENCODE})")
+    if err != 0:
+        raise RuntimeError(
+            f"linattn_scan sm90 kernel launch failed: CUDA error {err}")
+
+
 def linattn(r, k, v, logw, u, *, chunk: int = 128, return_state: bool = False):
     """Chunked RWKV6 linear attention on ``[B, H, S, K]`` inputs.
 
@@ -84,7 +174,7 @@ def linattn(r, k, v, logw, u, *, chunk: int = 128, return_state: bool = False):
     ``[H, K]``.  Returns y ``[B, H, S, K]`` in r's dtype or, with
     ``return_state``, ``(y, state)`` where state is the final f32
     ``[B, H, K, K]``, key axis first.  ``chunk`` is accepted for the JAX
-    wrapper's signature; the kernel picks its own tile, which changes the
+    wrapper's signature; the kernels pick their own chunk, which changes the
     result only by rounding.
     """
     del chunk
@@ -99,17 +189,18 @@ def linattn(r, k, v, logw, u, *, chunk: int = 128, return_state: bool = False):
     B, H, S, K = r.shape
     y = torch.empty_like(r)
     state = torch.empty((B, H, K, K), dtype=torch.float32, device=r.device)
-    strides = (ctypes.c_longlong * 15)(
-        *(s for x in (r, k, v, logw, y) for s in x.stride()[:3]))
-    stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = _lib().linattn_scan_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-        u.data_ptr(), y.data_ptr(), state.data_ptr(), DTYPES[r.dtype],
-        DTYPES[logw.dtype], B, H, S, K, ctypes.addressof(strides), stream)
-    if err != 0:
-        raise RuntimeError(f"linattn_scan kernel launch failed: CUDA error {err}")
+    path = route(r.dtype, K)
+    launch = _launch_sm90 if path == "sm90_bf16" else _launch_cuda_core
+    launch(r, k, v, logw, u, y, state)
     linattn.launches += 1
+    linattn.launches_by_route[path] += 1
     return (y, state) if return_state else y
 
 
-linattn.launches = 0
+def reset_launches() -> None:
+    """Set the launch count and the count of every route to 0."""
+    linattn.launches = 0
+    linattn.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()

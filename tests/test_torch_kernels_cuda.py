@@ -234,7 +234,8 @@ def test_flash_routes_by_dtype_on_card():
 
 
 # (B, H, S, K): the CPU sweep's shapes (test_kernels.py::test_linattn_sweep)
-# plus K = 128 and ragged lengths past one 32-step tile
+# plus K = 128 and ragged lengths past one 32-step tile; bf16 at K 64 and
+# 128 runs on the sm90 kernel, the rest on the CUDA-core kernel
 LINATTN_SHAPES = [
     (2, 3, 64, 16),
     (1, 2, 128, 64),
@@ -295,15 +296,119 @@ def test_linattn_kernel_matches_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("logw,S", [(-6.0, 256), (-float(np.exp(-6.0)), 2045)])
-def test_linattn_kernel_steep_and_slow_decay_on_card(logw, S):
+def test_linattn_kernel_steep_and_slow_decay_on_card(logw, S, dtype):
+    """f32 on the CUDA-core kernel, bf16 on the sm90 kernel (K = 64)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     from repro_torch.kernels.linattn_scan import ops as lops
     from repro_torch.kernels.linattn_scan.ref import linattn_reference
-    args = _linattn_inputs(np.random.default_rng(1), 1, 2, S, 64,
-                           torch.float32, logw=logw)
+    dt = getattr(torch, dtype)
+    args = _linattn_inputs(np.random.default_rng(1), 1, 2, S, 64, dt,
+                           logw=logw)
+    lops.reset_launches()
     got = lops.linattn(*args, return_state=True)
-    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    assert lops.linattn.launches_by_route[lops.route(dt, 64)] == 1
+    assert torch.isfinite(got[0].float()).all() and torch.isfinite(got[1]).all()
     ey, es = _linattn_errs(got, linattn_reference(*args))
-    assert ey < 1e-4 and es < 1e-4, (ey, es)
+    assert ey < (1e-4 if dt == torch.float32 else 5e-2) and es < 1e-4, (ey, es)
+
+
+# bf16 on the sm90 kernel: steep decays at both key dims, per-channel
+# decays from -30 to -1e-6 a step ("mixed"), ragged lengths
+LINATTN_SM90_CASES = [
+    (1, 2, 256, 64, -6.0), (1, 2, 200, 128, -30.0),
+    (2, 4, 333, 64, "mixed"), (1, 3, 130, 128, "mixed"), (2, 2, 33, 128, None),
+]
+
+
+def _sm90_case_inputs(B, H, S, K, logw):
+    """bf16 r, k, v and f32 logw, u of one LINATTN_SM90_CASES case."""
+    rng = np.random.default_rng(S + K)
+    mixed = logw == "mixed"
+    r, k, v, lw, u = _linattn_inputs(rng, B, H, S, K, torch.bfloat16,
+                                     logw=None if mixed else logw)
+    if mixed:
+        scale = np.exp(rng.uniform(np.log(1e-6), np.log(30.0), K))
+        lw = torch.from_numpy(-scale.astype(np.float32)).cuda() * torch.exp(
+            0.3 * torch.randn((B, H, S, K), device="cuda"))
+    return r, k, v, lw, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,K,logw", LINATTN_SM90_CASES)
+def test_linattn_sm90_kernel_matches_plain_on_card(B, H, S, K, logw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.linattn_scan import ops as lops
+    from repro_torch.kernels.linattn_scan.ref import linattn_reference
+    r, k, v, lw, u = _sm90_case_inputs(B, H, S, K, logw)
+    for logw_t in (lw, lw.to(torch.bfloat16)):
+        lops.reset_launches()
+        got = lops.linattn(r, k, v, logw_t, u, return_state=True)
+        assert lops.linattn.launches_by_route == {"sm90_bf16": 1,
+                                                  "cuda_core": 0}
+        want = linattn_reference(r, k, v, logw_t, u)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+        ey, es = _linattn_errs(got, want)
+        assert ey < 5e-2 and es < 1e-4, ((B, H, S, K, logw), ey, es)
+
+
+# The kernel against ref.py::linattn_sm90_reference, the statement of its
+# arithmetic that the CPU tests hold to JAX.  The statement rounds where the
+# kernel rounds, so the two part only where an f32 value differs (summation
+# order; ex2.approx against exp2, ~2^-22) and that flips a rounding: y's
+# own bf16 rounding (one ulp of the entry, set aside), or an operand's
+# (2^-8 of one operand, times the other), which is rare; so y within 1e-3
+# of its largest entry beyond that ulp and within 1e-3 in RMS, where the
+# kernel's roundings cost ~3e-3 RMS against the exact scan.  The state is
+# f32 but for the hi/lo split, whose flipped lo rounding costs 2^-16 of one
+# term: within 1e-5 of its largest entry, where kw rounded to bf16 once
+# (no lo product) costs 2^-9 a term.
+STATEMENT_Y_TOL, STATEMENT_STATE_TOL = 1e-3, 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,K,logw", LINATTN_SM90_CASES)
+def test_linattn_sm90_kernel_matches_its_statement_on_card(B, H, S, K, logw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.linattn_scan import ops as lops
+    from repro_torch.kernels.linattn_scan.ref import (
+        linattn_sm90_reference, sm90_statement_errs)
+    r, k, v, lw, u = _sm90_case_inputs(B, H, S, K, logw)
+    for logw_t in (lw, lw.to(torch.bfloat16)):
+        got = lops.linattn(r, k, v, logw_t, u, return_state=True)
+        want = linattn_sm90_reference(*(x.cpu() for x in (r, k, v, logw_t, u)))
+        ey, rms, es = sm90_statement_errs(got, want)
+        assert (ey < STATEMENT_Y_TOL and rms < STATEMENT_Y_TOL
+                and es < STATEMENT_STATE_TOL), ((B, H, S, K, logw), ey, rms, es)
+
+
+@pytest.mark.cuda
+def test_linattn_routes_by_dtype_and_key_dim_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.linattn_scan import ops as lops
+    rng = np.random.default_rng(3)
+    lops.reset_launches()
+    for dt, K in ((torch.bfloat16, 64), (torch.bfloat16, 128),
+                  (torch.bfloat16, 32), (torch.float32, 64)):
+        lops.linattn(*_linattn_inputs(rng, 1, 2, 70, K, dt))
+    assert lops.linattn.launches_by_route == {"sm90_bf16": 2, "cuda_core": 2}
+    assert lops.linattn.launches == 4
+    # the model's layout is read in place by TMA, and gives the same answer
+    args = _linattn_inputs(rng, 2, 3, 90, 64, torch.bfloat16)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in args[:4]]
+    a = lops.linattn(*args, return_state=True)
+    b = lops.linattn(*views, args[4], return_state=True)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # what TMA cannot take raises, and launches nothing
+    flat = torch.zeros(2 * 3 * 90 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    odd = flat[1:].view(2, 3, 90, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lops.linattn(odd, *args[1:])
+    assert lops.linattn.launches == 6
+    lops.reset_launches()

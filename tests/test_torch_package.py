@@ -32,6 +32,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.kernels._build, repro_torch.kernels.queue_select.ops\n"
         "import repro_torch.kernels.flash_attention.ops, repro_torch.configs\n"
         "import repro_torch.kernels.linattn_scan.ops, repro_torch.models.rwkv\n"
+        "import repro_torch.kernels._tma\n"
         "import repro_torch.models.api, repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
@@ -75,5 +76,6 @@ def test_import_and_cpu_run_build_no_kernel():
         "print(ops._lib.cache_info().currsize, ops.queue_select.launches,\n"
         "      fops._lib.cache_info().currsize, fops.flash_attention.launches,\n"
         "      fops._sm90_lib.cache_info().currsize,\n"
-        "      lops._lib.cache_info().currsize, lops.linattn.launches)\n")
-    assert out.split() == ["0"] * 7
+        "      lops._lib.cache_info().currsize,\n"
+        "      lops._sm90_lib.cache_info().currsize, lops.linattn.launches)\n")
+    assert out.split() == ["0"] * 8
