@@ -23,7 +23,20 @@ Phases, each printing one JSON line with its wall time:
              each fused mode and the walk by the host clock around the call
              (which returns only once the answer is in host memory) beside
              its plain version and the bound of the columns it reads; and
-             the device operations per call from the profiler (one).
+             the device operations per call from the profiler (one; a
+             short count, which a dropped profiler event gives, is profiled
+             again once before it fails).
+3b. batched - the batched entries (queue_select_fused_batch and
+             queue_select_walk_batch: one launch answers one request for
+             each of several ensemble members) against their plain versions
+             and the solo kernel on each member's row, bit for bit: phase
+             3's random tables stacked six at a time over its sizes, each
+             launch with idle members and mixed modes.  Then, at B = 8 and
+             16 members of 10,000 rows, a launch's time by the host clock
+             (backfill_cand for every member, or a 4-release walk) beside
+             the batched plain version and the bound (B x J x the mode's
+             bytes a row), and its device operations (two: the requests'
+             upload and the kernel).
 4. golden  - the engine on cuda, 10,000-job SDSC-SP2-like (six policies)
              and DAS-2-like (fcfs, backfill) traces, each held to the JAX
              engine's n_events, makespan and start/finish digests in
@@ -37,6 +50,19 @@ Phases, each printing one JSON line with its wall time:
              busy-node count that never exceeds the machine; the counts of
              phase 4.
 6. profile - the card's busy share of a short backfill run.
+6b. sweep  - Fig. 4(b)'s grid through sweep: 10,000 SDSC-SP2-like jobs,
+             the six policies on 128 and 256 nodes, one bucket of 12
+             members in lockstep; the 128-node members held to the golden
+             digests, the 256-node ones to solo runs on the card; then
+             DAS-2-like seed 0 on 400 nodes over fcfs and backfill, held to
+             its digests.  n_compiles, wall seconds, aggregate events/s,
+             batched launches and the member-selections a launch served.
+6c. ensemble - Fig. 5(a)'s shape: DAS-2-like backfill on 400 nodes,
+             10,000 jobs, trace seeds 0-7 as one batch of 8 and as a serial
+             loop of run, member by member equal (seed 0 also to its
+             digest); events/s both ways and their ratio; B = 1 through
+             sweep against the solo run (the lockstep driver's own cost);
+             the card's busy share of a profiled 250-job batch of 8.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
              128 and the serve shape, f32 (the CUDA-core kernel) and bf16
@@ -90,8 +116,8 @@ Phases, each printing one JSON line with its wall time:
              phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4 and 5 for queue_select and its walk, the serve of phase 9 for
-flash_attention,
+(phases 4 and 5 for queue_select and its walk, phases 6b and 6c for
+their batched entries, the serve of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  TF32 is off for matrix products and
 convolutions throughout.  The script catches nothing: any failed check
@@ -130,6 +156,15 @@ SELECT_STATES = 3                # random job tables per size
 ARCHIVE_JOBS = 73_496            # SDSC-SP2 log's job count
 ARCHIVE_NODES = 128
 PROFILE_JOBS = 250
+# batched queue_select: launch times at B members of the golden runs' size
+BATCH_SIZES = (8, 16)
+BATCH_J = 10_000
+# sweep phase: Fig. 4(b)'s grid; the 256-node members are held to solo runs
+# of these policies (all six; trim here if the run nears its time limit)
+SWEEP_POLICIES = ("fcfs", "sjf", "ljf", "bestfit", "backfill", "preempt")
+SWEEP_NODES = (128, 256)
+SWEEP_SOLO_POLICIES = SWEEP_POLICIES
+ENSEMBLE_B = 8                   # ensemble phase: das2 trace seeds 0-7
 # flash_attention grid: (B, Sq, Sk, H, KV, hd), the CPU sweep's shapes
 # plus the models' head dims and the serve shape
 FLASH_SHAPES = [
@@ -255,6 +290,27 @@ def profiled(torch, fn):
         torch.cuda.synchronize()
         wall_us = (time.time() - t) * 1e6
     return device_events(prof), wall_us
+
+
+def device_ops_per_call(torch, fn, calls: int, what: str, expect: int = 1):
+    """``(device events, operations a call)`` of ``calls`` calls of ``fn``
+    under the profiler; each call must be ``expect`` device operations.
+    More operations than that fail at once.  Fewer is what a dropped
+    profiler event looks like (49 for 50 calls in one run, a sound kernel),
+    so the calls are profiled again once, and only a second short count
+    fails.  ``({}, None)`` when the profiler shows no device event."""
+    want = expect * calls
+    for attempt in (1, 2):
+        dev, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
+        if not dev:
+            return dev, None
+        n_ops = sum(k for k, _ in dev.values())
+        check(n_ops <= want, f"{what}: {n_ops} device operations for "
+              f"{calls} calls, expected {want}")
+        if n_ops == want:
+            return dev, float(expect)
+    check(False, f"{what}: {n_ops} device operations for {calls} calls in "
+          f"two profiles, expected {want}")
 
 
 def wall_ms(fn, n: int = TIMED_LAUNCHES, warm: int = 10) -> float:
@@ -398,12 +454,9 @@ def phase_fused(torch, np, ops, ref):
                 for name, mode in ref.MODES.items()}
     calls_of["walk"] = lambda: ops.shadow_walk(*walk_args)
     for what, fn in calls_of.items():
-        dev, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
-        ops_per_call = sum(k for k, _ in dev.values()) / calls
-        check(not dev or ops_per_call == 1,
-              f"{what}: {ops_per_call} device operations a call, expected 1")
+        dev, ops_per_call = device_ops_per_call(torch, fn, calls, what)
         d = modes[what] if what in modes else walk
-        d["device_ops_per_call"] = ops_per_call if dev else "not measured"
+        d["device_ops_per_call"] = ops_per_call or "not measured"
         d["device_us_per_call"] = (sum(us for _, us in dev.values()) / calls
                                    if dev else "not measured")
     ops.reset_launches()
@@ -453,19 +506,15 @@ def phase_kernel(torch, np, ops, ref):
     plain_ms = time_ms(lambda: ref.queue_select_reference(s, m))
     library_ms = time_ms(lambda: torch.min(torch.where(m, key, sentinel)))
     calls = 100
-    dev, _ = profiled(torch, lambda: [ops.queue_select(s, m)
-                                      for _ in range(calls)])
+    dev, ops_per_call = device_ops_per_call(
+        torch, lambda: ops.queue_select(s, m), calls, "generic queue_select")
     device_us = sum(us for _, us in dev.values()) / calls
-    ops_per_call = sum(k for k, _ in dev.values()) / calls
-    check(not dev or ops_per_call == 1,
-          f"generic queue_select: {ops_per_call} device operations a call, "
-          "expected 1")
     bytes_moved = n * (4 + 1) + 2 * 4     # scores + bool mask read, i32[2]
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops.reset_launches()
     timing = {"n": n, "mask": "bool", "kernel_ms": kernel_ms,
               "device_us_per_call": device_us if dev else "not measured",
-              "device_ops_per_call": ops_per_call if dev else "not measured",
+              "device_ops_per_call": ops_per_call or "not measured",
               "plain_ms": plain_ms, "library_ms": library_ms,
               "library_call": "torch.min(torch.where(feasible, packed_key, "
                               "INT64_MAX)): two calls, packed key built "
@@ -510,6 +559,18 @@ def run_counted(rt, ops, scn):
     return out, wall, counts
 
 
+def check_golden(out, e, what: str = "") -> None:
+    """A run's n_events, makespan and start/finish digests against the JAX
+    engine's (an entry of tests/data/torch_port_golden.json)."""
+    v = out["valid"]
+    got = {"n_events": out["n_events"], "makespan": out["makespan"],
+           "start_sha256": digest(out["start"][v]),
+           "finish_sha256": digest(out["finish"][v])}
+    for k, want in got.items():
+        check(want == e[k], f"{what}{e['kind']}/{e['policy']}: {k} {want} "
+              f"!= golden {e[k]}")
+
+
 def phase_golden(rt, ops):
     t0 = time.time()
     entries = json.loads(GOLDEN.read_text())["runs"]
@@ -522,13 +583,7 @@ def phase_golden(rt, ops):
         out, wall, counts = run_counted(rt, ops, scn)
         launches += counts["launches"]
         walks += counts["walk_launches"]
-        v = out["valid"]
-        got = {"n_events": out["n_events"], "makespan": out["makespan"],
-               "start_sha256": digest(out["start"][v]),
-               "finish_sha256": digest(out["finish"][v])}
-        for k, want in got.items():
-            check(want == e[k], f"{e['kind']}/{e['policy']}: {k} {want} "
-                  f"!= golden {e[k]}")
+        check_golden(out, e)
         emit("golden", t0, kind=e["kind"], policy=e["policy"],
              n_jobs=e["n_jobs"], total_nodes=e["total_nodes"],
              n_events=out["n_events"], run_seconds=wall,
@@ -580,6 +635,278 @@ def phase_profile(torch, rt):
          device_busy_share=busy_us / wall_us if dev else "not measured",
          device_events=sum(k for k, _ in dev.values()),
          top_device_us={name[:60]: us for name, (_, us) in top})
+
+
+def stacked_table(torch, np, rng, n: int, shares):
+    """One random table a running share (``random_table``), stacked: the
+    ``BatchedTableSelect``, jstate and rsv_finish ``[B, n]``, the clock."""
+    from repro_torch.kernels.queue_select.ops import COLUMNS, BatchedTableSelect
+    parts = [random_table(torch, np, rng, n, s) for s in shares]
+    table = BatchedTableSelect({c: torch.stack([p[0].cols[c] for p in parts])
+                                for c in COLUMNS})
+    return (table, torch.stack([p[1] for p in parts]),
+            torch.stack([p[2] for p in parts]), parts[0][3])
+
+
+def member_table(ops, table, b):
+    """The solo ``TableSelect`` over member ``b``'s row of a stack."""
+    return ops.TableSelect({c: t[b] for c, t in table.cols.items()})
+
+
+def phase_batched(torch, np, ops, ref):
+    """The batched entries against their plain versions and the solo
+    kernel, bit for bit: phase 3's random tables stacked six at a time,
+    each launch with idle members and mixed modes.  Then the time of a
+    launch at B = 8 and 16 members of BATCH_J rows, every member asking for
+    backfill's candidate (the widest mode) or a walk of WALK_STEPS
+    releases."""
+    t0 = time.time()
+    rng = np.random.default_rng(2)
+    n_checks, max_err = 0, 0
+    shares = (0.02, 0.1, 0.4, 0.02, 0.1, 0.4)
+    for n in SELECT_SIZES:
+        table, jstate, rsv, clock = stacked_table(torch, np, rng, n, shares)
+        B = table.batch
+        for _ in range(SELECT_STATES):
+            members = [b for b in range(B) if rng.random() < 0.7] or [1]
+            rng.shuffle(members)
+            selects, walks = [], []
+            for b in members:
+                free = int(rng.integers(0, 40))
+                need = int(rng.integers(1, 3000))
+                p = select_params(ref, member_table(ops, table, b), jstate[b],
+                                  rsv[b], clock, free, need)
+                p["extra"] = (p["extra"], -1, 10**6)[int(rng.integers(0, 3))]
+                mode = int(rng.integers(0, len(ref.MODES)))
+                selects.append((b, mode, ref.params(**p)))
+                walks.append((b, ref.params(clock=clock, free=free,
+                                            head_need=need)))
+            modes, params, active = [0] * B, [None] * B, [False] * B
+            for b, mode, p in selects:
+                modes[b], active[b] = mode, True
+                params[b] = dict(zip(ref.PARAMS[:-1], p[:-1]))
+            got = table.select_batch(selects, jstate)
+            want = ref.fused_select_batched_reference(modes, table.cols,
+                                                      jstate, params, active)
+            for (b, mode, p), g in zip(selects, got):
+                solo = member_table(ops, table, b).select(mode, jstate[b],
+                                                          *p[:-1])
+                max_err = max(max_err, *(abs(x - y) for x, y in
+                                         zip(g, want[b])))
+                check(g == want[b] == solo, f"batched select N={n} member "
+                      f"{b} mode {mode} {p}: {g}, plain {want[b]}, solo "
+                      f"kernel {solo}")
+                n_checks += 1
+            wparams = [None] * B
+            for b, p in walks:
+                wparams[b] = dict(zip(ref.PARAMS, p))
+            got = table.walk_batch(walks, jstate, rsv)
+            want = ref.shadow_walk_batched_reference(
+                table.cols["nodes"], jstate, rsv, wparams, active)
+            for (b, p), g in zip(walks, got):
+                solo = ops.shadow_walk(member_table(ops, table, b), jstate[b],
+                                       rsv[b], p[0], p[1], p[-1])
+                max_err = max(max_err, *(abs(x - y) for x, y in
+                                         zip(g, want[b])))
+                check(g == want[b] == solo, f"batched walk N={n} member {b} "
+                      f"{p}: {g}, plain {want[b]}, solo kernel {solo}")
+                n_checks += 1
+
+    # one launch's time at the golden runs' table size, B members
+    timing = {}
+    for B in BATCH_SIZES:
+        table, jstate, rsv, clock = stacked_table(torch, np, rng, BATCH_J,
+                                                  (0.01,) * B)
+        nodes = table.cols["nodes"]
+        selects, walks, plain_args = [], [], []
+        for b in range(B):
+            order = torch.sort(torch.where(
+                jstate[b] == 2, torch.clamp(rsv[b], min=clock + 1), BIG),
+                stable=True)[1]
+            free = 3
+            need = int((free + torch.cumsum(nodes[b][order], 0))[
+                WALK_STEPS - 1])
+            p = select_params(ref, member_table(ops, table, b), jstate[b],
+                              rsv[b], clock, free, need)
+            selects.append((b, ref.BACKFILL_CAND, ref.params(**p)))
+            walks.append((b, ref.params(clock=clock, free=free,
+                                        head_need=need)))
+            plain_args.append(p)
+        active = [True] * B
+        plain_select = lambda: ref.fused_select_batched_reference(  # noqa: E731
+            [ref.BACKFILL_CAND] * B, table.cols, jstate, plain_args, active)
+        wparams = [dict(zip(ref.PARAMS, p)) for _, p in walks]
+        plain_walk = lambda: ref.shadow_walk_batched_reference(  # noqa: E731
+            nodes, jstate, rsv, wparams, active)
+        entry = {}
+        for what, fn, plain, nbytes in (
+                ("select", lambda: table.select_batch(selects, jstate),
+                 plain_select, MODE_BYTES["backfill_cand"]),
+                ("walk", lambda: table.walk_batch(walks, jstate, rsv),
+                 plain_walk, WALK_BYTES)):
+            check(fn() == plain(), f"batched {what} B={B}: kernel != plain")
+            # two operations a call: the requests' upload and the kernel
+            dev, per_call = device_ops_per_call(torch, fn, 50,
+                                                f"batched {what} B={B}", 2)
+            total = B * BATCH_J * nbytes
+            entry[what] = {
+                "ms": wall_ms(fn), "plain_ms": wall_ms(plain, 20),
+                "members_per_launch": B, "bytes": total,
+                "bound_ms": total / HBM_BYTES_PER_S * 1e3,
+                "device_ops_per_call": per_call or "not measured",
+                "device_us_per_call": (sum(us for _, us in dev.values()) / 50
+                                       if dev else "not measured")}
+        timing[B] = entry
+    ops.reset_launches()
+    emit("batched", t0, checks=n_checks, sizes=list(SELECT_SIZES),
+         max_abs_err=max_err, n=BATCH_J, timing=timing)
+    return max_err, timing
+
+
+def batch_counts(ops, engine) -> dict:
+    return {"launches": ops.queue_select.launches,
+            "walk_launches": ops.shadow_walk.launches,
+            "batch_launches": ops.queue_select.batch_launches,
+            "batch_selections": ops.queue_select.batch_selections,
+            "walk_batch_launches": ops.shadow_walk.batch_launches,
+            "walk_batch_walks": ops.shadow_walk.batch_walks,
+            "redo_walks": engine.counters["redo"],
+            "max_walks_per_event": engine.counters["max_walks_per_event"]}
+
+
+def run_sweep(torch, rt, ops, scn, axes, what: str):
+    """One ``sweep`` on cuda with the kernels' counts set to 0 before and
+    read after: ``(grid, result dicts, wall seconds, counts)``.  It must
+    have launched the batched kernels (the walk's too, with a backfill
+    member) and no solo one."""
+    from repro_torch.core import engine
+    ops.reset_launches()
+    engine.reset_counters()
+    t = time.time()
+    grid = rt.sweep(scn, axes=axes)
+    outs = [r.to_np() for r in grid.results]
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = batch_counts(ops, engine)
+    check(counts["batch_launches"] > 0,
+          f"{what}: the sweep launched no batched queue_select kernel")
+    if any(r.scenario.policy == "backfill" for r in grid.results):
+        check(counts["walk_batch_launches"] > 0,
+              f"{what}: a backfill sweep launched no batched walk")
+        check(counts["max_walks_per_event"] <= 1,
+              f"{what}: a member walked {counts['max_walks_per_event']} "
+              "times in one event besides its redo walks")
+    check(counts["launches"] == counts["walk_launches"] == 0,
+          f"{what}: the sweep launched a solo kernel: {counts}")
+    events = sum(o["n_events"] for o in outs)
+    counts.update(
+        events=events, events_per_s=events / wall,
+        selections_per_batch_launch=(counts["batch_selections"]
+                                     / counts["batch_launches"]),
+        batch_launches_per_event_round=(
+            (counts["batch_launches"] + counts["walk_batch_launches"])
+            / max(o["n_events"] for o in outs)))
+    return grid, outs, wall, counts
+
+
+SAME = ("start", "finish", "n_events", "makespan", "done")
+
+
+def check_same(out, solo, what: str) -> None:
+    import numpy as np
+    for k in SAME:
+        check(np.array_equal(out[k], solo[k]), f"{what}: {k} differs from "
+              "the solo run")
+
+
+def phase_sweep(torch, rt, ops):
+    """Fig. 4(b)'s shape at the golden runs' size: the six policies on 128
+    and 256 SDSC-SP2 nodes, one bucket of 12 members; the 128-node members
+    held to the JAX digests, the 256-node ones to solo runs on the card.
+    Then das2 on 400 nodes over fcfs and backfill, held to its digests."""
+    t0 = time.time()
+    golden = {(e["kind"], e["policy"]): e
+              for e in json.loads(GOLDEN.read_text())["runs"]}
+    base = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10_000, seed=1,
+                                               kind="sdsc_sp2"),
+                       total_nodes=128)
+    grid, outs, wall, counts = run_sweep(
+        torch, rt, ops, base, {"policy": SWEEP_POLICIES,
+                               "total_nodes": SWEEP_NODES}, "sdsc_sp2 sweep")
+    check(grid.n_compiles == 1, f"{grid.n_compiles} buckets, expected 1")
+    solo_s = 0.0
+    for point, out in zip(grid.points, outs):
+        if point["total_nodes"] == 128:
+            check_golden(out, golden[("sdsc_sp2", point["policy"])], "sweep ")
+        elif point["policy"] in SWEEP_SOLO_POLICIES:
+            t = time.time()
+            solo = rt.run(base.with_(**point)).to_np()
+            solo_s += time.time() - t
+            check_same(out, solo, f"sweep {point}")
+    das2 = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10_000, seed=0,
+                                               kind="das2"), total_nodes=400)
+    grid2, outs2, wall2, counts2 = run_sweep(
+        torch, rt, ops, das2, {"policy": ("fcfs", "backfill")}, "das2 sweep")
+    for point, out in zip(grid2.points, outs2):
+        check_golden(out, golden[("das2", point["policy"])], "sweep ")
+    ops.reset_launches()
+    emit("sweep", t0, grid="sdsc_sp2 seed 1, 10,000 jobs: policy x "
+         f"total_nodes {list(SWEEP_NODES)}", n_compiles=grid.n_compiles,
+         members=len(grid), run_seconds=wall, **counts,
+         solo_checked=[p for p in SWEEP_SOLO_POLICIES],
+         solo_seconds=solo_s, matches_jax=True,
+         das2={"members": len(grid2), "run_seconds": wall2, **counts2})
+    return counts, counts2
+
+
+def phase_ensemble(torch, rt, ops):
+    """Fig. 5(a)'s shape: das2 backfill on 400 nodes, 10,000 jobs, trace
+    seeds 0-7 as one batch of 8 and as a serial loop of ``run``, member by
+    member equal; seed 0 against its JAX digest; B = 1 through ``sweep``
+    against the solo run; a profiled 250-job batch of 8 for the card's busy
+    share."""
+    t0 = time.time()
+    golden = {(e["kind"], e["policy"]): e
+              for e in json.loads(GOLDEN.read_text())["runs"]}
+    base = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10_000, seed=0,
+                                               kind="das2"),
+                       total_nodes=400, policy="backfill")
+    seeds = list(range(ENSEMBLE_B))
+    grid, outs, wall, counts = run_sweep(torch, rt, ops, base,
+                                         {"trace.seed": seeds}, "ensemble")
+    serial = []
+    for s, out in zip(seeds, outs):
+        t = time.time()
+        solo = rt.run(base.with_(**{"trace.seed": s})).to_np()
+        torch.cuda.synchronize()
+        serial.append(time.time() - t)
+        check_same(out, solo, f"ensemble seed {s}")
+    serial_s, solo0_s = sum(serial), serial[0]
+    check_golden(outs[0], golden[("das2", "backfill")], "ensemble ")
+    # B = 1 through sweep: the lockstep driver's own cost
+    _, outs1, wall1, _ = run_sweep(torch, rt, ops, base, {"trace.seed": [0]},
+                                   "ensemble B=1")
+    check_same(outs1[0], outs[0], "ensemble B=1")
+    # the card's busy share of a short batch (phase profile's runs, 8 seeds)
+    small = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=PROFILE_JOBS, seed=1,
+                                                kind="sdsc_sp2"),
+                        total_nodes=ARCHIVE_NODES, policy="backfill")
+    dev, wall_us = profiled(torch, lambda: [r.to_np() for r in rt.sweep(
+        small, axes={"trace.seed": list(range(1, ENSEMBLE_B + 1))}).results])
+    busy_us = sum(us for _, us in dev.values())
+    ops.reset_launches()
+    events = counts["events"]
+    emit("ensemble", t0, members=len(grid), run_seconds=wall, **counts,
+         serial_seconds=serial_s, serial_events_per_s=events / serial_s,
+         batch_over_serial=serial_s / wall, b1_seconds=wall1,
+         b1_events_per_s=outs1[0]["n_events"] / wall1,
+         solo_seed0_seconds=solo0_s,
+         b1_over_solo=wall1 / solo0_s, matches_serial=True,
+         profile={"n_jobs": PROFILE_JOBS, "members": ENSEMBLE_B,
+                  "wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
+                  "device_busy_share": busy_us / wall_us if dev
+                  else "not measured"})
+    return counts
 
 
 def flash_check(torch, ops, ref, q, k, v, causal, window, tol) -> float:
@@ -1093,8 +1420,9 @@ def phase_rwkv_serve(torch, np):
     return launches
 
 
-PHASES = ("kernel", "fused", "golden", "archive", "profile", "flash", "lm_golden",
-          "serve", "linattn", "rwkv_golden", "rwkv_serve")
+PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
+          "sweep", "ensemble", "flash", "lm_golden", "serve", "linattn",
+          "rwkv_golden", "rwkv_serve")
 
 
 def main(argv=None) -> int:
@@ -1148,9 +1476,12 @@ def main(argv=None) -> int:
     phases = {
         "kernel": lambda: phase_kernel(torch, np, ops, ref),
         "fused": lambda: phase_fused(torch, np, ops, ref),
+        "batched": lambda: phase_batched(torch, np, ops, ref),
         "golden": lambda: phase_golden(rt, ops),
         "archive": lambda: phase_archive(rt, ops, np),
         "profile": lambda: phase_profile(torch, rt),
+        "sweep": lambda: phase_sweep(torch, rt, ops),
+        "ensemble": lambda: phase_ensemble(torch, rt, ops),
         "flash": lambda: phase_flash(torch, np),
         "lm_golden": lambda: phase_lm_golden(torch, np),
         "serve": lambda: phase_serve(torch, np),
@@ -1169,6 +1500,11 @@ def main(argv=None) -> int:
     launches = out["golden"][0] + out["archive"][0]
     walk_launches = out["golden"][1] + out["archive"][1]
     cand = modes["backfill_cand"]
+    batch_err, batch_timing = out["batched"]
+    batch_runs = [*out["sweep"], out["ensemble"]]
+    batch_launches = sum(c["batch_launches"] for c in batch_runs)
+    batch_selections = sum(c["batch_selections"] for c in batch_runs)
+    walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
     flash_err, flash = out["flash"]
     flash_launches = out["serve"]
     lin_err, lin = out["linattn"]
@@ -1183,7 +1519,7 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/queue_select/csrc/queue_select.cu",
         "replaces": "src/repro/kernels/queue_select/kernel.py:23",
         "launches": launches,
-        "max_abs_err": max(max_err, fused_err),
+        "max_abs_err": max(max_err, fused_err, batch_err),
         "ms": cand["ms"],
         "plain_ms": cand["plain_ms"],
         "bound_ms": cand["bound_ms"],
@@ -1204,6 +1540,21 @@ def main(argv=None) -> int:
                  "bound_by": "bytes", "library_ms": None,
                  "device_us_per_call": walk["device_us_per_call"],
                  "steps": walk["steps"]},
+        "batched": {
+            "entries": "queue_select_fused_batch, queue_select_walk_batch",
+            "launches": batch_launches,
+            "member_selections": batch_selections,
+            "walk_launches": walk_batch_launches,
+            "max_abs_err": batch_err,
+            "shape": f"J={BATCH_J} a member, every member backfill_cand "
+                     f"(select) or a {WALK_STEPS}-release walk, host clock "
+                     "around the call",
+            "by_members": {B: {w: {k: t[w][k] for k in (
+                "ms", "plain_ms", "bound_ms", "members_per_launch",
+                "device_us_per_call")} | {"bound_by": "bytes",
+                                           "library_ms": None}
+                for w in ("select", "walk")}
+                for B, t in batch_timing.items()}},
     }, {
         "name": "flash_attention",
         "route": "cuda",

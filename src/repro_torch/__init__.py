@@ -13,12 +13,21 @@ runs the ``flash_attention`` CUDA kernel in every layer:
                       total_nodes=128, policy="backfill")
     res = rt.run(scn)            # on cuda; device="cpu" for the plain path
     res.to_np(), res.summary()
+    grid = rt.sweep(scn, axes={"policy": ("fcfs", "backfill"),
+                               "total_nodes": (128, 256)})
+
+A sweep runs each static bucket of its grid as one ensemble
+(``simulate_ensemble``), whose members advance in lockstep and share each
+batched launch of the ``queue_select`` kernel.
 """
 
 from repro_torch.api import (
-    ArrayTrace, Result, Scenario, SwfTrace, SyntheticTrace, run,
+    ArrayTrace, Result, Scenario, SwfTrace, SweepCacheStats, SweepResult,
+    SyntheticTrace, cache_stats, reset_cache_stats, run, simulate_ensemble,
+    stack_jobsets, sweep,
 )
 from repro_torch.core.engine import simulate
 
-__all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SyntheticTrace",
-           "run", "simulate"]
+__all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SweepCacheStats",
+           "SweepResult", "SyntheticTrace", "cache_stats", "reset_cache_stats",
+           "run", "simulate", "simulate_ensemble", "stack_jobsets", "sweep"]

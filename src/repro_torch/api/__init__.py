@@ -1,10 +1,16 @@
-"""Scenario specs, ``run()`` and ``Result`` of the PyTorch port."""
+"""Scenario specs, ``run()``, ``sweep()`` and ``Result`` of the PyTorch port."""
 
 from repro_torch.api.result import Result, simresult_to_np
 from repro_torch.api.run import build_jobset, run
 from repro_torch.api.scenario import (
     ArrayTrace, Scenario, SwfTrace, SyntheticTrace, as_trace_spec,
 )
+from repro_torch.api.sweep import (
+    SweepCacheStats, SweepResult, cache_stats, reset_cache_stats, sweep,
+)
+from repro_torch.core.parallel import simulate_ensemble, stack_jobsets
 
-__all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SyntheticTrace",
-           "as_trace_spec", "build_jobset", "run", "simresult_to_np"]
+__all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SweepCacheStats",
+           "SweepResult", "SyntheticTrace", "as_trace_spec", "build_jobset",
+           "cache_stats", "reset_cache_stats", "run", "simresult_to_np",
+           "simulate_ensemble", "stack_jobsets", "sweep"]

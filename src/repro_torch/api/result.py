@@ -22,7 +22,9 @@ from repro_torch.core.jobs import JobSet, SimResult
 @dataclasses.dataclass
 class Result:
     """One simulation outcome: the scenario, the engine's ``SimResult``
-    (``raw``, tensors on the run's device) and its job table."""
+    (``raw``, tensors on the run's device) and its job table.  A member of
+    an ensemble or a sweep holds its row of the batched result
+    (``SimResult.member``) and its member table (``JobSet.member``)."""
 
     scenario: Scenario
     raw: SimResult

@@ -52,6 +52,14 @@ class SyntheticTrace:
             trace["submit"] = trace["submit"] // int(self.congest)
         return trace
 
+    def static_key(self):
+        """Everything except ``seed``: the seed is trace data, not shape."""
+        return ("synthetic", self.n_jobs, self.kind, self.params, self.congest)
+
+    @property
+    def n_rows(self) -> int:
+        return self.n_jobs
+
 
 @dataclasses.dataclass(frozen=True)
 class SwfTrace:
@@ -83,11 +91,23 @@ class SwfTrace:
                     "its time unit")
         return trace
 
+    def static_key(self):
+        return ("swf", self.path, self.max_jobs)
+
+    @property
+    def n_rows(self) -> Optional[int]:
+        return None  # unknown until loaded
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ArrayTrace:
     """Explicit host arrays.  ``deps`` is accepted so that a workflow table
-    fails loudly: dependency edges are not ported yet."""
+    fails loudly: dependency edges are not ported yet.
+
+    ``eq=False`` keeps the spec hashable by identity: two array traces are
+    the same trace for a sweep's buckets and job-table cache only when they
+    are the same object.
+    """
 
     submit: Any
     runtime: Any
@@ -113,6 +133,13 @@ class ArrayTrace:
         if self.deps is not None:
             out["deps"] = self.deps
         return out
+
+    def static_key(self):
+        return ("arrays", id(self))
+
+    @property
+    def n_rows(self) -> int:
+        return len(np.asarray(self.submit))
 
 
 TraceSpec = Union[SyntheticTrace, SwfTrace, ArrayTrace]
@@ -172,3 +199,33 @@ class Scenario:
                 raise NotImplementedError(
                     f"Scenario.{name} is not ported yet: {item}")
         object.__setattr__(self, "trace", as_trace_spec(self.trace))
+
+    # -- sweep support ------------------------------------------------------
+
+    def with_(self, **overrides) -> "Scenario":
+        """Functional update; keys may be dotted paths into sub-specs,
+        e.g. ``with_(policy="sjf", **{"trace.seed": 3})``."""
+        flat: Dict[str, Any] = {}
+        nested: Dict[str, Dict[str, Any]] = {}
+        for key, value in overrides.items():
+            if "." in key:
+                head, rest = key.split(".", 1)
+                nested.setdefault(head, {})[rest] = value
+            else:
+                flat[key] = value
+        for head, sub in nested.items():
+            target = flat.get(head, getattr(self, head))
+            if target is None:
+                raise ValueError(f"cannot set {head}.{next(iter(sub))}: "
+                                 f"scenario has no {head}")
+            flat[head] = dataclasses.replace(target, **sub)
+        return dataclasses.replace(self, **flat)
+
+    def trace_specs(self) -> Tuple[TraceSpec, ...]:
+        """Per-cluster tuple view of ``trace``: length 1, as multicluster
+        scenarios are not ported yet."""
+        return (self.trace,)
+
+    def nodes_per_cluster(self) -> Tuple[int, ...]:
+        """Per-cluster ``total_nodes`` tuple (length 1)."""
+        return (int(self.total_nodes),)

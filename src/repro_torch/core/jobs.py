@@ -7,6 +7,13 @@ event (``clock``, ``free``, ``n_events``), which live on the host as Python
 ints.  Per-job times and counts are ``torch.int32`` with the sentinel
 ``INF_TIME = 2**30 - 1``, as in the reference.
 
+An ensemble stacks B tables of one capacity into a ``JobSet`` whose
+columns are ``[B, J]`` (``core.parallel.stack_jobsets``), as the
+reference's ``stack_jobsets`` stacks its pytree: a member's row is a
+contiguous view, so ``JobSet.member(b)`` is the solo table of member ``b``
+without a copy.  ``EnsembleState`` holds the per-job state as ``[B, J]``
+tensors and each member's three scalars on the host.
+
 Only scalar-counter mode is carried here: no machine, no failures, no
 service plan, no malleable plan, and no dependency edges.
 """
@@ -93,6 +100,15 @@ class JobSet:
         return self.submit.shape[-1]
 
     @property
+    def batch(self) -> int | None:
+        """B for a stacked table (``[B, J]`` columns), None for a solo one."""
+        return self.submit.shape[0] if self.submit.dim() == 2 else None
+
+    def member(self, b: int) -> "JobSet":
+        """Member ``b`` of a stacked table: its rows, as views."""
+        return JobSet(**{f: getattr(self, f)[b] for f in JOB_FIELDS})
+
+    @property
     def device(self) -> torch.device:
         return self.submit.device
 
@@ -101,9 +117,13 @@ class JobSet:
         return {f: getattr(self, f).cpu().numpy() for f in JOB_FIELDS}
 
     @functools.cached_property
-    def selector(self) -> select_ops.TableSelect:
-        return select_ops.TableSelect(
-            {f: getattr(self, f) for f in select_ops.COLUMNS})
+    def selector(self):
+        """``TableSelect`` over a solo table, ``BatchedTableSelect`` over a
+        stacked one."""
+        cols = {f: getattr(self, f) for f in select_ops.COLUMNS}
+        if self.batch is None:
+            return select_ops.TableSelect(cols)
+        return select_ops.BatchedTableSelect(cols)
 
     def to(self, device) -> "JobSet":
         return JobSet(**{f: getattr(self, f).to(device) for f in JOB_FIELDS})
@@ -213,6 +233,52 @@ class SimState:
         )
 
 
+class MemberScalars:
+    """The host scalars of one ensemble member, read and written by its
+    scheduling pass as a ``SimState``'s are."""
+
+    __slots__ = ("clock", "free", "n_events")
+
+    def __init__(self, clock: int, free: int, n_events: int):
+        self.clock, self.free, self.n_events = clock, free, n_events
+
+
+@dataclasses.dataclass
+class EnsembleState:
+    """Simulation state of B members in lockstep.
+
+    The per-job tensors are ``[B, J]`` and are written in place, so a
+    member's row keeps its address for the batched kernels; ``members[b]``
+    holds member ``b``'s ``clock``, ``free`` and ``n_events``.  A member
+    that is done (no unfinished job, or its event cap reached) is never
+    written again.
+    """
+
+    jstate: torch.Tensor      # i32[B, J]
+    start: torch.Tensor       # i32[B, J]
+    finish: torch.Tensor      # i32[B, J]
+    rsv_finish: torch.Tensor  # i32[B, J]
+    remaining: torch.Tensor   # i32[B, J]
+    members: list             # [MemberScalars] * B
+
+    @classmethod
+    def init(cls, jobs: JobSet, total_nodes) -> "EnsembleState":
+        inf = torch.full(jobs.submit.shape, INF_TIME, dtype=torch.int32,
+                         device=jobs.device)
+        return cls(
+            jstate=torch.where(jobs.valid, PENDING, DONE).to(torch.int32),
+            start=inf,
+            finish=inf.clone(),
+            rsv_finish=inf.clone(),
+            remaining=jobs.runtime.clone(),
+            members=[MemberScalars(0, int(t), 0) for t in total_nodes],
+        )
+
+    @property
+    def n_events(self) -> list:
+        return [m.n_events for m in self.members]
+
+
 @dataclasses.dataclass(frozen=True)
 class SimResult:
     """Per-job outcome of a scalar-counter run."""
@@ -221,12 +287,22 @@ class SimResult:
     finish: torch.Tensor  # i32[J]
     ready: torch.Tensor   # i32[J] == submit (no dependencies)
     wait: torch.Tensor    # i32[J] start - ready
-    makespan: int
-    n_events: int
+    makespan: int         # a list of B ints for an ensemble
+    n_events: int         # a list of B ints for an ensemble
     done: torch.Tensor    # bool[J] reached DONE (False => event cap hit)
 
+    def member(self, b: int) -> "SimResult":
+        """Row ``b`` of an ensemble's result (``[B, J]`` fields)."""
+        return SimResult(start=self.start[b], finish=self.finish[b],
+                         ready=self.ready[b], wait=self.wait[b],
+                         makespan=self.makespan[b],
+                         n_events=self.n_events[b], done=self.done[b])
 
-def result_from_state(jobs: JobSet, state: SimState) -> SimResult:
+
+def result_from_state(jobs: JobSet, state) -> SimResult:
+    """The result of a solo run (``SimState``) or of an ensemble
+    (``EnsembleState``: ``[B, J]`` fields, per-member makespan and event
+    count)."""
     ready = jobs.submit
     wait = torch.where(jobs.valid, state.start - ready, 0).to(torch.int32)
     done = (state.jstate == DONE) & jobs.valid
@@ -236,7 +312,7 @@ def result_from_state(jobs: JobSet, state: SimState) -> SimResult:
         finish=state.finish,
         ready=ready,
         wait=wait,
-        makespan=int(fin.max()),
+        makespan=fin.amax(dim=-1).tolist(),
         n_events=state.n_events,
         done=done,
     )

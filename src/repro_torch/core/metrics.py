@@ -1,9 +1,10 @@
-"""Offline metrics of a scalar-counter run (paper Fig. 4b).
+"""Offline metrics of a scalar-counter run (paper Figs. 3 and 4b).
 
-The PyTorch port's own copy of ``percentiles`` and ``summary`` from
+The PyTorch port's own copy of ``percentiles``, ``summary`` and the step
+series (occupancy, active jobs, queue length, sampling onto a grid) from
 ``repro.core.metrics``: pure numpy functions of the canonical result dict
 (submit, start, finish, nodes, runtime, ready, valid, done), identical to
-the reference's, so both engines' summaries agree bit for bit.
+the reference's, so both engines' metrics agree bit for bit.
 """
 
 from __future__ import annotations
@@ -76,3 +77,44 @@ def summary(res, total_nodes: int) -> Dict[str, float]:
         "utilization": util,
         "throughput": float(len(submit)) / makespan if makespan > 0 else 0.0,
     }
+
+
+def step_series(times: np.ndarray, deltas: np.ndarray):
+    """Event-sorted cumulative step function: returns (t, value_after_t)."""
+    order = np.argsort(times, kind="stable")
+    t = times[order]
+    v = np.cumsum(deltas[order])
+    # collapse duplicate timestamps to the final value at that time
+    keep = np.r_[t[1:] != t[:-1], True]
+    return t[keep], v[keep]
+
+
+def occupancy_series(res) -> tuple[np.ndarray, np.ndarray]:
+    """Nodes in use over time (paper Fig. 3a)."""
+    _, start, finish, nodes, _, _ = _select_valid(res)
+    times = np.r_[start, finish]
+    deltas = np.r_[nodes, -nodes].astype(np.int64)
+    return step_series(times, deltas)
+
+
+def active_jobs_series(res) -> tuple[np.ndarray, np.ndarray]:
+    """Number of running jobs over time (paper Fig. 3b)."""
+    _, start, finish, _, _, _ = _select_valid(res)
+    times = np.r_[start, finish]
+    deltas = np.r_[np.ones_like(start), -np.ones_like(finish)].astype(np.int64)
+    return step_series(times, deltas)
+
+
+def queue_length_series(res) -> tuple[np.ndarray, np.ndarray]:
+    """Waiting-queue length over time."""
+    submit, start, _, _, _, _ = _select_valid(res)
+    times = np.r_[submit, start]
+    deltas = np.r_[np.ones_like(submit), -np.ones_like(start)].astype(np.int64)
+    return step_series(times, deltas)
+
+
+def sample_series(t: np.ndarray, v: np.ndarray, grid: np.ndarray) -> np.ndarray:
+    """Sample a step series onto a regular grid (for plotting/comparison)."""
+    idx = np.searchsorted(t, grid, side="right") - 1
+    out = np.where(idx >= 0, v[np.clip(idx, 0, len(v) - 1)], 0)
+    return out.astype(np.float64)

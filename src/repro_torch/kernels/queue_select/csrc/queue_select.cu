@@ -14,7 +14,15 @@
 //                         (index, score) lands in mapped host memory;
 //   queue_select_walk     the EASY shadow walk: the running jobs' releases
 //                         (max(rsv_finish, clock + 1), row) taken in order
-//                         until they cover the head, all in one launch.
+//                         until they cover the head, all in one launch;
+//   queue_select_fused_batch, queue_select_walk_batch
+//                         the same two for n_req requests at once, one per
+//                         member of an ensemble's stacked [B, J] table: one
+//                         launch of n_req clusters, cluster r serving
+//                         request r with its own columns (pointers offset
+//                         to its member's row), mode and scalars, and
+//                         writing its answer to words 4r.. of the host
+//                         buffer.
 //
 // Key: ((uint32)score ^ 0x80000000) << 32 | row.  Flipping the sign bit
 // makes the unsigned order of the key the signed order of the score (LJF
@@ -46,10 +54,24 @@
 // At the engine's N <= 73,496 that is at most 1.2 MB, ~0.35 us at 3.35 TB/s,
 // and the table stays in the 50 MB L2 between calls: a call is bound by its
 // launch and the host's wait, which is why there is one launch and one wait.
+// A batched call reads the same bytes for each of its requests, B x J x the
+// mode's bytes a row, and keeps one launch and one wait for all of them.
+//
+// The batched entries' requests: B SelectArgs outgrow the 4 KB of kernel
+// parameters at a few dozen members, so the host writes the request array
+// into pinned memory and uploads it with one cudaMemcpyAsync into a device
+// buffer on the launch's stream; each CTA then reads its own request once,
+// into shared memory.  The first design had the kernel read the requests
+// from mapped pinned memory instead, one copy fewer on the stream, but
+// those reads over PCIe cost the kernel 8 to 16 us, growing with the
+// number of requests, where the upload and the kernel together take 6.0 to
+// 6.2 us of device time at 1 to 8 requests of 10,000 rows on an H100
+// (scripts/queue_select_batch_split.py).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace cg = cooperative_groups;
 
@@ -64,6 +86,7 @@ constexpr int32_t kWaiting = 1;
 constexpr int32_t kRunning = 2;
 constexpr int32_t kSentinel = INT32_MIN;  // "not written" in the host buffer
 constexpr unsigned long long kNone = ~0ull;
+constexpr int kMaxRequests = 1 << 16;    // requests a batched call takes
 
 // Key modes; the same numbers as ref.py.
 enum Mode : int {
@@ -99,6 +122,7 @@ struct SelectArgs {
   int32_t tier;
   int32_t head_need;
 };
+static_assert(sizeof(SelectArgs) == 96, "ops._SelectArgs mirrors this layout");
 
 namespace {
 
@@ -277,12 +301,13 @@ __device__ __forceinline__ unsigned long long row_key(const SelectArgs& a,
   }
 }
 
+// This thread's least key of mode M over its rows; `rank` is its CTA's rank
+// in the cluster.
 template <int M>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-select_fused(const SelectArgs a, int32_t* out) {
-  cluster_arrive_relaxed();
+__device__ __forceinline__ unsigned long long fused_scan(const SelectArgs& a,
+                                                         unsigned rank) {
   unsigned long long key = kNone;
-  for (long long base = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (long long base = (long long)rank * kThreads + threadIdx.x;
        base < a.n; base += (long long)kStride * kUnroll) {
     Row r[kUnroll] = {};
 #pragma unroll
@@ -296,7 +321,54 @@ select_fused(const SelectArgs a, int32_t* out) {
       if (i < a.n) key = umin(key, row_key<M>(a, r[u], i));
     }
   }
+  return key;
+}
+
+template <int M>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+select_fused(const SelectArgs a, int32_t* out) {
+  cluster_arrive_relaxed();
+  unsigned long long key = fused_scan<M>(a, blockIdx.x);
   if (cluster_fold_once(key, &key)) write_pair(key, out);
+}
+
+// The request of this CTA's cluster, read once from device memory (one word
+// a thread) into shared memory, then into registers.
+__device__ __forceinline__ SelectArgs load_request(const SelectArgs* reqs,
+                                                   int r) {
+  constexpr int kWords = sizeof(SelectArgs) / sizeof(int32_t);
+  __shared__ SelectArgs req;
+  if (threadIdx.x < kWords)
+    reinterpret_cast<int32_t*>(&req)[threadIdx.x] =
+        reinterpret_cast<const int32_t*>(reqs + r)[threadIdx.x];
+  __syncthreads();
+  return req;
+}
+
+// One fused selection a cluster: clusters tile the grid in order, so
+// cluster r = blockIdx.x / kCluster serves request r.  The mode is read at
+// run time, once, and is the same for the whole cluster, so no warp
+// diverges on it.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+select_fused_batch(const SelectArgs* reqs, int32_t* out) {
+  cluster_arrive_relaxed();
+  const int r = blockIdx.x / kCluster;
+  const unsigned rank = cg::this_cluster().block_rank();
+  const SelectArgs a = load_request(reqs, r);
+  unsigned long long key = kNone;
+  switch (a.mode) {
+    case HEAD_SUBMIT: key = fused_scan<HEAD_SUBMIT>(a, rank); break;
+    case HEAD_ESTIMATE: key = fused_scan<HEAD_ESTIMATE>(a, rank); break;
+    case HEAD_NEG_ESTIMATE:
+      key = fused_scan<HEAD_NEG_ESTIMATE>(a, rank);
+      break;
+    case BESTFIT: key = fused_scan<BESTFIT>(a, rank); break;
+    case ANY_FIT: key = fused_scan<ANY_FIT>(a, rank); break;
+    case BACKFILL_CAND: key = fused_scan<BACKFILL_CAND>(a, rank); break;
+    case PREEMPT_TIER: key = fused_scan<PREEMPT_TIER>(a, rank); break;
+    default: key = fused_scan<PREEMPT_HEAD>(a, rank); break;  // checked
+  }
+  if (cluster_fold_once(key, &key)) write_pair(key, out + 4 * r);
 }
 
 // A release: its key (max(rsv_finish, clock + 1), row) and its nodes.
@@ -344,14 +416,15 @@ __device__ __forceinline__ Release warp_rmin(Release r) {
   return Release{k, __shfl_sync(0xffffffffu, r.nodes, src)};
 }
 
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-shadow_walk(const SelectArgs a, int32_t* out) {
+// The walk of one cluster, entered after cluster_arrive_relaxed(); CTA 0's
+// thread 0 writes (shadow, extra, k_row, steps) to out[0..3].
+__device__ __forceinline__ void walk_cluster(const SelectArgs& a,
+                                             int32_t* out) {
   __shared__ Release warp_best[kWarps];
   __shared__ Release slots[2][kCluster];   // by step parity
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
-  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
-  cluster_arrive_relaxed();
+  const long long first = (long long)rank * kThreads + threadIdx.x;
   Release mine = next_release(a, first, kNone);
   cluster_wait();  // every CTA has started: its shared memory exists
 
@@ -393,29 +466,97 @@ shadow_walk(const SelectArgs a, int32_t* out) {
   }
 }
 
-// Mapped, pinned host words the fused kernels write their answer into: one
-// buffer per host thread, reused call after call.  A kernel's writes to it
-// are visible to the host once the kernel has completed, which the call
-// waits for (cudaStreamSynchronize) before it reads them and returns, so
-// the next call cannot overwrite words not yet read.
-int32_t* host_words(int32_t** dev) {
-  static thread_local int32_t* host = nullptr;
-  static thread_local int32_t* device = nullptr;
-  if (host == nullptr) {
-    void* p = nullptr;
-    if (cudaHostAlloc(&p, 64, cudaHostAllocMapped | cudaHostAllocPortable) !=
-        cudaSuccess)
-      return nullptr;
-    void* d = nullptr;
-    if (cudaHostGetDevicePointer(&d, p, 0) != cudaSuccess) {
-      cudaFreeHost(p);
-      return nullptr;
-    }
-    host = static_cast<int32_t*>(p);
-    device = static_cast<int32_t*>(d);
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+shadow_walk(const SelectArgs a, int32_t* out) {
+  cluster_arrive_relaxed();
+  walk_cluster(a, out);
+}
+
+// One walk a cluster, cluster r serving request r (as select_fused_batch).
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+shadow_walk_batch(const SelectArgs* reqs, int32_t* out) {
+  cluster_arrive_relaxed();
+  const int r = blockIdx.x / kCluster;
+  const SelectArgs a = load_request(reqs, r);
+  walk_cluster(a, out + 4 * r);
+}
+
+// Mapped, pinned host memory: the words the kernels write their answers
+// into, and the batched entries' requests before their upload.  One buffer
+// of each per host thread, reused call after call and grown when a call
+// needs more.  A kernel's writes are visible to the host once the kernel
+// has completed, which the call waits for (cudaStreamSynchronize) before it
+// reads them and returns, so the next call can neither overwrite words not
+// yet read nor free a buffer a copy or a kernel still reads.
+struct Mapped {
+  char* host = nullptr;
+  char* dev = nullptr;
+  size_t bytes = 0;
+};
+
+// `m` with room for `bytes` (its earlier contents dropped), or false.
+bool ensure(Mapped& m, size_t bytes) {
+  if (m.bytes >= bytes) return true;
+  size_t want = 4096;
+  while (want < bytes) want *= 2;
+  if (m.host != nullptr) cudaFreeHost(m.host);
+  m = Mapped{};
+  void* p = nullptr;
+  if (cudaHostAlloc(&p, want, cudaHostAllocMapped | cudaHostAllocPortable) !=
+      cudaSuccess)
+    return false;
+  void* d = nullptr;
+  if (cudaHostGetDevicePointer(&d, p, 0) != cudaSuccess) {
+    cudaFreeHost(p);
+    return false;
   }
-  *dev = device;
-  return host;
+  m = Mapped{static_cast<char*>(p), static_cast<char*>(d), want};
+  return true;
+}
+
+Mapped& answer_words() {
+  static thread_local Mapped m;
+  return m;
+}
+
+Mapped& request_words() {
+  static thread_local Mapped m;
+  return m;
+}
+
+// The device buffer the requests are uploaded into: one per host thread,
+// on the device current when it was made, grown when a call needs more.
+struct DeviceBuffer {
+  void* ptr = nullptr;
+  size_t bytes = 0;
+  int device = -1;
+};
+
+// `b` with room for `bytes` on the current device, or a CUDA error code.
+int ensure_device(DeviceBuffer& b, size_t bytes) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (b.bytes >= bytes && b.device == device) return 0;
+  size_t want = 4096;
+  while (want < bytes) want *= 2;
+  if (b.ptr != nullptr) {
+    int current = device;
+    cudaSetDevice(b.device);
+    cudaFree(b.ptr);
+    cudaSetDevice(current);
+  }
+  b = DeviceBuffer{};
+  err = cudaMalloc(&b.ptr, want);
+  if (err != cudaSuccess) return (int)err;
+  b.bytes = want;
+  b.device = device;
+  return 0;
+}
+
+DeviceBuffer& request_buffer() {
+  static thread_local DeviceBuffer b;
+  return b;
 }
 
 template <int M>
@@ -424,22 +565,54 @@ void launch_fused(const SelectArgs& a, int32_t* out, cudaStream_t s) {
 }
 
 // Enqueue `launch` writing `words` answers into the host buffer, wait for
-// the stream, copy the answers into `result`.  Returns a CUDA error code.
+// the stream, copy the answers into `result`.  Every answer is `stride`
+// words; one whose first word the kernel left unwritten is an error, never
+// an answer.  Returns a CUDA error code.
 template <typename Launch>
-int run_sync(Launch launch, int words, cudaStream_t s, int32_t* result) {
-  int32_t* dev = nullptr;
-  volatile int32_t* host = host_words(&dev);
-  if (host == nullptr) return (int)cudaErrorMemoryAllocation;
+int run_sync(Launch launch, int words, int stride, cudaStream_t s,
+             int32_t* result) {
+  Mapped& m = answer_words();
+  if (!ensure(m, (size_t)words * sizeof(int32_t)))
+    return (int)cudaErrorMemoryAllocation;
+  volatile int32_t* host = reinterpret_cast<int32_t*>(m.host);
   for (int w = 0; w < words; ++w) host[w] = kSentinel;
-  launch(dev);
+  launch(reinterpret_cast<int32_t*>(m.dev));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = cudaStreamSynchronize(s);
   if (err != cudaSuccess) return (int)err;
   for (int w = 0; w < words; ++w) {
     result[w] = host[w];
-    if (result[w] == kSentinel && w == 0) return (int)cudaErrorUnknown;
+    if (result[w] == kSentinel && w % stride == 0)
+      return (int)cudaErrorUnknown;
   }
+  return 0;
+}
+
+// Write `n_req` requests into pinned memory, enqueue their upload into the
+// device buffer on `s`, and leave its address in `*reqs`.  Every request
+// must name a table (1 <= n <= INT32_MAX) and, with `modes`, a known mode.
+// Returns a CUDA error code.
+int upload_requests(const SelectArgs* args, int n_req, bool modes,
+                    cudaStream_t s, const SelectArgs** reqs) {
+  if (n_req < 1 || n_req > kMaxRequests) return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < n_req; ++r) {
+    if (args[r].n < 1 || args[r].n > INT32_MAX)
+      return (int)cudaErrorInvalidValue;
+    if (modes && (args[r].mode < HEAD_SUBMIT || args[r].mode > PREEMPT_HEAD))
+      return (int)cudaErrorInvalidValue;
+  }
+  const size_t bytes = (size_t)n_req * sizeof(SelectArgs);
+  Mapped& m = request_words();
+  if (!ensure(m, bytes)) return (int)cudaErrorMemoryAllocation;
+  DeviceBuffer& d = request_buffer();
+  const int bad = ensure_device(d, bytes);
+  if (bad != 0) return bad;
+  memcpy(m.host, args, bytes);
+  const cudaError_t err =
+      cudaMemcpyAsync(d.ptr, m.host, bytes, cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return (int)err;
+  *reqs = static_cast<const SelectArgs*>(d.ptr);
   return 0;
 }
 
@@ -487,7 +660,7 @@ extern "C" int queue_select_fused(const SelectArgs* args, void* stream,
   };
   if (a.mode < HEAD_SUBMIT || a.mode > PREEMPT_HEAD)
     return (int)cudaErrorInvalidValue;
-  return run_sync(launch, 2, s, result);
+  return run_sync(launch, 2, 2, s, result);
 }
 
 // The EASY shadow walk for a head needing args->head_need nodes: launch,
@@ -501,5 +674,35 @@ extern "C" int queue_select_walk(const SelectArgs* args, void* stream,
   auto launch = [&](int32_t* out) {
     shadow_walk<<<kCluster, kThreads, 0, s>>>(a, out);
   };
-  return run_sync(launch, 4, s, result);
+  return run_sync(launch, 4, 4, s, result);
+}
+
+// n_req fused selections in one launch: args[r] is request r (columns and
+// state offset to its member's row, its mode and scalars).  Waits for
+// `stream` and leaves (index, score) in result[4 r], result[4 r + 1].
+// Returns a CUDA error code; cudaErrorInvalidValue for a bad request.
+extern "C" int queue_select_fused_batch(const SelectArgs* args, int n_req,
+                                        void* stream, int32_t* result) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const SelectArgs* reqs = nullptr;
+  const int bad = upload_requests(args, n_req, true, s, &reqs);
+  if (bad != 0) return bad;
+  auto launch = [&](int32_t* out) {
+    select_fused_batch<<<n_req * kCluster, kThreads, 0, s>>>(reqs, out);
+  };
+  return run_sync(launch, 4 * n_req, 4, s, result);
+}
+
+// n_req shadow walks in one launch, as queue_select_fused_batch; leaves
+// (shadow, extra, k_row, releases counted) in result[4 r .. 4 r + 3].
+extern "C" int queue_select_walk_batch(const SelectArgs* args, int n_req,
+                                       void* stream, int32_t* result) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const SelectArgs* reqs = nullptr;
+  const int bad = upload_requests(args, n_req, false, s, &reqs);
+  if (bad != 0) return bad;
+  auto launch = [&](int32_t* out) {
+    shadow_walk_batch<<<n_req * kCluster, kThreads, 0, s>>>(reqs, out);
+  };
+  return run_sync(launch, 4 * n_req, 4, s, result);
 }

@@ -11,26 +11,36 @@ back.  Two ways in:
   builds the key and the mask of a mode (``ref.MODES``) in the kernel and
   returns ``(index, score)`` as Python ints;
 - :func:`shadow_walk` (a ``TableSelect``, the state) runs the EASY shadow
-  walk in one launch.
+  walk in one launch;
+- :class:`BatchedTableSelect`, bound to a stacked ``[B, J]`` table (an
+  ensemble's): :meth:`~BatchedTableSelect.select_batch` and
+  :meth:`~BatchedTableSelect.walk_batch` answer one request for each of
+  several members in one launch.
 
-On CUDA both of the latter wait for their stream once and read the answer
-from mapped host memory.
+On CUDA all but the generic op wait for their stream once and read the
+answer from mapped host memory.
 
-``queue_select.launches`` counts the launches of the select kernels (any
-mode, and the generic op); ``shadow_walk.launches`` those of the walk, and
-``shadow_walk.steps`` the releases its launches counted.
+``queue_select.launches`` counts the launches of the solo select kernels
+(any mode, and the generic op); ``shadow_walk.launches`` those of the walk,
+and ``shadow_walk.steps`` the releases its launches counted.  The batched
+launches count apart: ``queue_select.batch_launches`` and
+``queue_select.batch_selections`` (the member-selections they served),
+``shadow_walk.batch_launches``, ``shadow_walk.batch_walks`` and
+``shadow_walk.batch_steps``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.queue_select.ref import (
-    MODES, fused_select_reference, queue_select_reference,
+    MODES, PARAMS, fused_select_batched_reference, fused_select_reference,
+    queue_select_reference, shadow_walk_batched_reference,
     shadow_walk_reference,
 )
 
@@ -43,14 +53,22 @@ class _SelectArgs(ctypes.Structure):
     _fields_ = [(c, ctypes.c_void_p) for c in COLUMNS] + [
         ("jstate", ctypes.c_void_p), ("rsv_finish", ctypes.c_void_p),
         ("n", ctypes.c_longlong)] + [
-        (f, ctypes.c_int32) for f in ("mode", "clock", "free", "cap", "shadow",
-                                      "extra", "exclude", "tier",
-                                      "head_need")]
+        (f, ctypes.c_int32) for f in ("mode",) + PARAMS]
+
+
+# the same layout, packed from Python ints: the six pointers, n, mode and
+# the PARAMS, and the padding to the struct's 8-byte alignment
+_ARGS_PACK = struct.Struct("<6Qq9i4x")
+assert _ARGS_PACK.size == ctypes.sizeof(_SelectArgs) == 96
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build.build(SOURCE)))
+    return bind(ctypes.CDLL(str(_build.build(SOURCE))))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from ``SOURCE``."""
     lib.queue_select_launch.argtypes = [
         ctypes.c_void_p,   # scores, int32[n]
         ctypes.c_void_p,   # feasible, bool or int32 [n]
@@ -63,8 +81,14 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.POINTER(_SelectArgs),
                        ctypes.c_void_p,                  # cudaStream_t
                        ctypes.POINTER(ctypes.c_int32)]   # result, on the host
+    for fn in (lib.queue_select_fused_batch, lib.queue_select_walk_batch):
+        fn.argtypes = [ctypes.c_void_p,     # SelectArgs[n_req], on the host
+                       ctypes.c_int,        # n_req
+                       ctypes.c_void_p,     # cudaStream_t
+                       ctypes.c_void_p]     # result, int32[4 n_req] on the host
     for fn in (lib.queue_select_launch, lib.queue_select_fused,
-               lib.queue_select_walk):
+               lib.queue_select_walk, lib.queue_select_fused_batch,
+               lib.queue_select_walk_batch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -126,13 +150,15 @@ def shadow_walk(table: "TableSelect", jstate: torch.Tensor,
     return r[0], r[1], r[2]
 
 
-queue_select.launches = 0
-shadow_walk.launches = shadow_walk.steps = 0
-
-
 def reset_launches() -> None:
     queue_select.launches = 0
+    queue_select.batch_launches = queue_select.batch_selections = 0
     shadow_walk.launches = shadow_walk.steps = 0
+    shadow_walk.batch_launches = shadow_walk.batch_walks = 0
+    shadow_walk.batch_steps = 0
+
+
+reset_launches()
 
 
 class TableSelect:
@@ -213,5 +239,147 @@ class TableSelect:
         return r[0], r[1]
 
 
-__all__ = ["MODES", "TableSelect", "queue_select", "reset_launches",
-           "shadow_walk"]
+class BatchedTableSelect:
+    """The fused selections and the walk over a stacked ``[B, J]`` table,
+    several members at once.
+
+    ``columns`` maps ``submit``, ``estimate``, ``nodes`` and ``priority`` to
+    contiguous int32 ``[B, J]`` tensors on one device; row ``b`` is member
+    ``b``'s table.  A call takes a list of requests, at most one a member,
+    and the ``[B, J]`` state; it answers every request, in order, with
+    member-local indices.  A select request is ``(member, mode, params)``, a
+    walk request ``(member, params)``, where ``params`` holds the scalars of
+    ``ref.PARAMS`` in that order.  On CUDA a call is one upload of its
+    requests, one launch of the batched kernel (one cluster a request) and
+    one wait, whatever the number of requests; on the CPU it takes the
+    batched plain version.
+    """
+
+    def __init__(self, columns: dict):
+        cols = {c: columns[c] for c in COLUMNS}
+        first = cols["submit"]
+        for c, t in cols.items():
+            if (t.dtype != torch.int32 or t.dim() != 2
+                    or t.shape != first.shape or t.device != first.device
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"column {c} must be a contiguous int32 [B, J] tensor "
+                    f"like submit ({first.dtype}, {tuple(first.shape)}, "
+                    f"{first.device}); got {t.dtype}, {tuple(t.shape)}, "
+                    f"{t.device}")
+        self.cols = cols
+        self.batch, self.n = first.shape
+        self.device = first.device
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(
+                f"BatchedTableSelect runs on cpu or cuda, not {self.device}")
+        if self.n < 1:
+            raise ValueError("BatchedTableSelect needs at least one row")
+        self.on_cuda = self.device.type == "cuda"
+        # member b's column pointers: its row of each [B, J] column
+        self._cols_of = [tuple(t.data_ptr() + 4 * self.n * b
+                               for t in cols.values())
+                         for b in range(self.batch)]
+        # one request a member at most: room for B of them, and their answers
+        self._args = ctypes.create_string_buffer(self.batch * _ARGS_PACK.size)
+        self._answers = (ctypes.c_int32 * (4 * self.batch))()
+        if self.on_cuda:
+            self._lib = _lib()
+            self.bind_stream()
+
+    def bind_stream(self) -> None:
+        """Launch on the device's current stream from now on."""
+        if self.on_cuda:
+            self._stream = torch.cuda.current_stream(self.device).cuda_stream
+
+    def _check(self, requests, *state) -> list:
+        """The requests' members, each in range and named once, after the
+        state columns' checks."""
+        for t in state:
+            if (t.device != self.device or t.dtype != torch.int32
+                    or tuple(t.shape) != (self.batch, self.n)
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"state columns must be contiguous int32[{self.batch}, "
+                    f"{self.n}] on {self.device}, got {t.dtype}"
+                    f"{list(t.shape)} on {t.device}")
+        members = [r[0] for r in requests]
+        if not all(0 <= b < self.batch for b in members):
+            raise ValueError(f"members must lie in [0, {self.batch}), got "
+                             f"{sorted(set(members))}")
+        if len(set(members)) != len(members):
+            raise ValueError("at most one request a member in one call")
+        return members
+
+    def _pack(self, members, jstate, rsv_finish, words) -> ctypes.Array:
+        """The ``SelectArgs`` of each request, packed into a host buffer:
+        member ``b``'s columns and state rows, then ``words`` (the mode and
+        the PARAMS)."""
+        js, rsv, row = jstate.data_ptr(), rsv_finish.data_ptr(), 4 * self.n
+        for r, (b, w) in enumerate(zip(members, words)):
+            _ARGS_PACK.pack_into(self._args, r * _ARGS_PACK.size,
+                                 *self._cols_of[b], js + b * row,
+                                 rsv + b * row, self.n, *w)
+        return self._args
+
+    def _launch(self, fn, members, jstate, rsv_finish, words) -> list:
+        """Launch ``fn`` once for the requests of ``members`` and return
+        its answers, 4 ints a request, in request order."""
+        n = len(members)
+        args = self._pack(members, jstate, rsv_finish, words)
+        err = fn(ctypes.addressof(args), n, self._stream,
+                 ctypes.addressof(self._answers))
+        if err != 0:
+            raise RuntimeError(f"queue_select batched launch of {n} "
+                               f"requests: CUDA error {err}")
+        return self._answers[:4 * n]
+
+    def select_batch(self, requests, jstate: torch.Tensor) -> list:
+        """``(index, score)`` for each ``(member, mode, params)`` request:
+        the masked lexicographic argmin of the mode's key and mask over the
+        member's rows (``ref.fused_key_mask``), ``(-1, BIG)`` when none is
+        feasible."""
+        if not requests:
+            return []
+        members = self._check(requests, jstate)
+        if not self.on_cuda:
+            modes, params, active = ([0] * self.batch, [None] * self.batch,
+                                     [False] * self.batch)
+            for b, mode, p in requests:
+                modes[b], active[b] = mode, True
+                params[b] = dict(zip(PARAMS[:-1], p[:-1]))
+            got = fused_select_batched_reference(modes, self.cols, jstate,
+                                                 params, active)
+            return [got[b] for b in members]
+        out = self._launch(self._lib.queue_select_fused_batch, members,
+                           jstate, jstate,
+                           [(mode, *p) for _, mode, p in requests])
+        queue_select.batch_launches += 1
+        queue_select.batch_selections += len(members)
+        return [(out[i], out[i + 1]) for i in range(0, len(out), 4)]
+
+    def walk_batch(self, requests, jstate: torch.Tensor,
+                   rsv_finish: torch.Tensor) -> list:
+        """``(shadow, extra, k_row)`` for each ``(member, params)`` request:
+        the EASY shadow walk over the member's running rows with its
+        ``clock``, ``free`` and ``head_need`` (``ref.shadow_walk_reference``)."""
+        if not requests:
+            return []
+        members = self._check(requests, jstate, rsv_finish)
+        if not self.on_cuda:
+            params, active = [None] * self.batch, [False] * self.batch
+            for b, p in requests:
+                params[b], active[b] = dict(zip(PARAMS, p)), True
+            got = shadow_walk_batched_reference(
+                self.cols["nodes"], jstate, rsv_finish, params, active)
+            return [got[b] for b in members]
+        out = self._launch(self._lib.queue_select_walk_batch, members, jstate,
+                           rsv_finish, [(0, *p) for _, p in requests])
+        shadow_walk.batch_launches += 1
+        shadow_walk.batch_walks += len(members)
+        shadow_walk.batch_steps += sum(out[3::4])
+        return [tuple(out[i:i + 3]) for i in range(0, len(out), 4)]
+
+
+__all__ = ["MODES", "BatchedTableSelect", "TableSelect", "queue_select",
+           "reset_launches", "shadow_walk"]

@@ -7,6 +7,9 @@
   the engine's selectors and batched passes.
 - :func:`shadow_walk_reference`: the EASY shadow walk over the running
   jobs' releases.
+- :func:`fused_select_batched_reference` and
+  :func:`shadow_walk_batched_reference`: the same, for every active member
+  of a stacked ``[B, J]`` table, one member at a time.
 """
 
 from __future__ import annotations
@@ -27,6 +30,17 @@ BACKFILL_CAND = 5      # (submit, WAITING & nodes <= cap & row != exclude
                        #     | nodes <= min(free, extra)))
 PREEMPT_TIER = 6       # (where(WAITING, priority, BIG), every row)
 PREEMPT_HEAD = 7       # (submit, WAITING & priority == tier)
+# the scalars of a request, in the order of the kernel's SelectArgs
+PARAMS = ("clock", "free", "cap", "shadow", "extra", "exclude", "tier",
+          "head_need")
+
+
+def params(clock: int = 0, free: int = 0, cap: int = 0, shadow: int = 0,
+           extra: int = 0, exclude: int = -1, tier: int = 0,
+           head_need: int = 0) -> tuple:
+    """A request's scalars as a tuple in :data:`PARAMS` order."""
+    return (clock, free, cap, shadow, extra, exclude, tier, head_need)
+
 MODES = {"head_submit": HEAD_SUBMIT, "head_estimate": HEAD_ESTIMATE,
          "head_neg_estimate": HEAD_NEG_ESTIMATE, "bestfit": BESTFIT,
          "any_fit": ANY_FIT, "backfill_cand": BACKFILL_CAND,
@@ -122,3 +136,33 @@ def shadow_walk_reference(nodes: torch.Tensor, jstate: torch.Tensor,
         return BIG, free, -1
     p = int(covered[0])
     return int(t[p]), int(cum[p]) - head_need, int(rows[p])
+
+
+def fused_select_batched_reference(modes, cols_b: dict, jstate_b: torch.Tensor,
+                                   params_b, active) -> list:
+    """One fused selection for every active member of a stacked table.
+
+    ``cols_b`` maps the table's columns to ``[B, J]`` tensors and
+    ``jstate_b`` is ``[B, J]``; ``modes``, ``params_b`` (dicts of
+    :data:`PARAMS` scalars other than ``head_need``) and ``active`` have one
+    entry a member.  Returns B entries: member ``b``'s ``(index, score)``
+    from :func:`fused_select_reference` over its own rows, or ``None`` where
+    ``b`` is idle.  Indices are member-local."""
+    return [fused_select_reference(modes[b], {c: t[b] for c, t in
+                                              cols_b.items()},
+                                   jstate_b[b], **params_b[b])
+            if active[b] else None for b in range(jstate_b.shape[0])]
+
+
+def shadow_walk_batched_reference(nodes_b: torch.Tensor,
+                                  jstate_b: torch.Tensor,
+                                  rsv_finish_b: torch.Tensor, params_b,
+                                  active) -> list:
+    """The EASY shadow walk for every active member of a stacked table:
+    B entries, member ``b``'s ``(shadow, extra, k_row)`` from
+    :func:`shadow_walk_reference` with ``params_b[b]``'s ``clock``, ``free``
+    and ``head_need``, or ``None`` where ``b`` is idle."""
+    return [shadow_walk_reference(nodes_b[b], jstate_b[b], rsv_finish_b[b],
+                                  params_b[b]["clock"], params_b[b]["free"],
+                                  params_b[b]["head_need"])
+            if active[b] else None for b in range(jstate_b.shape[0])]

@@ -131,6 +131,90 @@ def test_backfill_run_on_card_equals_cpu():
         np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
 
 
+def _stacked_requests(rng, ref, table, jstate, rsv, clock):
+    """Random select and walk requests over a stacked table, some members
+    idle, the modes mixed, scalars as the engine derives them."""
+    members = [b for b in range(table.batch) if rng.random() < 0.75] or [0]
+    selects, walks = [], []
+    for b in rng.permutation(members).tolist():
+        cols = {c: t[b].cpu() for c, t in table.cols.items()}
+        js, rs = jstate[b].cpu(), rsv[b].cpu()
+        free = int(rng.integers(0, 40))
+        need = int(rng.integers(1, 2000))
+        shadow, extra, _ = ref.shadow_walk_reference(cols["nodes"], js, rs,
+                                                     clock, free, need)
+        head = ref.fused_select_reference(ref.HEAD_SUBMIT, cols, js)[0]
+        tier = ref.fused_select_reference(ref.PREEMPT_TIER, cols, js)[1]
+        mode = int(rng.integers(0, len(ref.MODES)))
+        selects.append((b, mode, ref.params(
+            clock=clock, free=free, cap=free + 1, shadow=shadow,
+            extra=(extra, -1)[int(rng.integers(0, 2))], exclude=head,
+            tier=tier)))
+        walks.append((b, ref.params(clock=clock, free=free, head_need=need)))
+    return selects, walks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (7, 1000, 8193))
+def test_batched_entries_match_plain_and_solo_on_card(n):
+    """One batched launch a call; each answer equals the batched plain
+    version and the solo kernel on the member's row, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.queue_select import ref
+    rng = np.random.default_rng(n + 1)
+    B = 6
+    parts = [_random_table(rng, n, share) for share in
+             (0.02, 0.3, 0.1, 0.02, 0.4, 0.05)[:B]]
+    cols = {c: torch.stack([p[0].cols[c] for p in parts]) for c in ops.COLUMNS}
+    jstate = torch.stack([p[1] for p in parts])
+    rsv = torch.stack([p[2] for p in parts])
+    clock = parts[0][3]
+    card = ops.BatchedTableSelect(cols)
+    plain = ops.BatchedTableSelect({c: t.cpu() for c, t in cols.items()})
+    for _ in range(6):
+        selects, walks = _stacked_requests(rng, ref, card, jstate, rsv, clock)
+        solo = ops.queue_select.launches
+        before = ops.queue_select.batch_launches
+        got = card.select_batch(selects, jstate)
+        assert ops.queue_select.batch_launches == before + 1
+        assert ops.queue_select.launches == solo
+        assert got == plain.select_batch(selects, jstate.cpu())
+        for (b, mode, p), g in zip(selects, got):
+            row = ops.TableSelect({c: t[b] for c, t in cols.items()})
+            assert g == row.select(mode, jstate[b], *p[:-1]), (b, mode, p)
+        before = ops.shadow_walk.batch_launches
+        got = card.walk_batch(walks, jstate, rsv)
+        assert ops.shadow_walk.batch_launches == before + 1
+        assert got == plain.walk_batch(walks, jstate.cpu(), rsv.cpu())
+        for (b, p), g in zip(walks, got):
+            row = ops.TableSelect({c: t[b] for c, t in cols.items()})
+            assert g == ops.shadow_walk(row, jstate[b], rsv[b], p[0], p[1],
+                                        p[-1]), (b, p)
+
+
+@pytest.mark.cuda
+def test_sweep_on_card_equals_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import repro_torch as rt
+    scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=300, seed=2,
+                                              kind="sdsc_sp2", congest=4),
+                      total_nodes=128)
+    axes = {"policy": ("fcfs", "sjf", "ljf", "bestfit", "backfill",
+                       "preempt"), "total_nodes": (64, 128)}
+    ops.reset_launches()
+    card = rt.sweep(scn, axes=axes)
+    assert ops.queue_select.batch_launches > 0
+    assert ops.shadow_walk.batch_launches > 0
+    assert ops.queue_select.launches == ops.shadow_walk.launches == 0
+    cpu = rt.sweep(scn, axes=axes, device="cpu")
+    for (point, a), (_, b) in zip(card, cpu):
+        for k in ("start", "finish", "n_events", "makespan", "done"):
+            np.testing.assert_array_equal(a.to_np()[k], b.to_np()[k],
+                                          err_msg=f"{point} {k}")
+
+
 # (B, Sq, Sk, H, KV, hd): the CPU sweep's shapes, plus the models' head
 # dims 80 and 128 with GQA and the serve shape's groups (G = 3)
 FLASH_SHAPES = [
