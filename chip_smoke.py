@@ -44,8 +44,9 @@ Phases, each printing one JSON line with its wall time:
              queue_select and walk launches, launches per event, and the
              batched backfill pass's redo walks; a backfill run must
              launch the walk, at most once an event besides its redos.
-5. archive - backfill over 73,496 SDSC-SP2-like jobs on 128 nodes (the
-             SDSC-SP2 log's job count on its machine), checked for
+5. archive - backfill over 36,748 SDSC-SP2-like jobs on 128 nodes (half
+             the SDSC-SP2 log's job count on its machine: the whole log's
+             73,496 until the alloc phases came), checked for
              completion, start >= submit, finish == start + runtime and a
              busy-node count that never exceeds the machine; the counts of
              phase 4.
@@ -53,7 +54,8 @@ Phases, each printing one JSON line with its wall time:
 6b. sweep  - Fig. 4(b)'s grid through sweep: 10,000 SDSC-SP2-like jobs,
              the six policies on 128 and 256 nodes, one bucket of 12
              members in lockstep; the 128-node members held to the golden
-             digests, the 256-node ones to solo runs on the card; then
+             digests, the 256-node backfill and preempt members to solo
+             runs on the card (all six until the alloc phases came); then
              DAS-2-like seed 0 on 400 nodes over fcfs and backfill, held to
              its digests.  n_compiles, wall seconds, aggregate events/s,
              batched launches and the member-selections a launch served.
@@ -63,6 +65,26 @@ Phases, each printing one JSON line with its wall time:
              digest); events/s both ways and their ratio; B = 1 through
              sweep against the solo run (the lockstep driver's own cost);
              the card's busy share of a profiled 250-job batch of 8.
+6d. alloc  - topology-aware allocation at 10,000 jobs, each run held to
+             the JAX engine's n_events, makespan and digests of start,
+             finish, alloc_first, alloc_span, alloc_sum and the ev_lfb log
+             (tests/data/torch_alloc_golden.json): Fig. alloc's grid
+             (SDSC-SP2-like seed 1 on dragonfly(16, 8), backfill x simple,
+             contiguous, spread, topo x contention off and (1, 5)); the
+             per-start loop on DAS-2's 400 nodes as mesh2d(20, 20)
+             (fcfs/topo, sjf/spread, bestfit/contiguous); preempt under
+             contiguous on the SDSC-SP2 machine, which reaches the
+             fallback to simple.  Per run events/s, selections, walks,
+             launches an event and the largest-free-run reads an event;
+             beside them phase 4's scalar-mode SDSC-SP2 backfill run of
+             this call (run here when phase 4 did not run), and the busy
+             share and device operations an event of a profiled 250-job
+             run.  queue_select must launch on every run, the walk on
+             every backfill run.
+6e. alloc_sweep - Fig. alloc's grid through sweep: one bucket of 8
+             members in lockstep, each held to its solo run's digests;
+             n_compiles, events/s against phase 6d's eight solo runs,
+             batched launches and member-selections a launch.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
              128 and the serve shape, f32 (the CUDA-core kernel) and bf16
@@ -116,8 +138,8 @@ Phases, each printing one JSON line with its wall time:
              phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4 and 5 for queue_select and its walk, phases 6b and 6c for
-their batched entries, the serve of phase 9 for flash_attention,
+(phases 4, 5 and 6d for queue_select and its walk, phases 6b, 6c and 6e
+for their batched entries, the serve of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  TF32 is off for matrix products and
 convolutions throughout.  The script catches nothing: any failed check
@@ -144,6 +166,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
+ALLOC_GOLDEN = ROOT / "tests" / "data" / "torch_alloc_golden.json"
 LM_GOLDEN = ROOT / "tests" / "data" / "torch_lm_golden.json"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
@@ -154,6 +177,7 @@ TIMED_LAUNCHES = 200
 SELECT_SIZES = (7, 1000, 8191, 8192, 8193, 73_496)
 SELECT_STATES = 3                # random job tables per size
 ARCHIVE_JOBS = 73_496            # SDSC-SP2 log's job count
+ARCHIVE_RUN_JOBS = ARCHIVE_JOBS // 2   # phase 5's run, cut to fit the alloc phases
 ARCHIVE_NODES = 128
 PROFILE_JOBS = 250
 # batched queue_select: launch times at B members of the golden runs' size
@@ -163,8 +187,11 @@ BATCH_J = 10_000
 # of these policies (all six; trim here if the run nears its time limit)
 SWEEP_POLICIES = ("fcfs", "sjf", "ljf", "bestfit", "backfill", "preempt")
 SWEEP_NODES = (128, 256)
-SWEEP_SOLO_POLICIES = SWEEP_POLICIES
+SWEEP_SOLO_POLICIES = ("backfill", "preempt")   # cut to fit the alloc phases
 ENSEMBLE_B = 8                   # ensemble phase: das2 trace seeds 0-7
+ALLOCS = ("simple", "contiguous", "spread", "topo")
+CONTENTIONS = (None, (1, 5))     # fig_alloc's two contention settings
+ALLOC_DIGESTS = ("start", "finish", "alloc_first", "alloc_span", "alloc_sum")
 # flash_attention grid: (B, Sq, Sk, H, KV, hd), the CPU sweep's shapes
 # plus the models' head dims and the serve shape
 FLASH_SHAPES = [
@@ -293,22 +320,23 @@ def profiled(torch, fn):
 
 
 def device_ops_per_call(torch, fn, calls: int, what: str, expect: int = 1):
-    """``(device events, operations a call)`` of ``calls`` calls of ``fn``
-    under the profiler; each call must be ``expect`` device operations.
-    More operations than that fail at once.  Fewer is what a dropped
-    profiler event looks like (49 for 50 calls in one run, a sound kernel),
-    so the calls are profiled again once, and only a second short count
-    fails.  ``({}, None)`` when the profiler shows no device event."""
+    """``(device events, operations a call, profiles taken)`` of ``calls``
+    calls of ``fn`` under the profiler; each call must be ``expect`` device
+    operations.  More operations than that fail at once.  Fewer is what a
+    dropped profiler event looks like (49 for 50 calls in one run, a sound
+    kernel), so the calls are profiled again once (profiles taken: 2), and
+    only a second short count fails.  ``({}, None, 1)`` when the profiler
+    shows no device event."""
     want = expect * calls
     for attempt in (1, 2):
         dev, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
         if not dev:
-            return dev, None
+            return dev, None, attempt
         n_ops = sum(k for k, _ in dev.values())
         check(n_ops <= want, f"{what}: {n_ops} device operations for "
               f"{calls} calls, expected {want}")
         if n_ops == want:
-            return dev, float(expect)
+            return dev, float(expect), attempt
     check(False, f"{what}: {n_ops} device operations for {calls} calls in "
           f"two profiles, expected {want}")
 
@@ -454,9 +482,11 @@ def phase_fused(torch, np, ops, ref):
                 for name, mode in ref.MODES.items()}
     calls_of["walk"] = lambda: ops.shadow_walk(*walk_args)
     for what, fn in calls_of.items():
-        dev, ops_per_call = device_ops_per_call(torch, fn, calls, what)
+        dev, ops_per_call, profiles = device_ops_per_call(torch, fn, calls,
+                                                          what)
         d = modes[what] if what in modes else walk
         d["device_ops_per_call"] = ops_per_call or "not measured"
+        d["profiles"] = profiles
         d["device_us_per_call"] = (sum(us for _, us in dev.values()) / calls
                                    if dev else "not measured")
     ops.reset_launches()
@@ -506,7 +536,7 @@ def phase_kernel(torch, np, ops, ref):
     plain_ms = time_ms(lambda: ref.queue_select_reference(s, m))
     library_ms = time_ms(lambda: torch.min(torch.where(m, key, sentinel)))
     calls = 100
-    dev, ops_per_call = device_ops_per_call(
+    dev, ops_per_call, profiles = device_ops_per_call(
         torch, lambda: ops.queue_select(s, m), calls, "generic queue_select")
     device_us = sum(us for _, us in dev.values()) / calls
     bytes_moved = n * (4 + 1) + 2 * 4     # scores + bool mask read, i32[2]
@@ -515,6 +545,7 @@ def phase_kernel(torch, np, ops, ref):
     timing = {"n": n, "mask": "bool", "kernel_ms": kernel_ms,
               "device_us_per_call": device_us if dev else "not measured",
               "device_ops_per_call": ops_per_call or "not measured",
+              "profiles": profiles,
               "plain_ms": plain_ms, "library_ms": library_ms,
               "library_call": "torch.min(torch.where(feasible, packed_key, "
                               "INT64_MAX)): two calls, packed key built "
@@ -523,6 +554,15 @@ def phase_kernel(torch, np, ops, ref):
               "bound_us": bound_ms * 1e3}
     emit("kernel", t0, checks=n_checks, max_abs_err=max_err, **timing)
     return max_err, timing
+
+
+def one_walk(scn) -> bool:
+    """Whether a backfill run takes the batched pass, one shadow walk an
+    event besides its redos: in scalar mode and under the strategies
+    whose cap is the free count (the engine's ``_COUNT_CAPPED``).  Under
+    ``contiguous`` and ``topo`` each blocked selection walks."""
+    return scn.policy == "backfill" and (scn.topology is None or scn.alloc
+                                         in (None, "simple", "spread"))
 
 
 def run_counted(rt, ops, scn):
@@ -541,12 +581,14 @@ def run_counted(rt, ops, scn):
               "walk_launches": ops.shadow_walk.launches,
               "walk_steps": ops.shadow_walk.steps,
               "redo_walks": engine.counters["redo"],
-              "max_walks_per_event": engine.counters["max_walks_per_event"]}
+              "max_walks_per_event": engine.counters["max_walks_per_event"],
+              "cap_reads": engine.counters["cap_reads"]}
     check(counts["launches"] > 0,
           f"{scn.policy} run launched no queue_select kernel")
     if scn.policy == "backfill":
         check(counts["walk_launches"] > 0,
               "backfill run launched no shadow-walk kernel")
+    if one_walk(scn):
         check(counts["max_walks_per_event"] <= 1,
               f"an event launched the walk {counts['max_walks_per_event']} "
               "times besides its redo walks")
@@ -556,6 +598,7 @@ def run_counted(rt, ops, scn):
     counts["launches_per_event"] = ((counts["launches"]
                                      + counts["walk_launches"])
                                     / out["n_events"])
+    counts["cap_reads_per_event"] = counts["cap_reads"] / out["n_events"]
     return out, wall, counts
 
 
@@ -575,6 +618,7 @@ def phase_golden(rt, ops):
     t0 = time.time()
     entries = json.loads(GOLDEN.read_text())["runs"]
     launches = walks = 0
+    runs = {}
     for e in entries:
         scn = rt.Scenario(
             trace=rt.SyntheticTrace(n_jobs=e["n_jobs"], seed=e["seed"],
@@ -584,17 +628,18 @@ def phase_golden(rt, ops):
         launches += counts["launches"]
         walks += counts["walk_launches"]
         check_golden(out, e)
+        runs[(e["kind"], e["policy"])] = (out["n_events"], wall, counts)
         emit("golden", t0, kind=e["kind"], policy=e["policy"],
              n_jobs=e["n_jobs"], total_nodes=e["total_nodes"],
              n_events=out["n_events"], run_seconds=wall,
              events_per_s=out["n_events"] / wall, **counts,
              matches_jax=True)
-    return launches, walks
+    return launches, walks, runs
 
 
 def phase_archive(rt, ops, np):
     t0 = time.time()
-    scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=ARCHIVE_JOBS, seed=1,
+    scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=ARCHIVE_RUN_JOBS, seed=1,
                                               kind="sdsc_sp2"),
                       total_nodes=ARCHIVE_NODES, policy="backfill")
     out, wall, counts = run_counted(rt, ops, scn)
@@ -746,14 +791,15 @@ def phase_batched(torch, np, ops, ref):
                  plain_walk, WALK_BYTES)):
             check(fn() == plain(), f"batched {what} B={B}: kernel != plain")
             # two operations a call: the requests' upload and the kernel
-            dev, per_call = device_ops_per_call(torch, fn, 50,
-                                                f"batched {what} B={B}", 2)
+            dev, per_call, profiles = device_ops_per_call(
+                torch, fn, 50, f"batched {what} B={B}", 2)
             total = B * BATCH_J * nbytes
             entry[what] = {
                 "ms": wall_ms(fn), "plain_ms": wall_ms(plain, 20),
                 "members_per_launch": B, "bytes": total,
                 "bound_ms": total / HBM_BYTES_PER_S * 1e3,
                 "device_ops_per_call": per_call or "not measured",
+                "profiles": profiles,
                 "device_us_per_call": (sum(us for _, us in dev.values()) / 50
                                        if dev else "not measured")}
         timing[B] = entry
@@ -771,14 +817,16 @@ def batch_counts(ops, engine) -> dict:
             "walk_batch_launches": ops.shadow_walk.batch_launches,
             "walk_batch_walks": ops.shadow_walk.batch_walks,
             "redo_walks": engine.counters["redo"],
-            "max_walks_per_event": engine.counters["max_walks_per_event"]}
+            "max_walks_per_event": engine.counters["max_walks_per_event"],
+            "cap_reads": engine.counters["cap_reads"]}
 
 
 def run_sweep(torch, rt, ops, scn, axes, what: str):
     """One ``sweep`` on cuda with the kernels' counts set to 0 before and
     read after: ``(grid, result dicts, wall seconds, counts)``.  It must
     have launched the batched kernels (the walk's too, with a backfill
-    member) and no solo one."""
+    member), no solo one, and, where every backfill member takes the
+    batched pass, one walk a member an event besides the redos."""
     from repro_torch.core import engine
     ops.reset_launches()
     engine.reset_counters()
@@ -793,6 +841,8 @@ def run_sweep(torch, rt, ops, scn, axes, what: str):
     if any(r.scenario.policy == "backfill" for r in grid.results):
         check(counts["walk_batch_launches"] > 0,
               f"{what}: a backfill sweep launched no batched walk")
+    if all(one_walk(r.scenario) for r in grid.results
+           if r.scenario.policy == "backfill"):
         check(counts["max_walks_per_event"] <= 1,
               f"{what}: a member walked {counts['max_walks_per_event']} "
               "times in one event besides its redo walks")
@@ -906,6 +956,139 @@ def phase_ensemble(torch, rt, ops):
                   "wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
                   "device_busy_share": busy_us / wall_us if dev
                   else "not measured"})
+    return counts
+
+
+def alloc_scenario(rt, e):
+    """The scenario of an entry of tests/data/torch_alloc_golden.json."""
+    con = e["contention"]
+    return rt.Scenario(
+        trace=rt.SyntheticTrace(n_jobs=e["n_jobs"], seed=e["seed"],
+                                kind=e["kind"]),
+        topology=rt.Topology(e["topology"][0], tuple(e["topology"][1])),
+        policy=e["policy"], alloc=e["alloc"],
+        contention=None if con is None else tuple(con))
+
+
+def alloc_key(scn) -> tuple:
+    """(kind, policy, alloc, contention) of a machine-mode scenario."""
+    return (scn.trace.kind, scn.policy, scn.alloc, scn.contention)
+
+
+def alloc_golden():
+    """The entries of tests/data/torch_alloc_golden.json by
+    :func:`alloc_key`."""
+    return {(e["kind"], e["policy"], e["alloc"],
+             None if e["contention"] is None else tuple(e["contention"])): e
+            for e in json.loads(ALLOC_GOLDEN.read_text())["runs"]}
+
+
+def check_alloc_golden(out, e, what: str = "") -> None:
+    """A machine-mode run's n_events, makespan and digests (start, finish,
+    the allocation fingerprints, the ev_lfb log) against the JAX engine's
+    (an entry of tests/data/torch_alloc_golden.json)."""
+    v = out["valid"]
+    got = {"n_events": out["n_events"], "makespan": out["makespan"],
+           "ev_lfb_sha256": digest(out["ev_lfb"])}
+    got.update({f"{k}_sha256": digest(out[k][v]) for k in ALLOC_DIGESTS})
+    for k, want in got.items():
+        check(want == e[k], f"{what}{e['kind']}/{e['policy']}/{e['alloc']}/"
+              f"{e['contention']}: {k} {want} != golden {e[k]}")
+
+
+def phase_alloc(torch, rt, ops, golden_runs=None):
+    """Topology-aware allocation at full size, each run held to its JAX
+    digests: Fig. alloc's grid (SDSC-SP2-like seed 1, 10,000 jobs, on
+    dragonfly(16, 8), backfill x the four strategies x contention off and
+    (1, 5)); the per-start loop on DAS-2's 400 nodes as mesh2d(20, 20)
+    (fcfs/topo, sjf/spread, bestfit/contiguous); preempt/contiguous on the
+    SDSC-SP2 machine, which reaches contiguous's fallback.  First, phase
+    4's scalar-mode SDSC-SP2 backfill run of this call (``golden_runs``;
+    run here when phase 4 did not run), the paired reference for what
+    machine mode costs."""
+    t0 = time.time()
+    golden = {(e["kind"], e["policy"]): e
+              for e in json.loads(GOLDEN.read_text())["runs"]}
+    e = golden[("sdsc_sp2", "backfill")]
+    if golden_runs is not None:
+        n_events, wall, counts = golden_runs[("sdsc_sp2", "backfill")]
+        source = "phase 4's run"
+    else:
+        scn = rt.Scenario(trace=rt.SyntheticTrace(
+            n_jobs=e["n_jobs"], seed=e["seed"], kind=e["kind"]),
+            total_nodes=e["total_nodes"], policy="backfill")
+        out, wall, counts = run_counted(rt, ops, scn)
+        check_golden(out, e, "alloc scalar reference ")
+        n_events, source = out["n_events"], "run here"
+    emit("alloc", t0, run="scalar reference", source=source,
+         kind=e["kind"], policy="backfill", total_nodes=e["total_nodes"],
+         n_events=n_events, run_seconds=wall,
+         events_per_s=n_events / wall, **counts, matches_jax=True)
+    launches = walks = 0
+    solo = {}
+    for e in json.loads(ALLOC_GOLDEN.read_text())["runs"]:
+        scn = alloc_scenario(rt, e)
+        out, wall, counts = run_counted(rt, ops, scn)
+        check_alloc_golden(out, e)
+        launches += counts["launches"]
+        walks += counts["walk_launches"]
+        solo[alloc_key(scn)] = (out["n_events"], wall)
+        emit("alloc", t0, kind=e["kind"], topology=e["topology"],
+             policy=e["policy"], alloc=e["alloc"],
+             contention=e["contention"], n_events=out["n_events"],
+             makespan=out["makespan"], run_seconds=wall,
+             events_per_s=out["n_events"] / wall,
+             scheduling_pass=("batched" if one_walk(scn) else "per-start loop"),
+             **counts, matches_jax=True)
+    # the card's busy share and device operations an event of a short
+    # machine-mode run (phase 6's solo run, on the SDSC-SP2 machine)
+    small = rt.Scenario(
+        trace=rt.SyntheticTrace(n_jobs=PROFILE_JOBS, seed=1, kind="sdsc_sp2"),
+        topology=rt.Topology.dragonfly(16, 8), policy="backfill",
+        alloc="simple")
+    box = {}
+    dev, wall_us = profiled(torch, lambda: box.update(
+        out=rt.run(small, device="cuda").to_np()))
+    busy_us = sum(us for _, us in dev.values())
+    top = sorted(dev.items(), key=lambda kv: kv[1][1], reverse=True)[:6]
+    emit("alloc", t0, run="profile", n_jobs=PROFILE_JOBS, policy="backfill",
+         alloc="simple", n_events=box["out"]["n_events"],
+         wall_s=wall_us / 1e6, device_busy_s=busy_us / 1e6,
+         device_busy_share=busy_us / wall_us if dev else "not measured",
+         device_events_per_event=(sum(k for k, _ in dev.values())
+                                  / box["out"]["n_events"] if dev
+                                  else "not measured"),
+         top_device_us={name[:60]: us for name, (_, us) in top})
+    return {"launches": launches, "walk_launches": walks, "solo": solo}
+
+
+def phase_alloc_sweep(torch, rt, ops, solo):
+    """Fig. alloc's grid through ``sweep``: the four strategies x the two
+    contention settings as one bucket of 8 members in lockstep, each held
+    to its solo run's JAX digests; events/s against the eight solo runs of
+    phase alloc (``solo``, when it ran in this call)."""
+    t0 = time.time()
+    golden = alloc_golden()
+    e = golden[("sdsc_sp2", "backfill", "simple", None)]
+    base = alloc_scenario(rt, e).with_(alloc=None)
+    grid, outs, wall, counts = run_sweep(
+        torch, rt, ops, base, {"alloc": ALLOCS, "contention": CONTENTIONS},
+        "alloc sweep")
+    check(grid.n_compiles == 1, f"{grid.n_compiles} buckets, expected 1")
+    keys = [alloc_key(r.scenario) for r in grid.results]
+    for k, out in zip(keys, outs):
+        check_alloc_golden(out, golden[k], "alloc sweep ")
+    timed = solo is not None and all(k in solo for k in keys)
+    solo_s = (sum(solo[k][1] for k in keys) if timed else "not measured")
+    ops.reset_launches()
+    emit("alloc_sweep", t0, grid="sdsc_sp2 seed 1, 10,000 jobs, "
+         "dragonfly(16, 8), backfill: alloc x contention",
+         n_compiles=grid.n_compiles, members=len(grid), run_seconds=wall,
+         **counts, solo_seconds=solo_s,
+         solo_events_per_s=(counts["events"] / solo_s if timed
+                            else "not measured"),
+         batch_over_solo=solo_s / wall if timed else "not measured",
+         matches_jax=True)
     return counts
 
 
@@ -1421,8 +1604,8 @@ def phase_rwkv_serve(torch, np):
 
 
 PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
-          "sweep", "ensemble", "flash", "lm_golden", "serve", "linattn",
-          "rwkv_golden", "rwkv_serve")
+          "sweep", "ensemble", "alloc", "alloc_sweep", "flash", "lm_golden",
+          "serve", "linattn", "rwkv_golden", "rwkv_serve")
 
 
 def main(argv=None) -> int:
@@ -1439,7 +1622,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
-            and LM_GOLDEN.exists()):
+            and LM_GOLDEN.exists() and ALLOC_GOLDEN.exists()):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 1
@@ -1482,6 +1665,10 @@ def main(argv=None) -> int:
         "profile": lambda: phase_profile(torch, rt),
         "sweep": lambda: phase_sweep(torch, rt, ops),
         "ensemble": lambda: phase_ensemble(torch, rt, ops),
+        "alloc": lambda: phase_alloc(
+            torch, rt, ops, out["golden"][2] if "golden" in out else None),
+        "alloc_sweep": lambda: phase_alloc_sweep(
+            torch, rt, ops, out["alloc"]["solo"] if "alloc" in out else None),
         "flash": lambda: phase_flash(torch, np),
         "lm_golden": lambda: phase_lm_golden(torch, np),
         "serve": lambda: phase_serve(torch, np),
@@ -1489,19 +1676,23 @@ def main(argv=None) -> int:
         "rwkv_golden": lambda: phase_lm_golden(torch, np, "rwkv6-7b",
                                                "rwkv_golden"),
         "rwkv_serve": lambda: phase_rwkv_serve(torch, np)}
-    out = {name: phases[name]() for name in PHASES
-           if only is None or name in only}
+    out = {}
+    for name in PHASES:
+        if only is None or name in only:
+            out[name] = phases[name]()
     if only is not None:
         emit("total", t_all, only=only)
         return 0
 
     max_err, timing = out["kernel"]
     fused_err, modes, walk = out["fused"]
-    launches = out["golden"][0] + out["archive"][0]
-    walk_launches = out["golden"][1] + out["archive"][1]
+    alloc = out["alloc"]
+    launches = out["golden"][0] + out["archive"][0] + alloc["launches"]
+    walk_launches = (out["golden"][1] + out["archive"][1]
+                     + alloc["walk_launches"])
     cand = modes["backfill_cand"]
     batch_err, batch_timing = out["batched"]
-    batch_runs = [*out["sweep"], out["ensemble"]]
+    batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"]]
     batch_launches = sum(c["batch_launches"] for c in batch_runs)
     batch_selections = sum(c["batch_selections"] for c in batch_runs)
     walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
@@ -1528,6 +1719,12 @@ def main(argv=None) -> int:
         "shape": f"N={timing['n']}, fused backfill_cand mode, host clock "
                  "around the call (launch, wait, answer in host memory)",
         "device_us_per_call": cand["device_us_per_call"],
+        "machine_mode": {
+            "launches": alloc["launches"],
+            "walk_launches": alloc["walk_launches"],
+            "batch_launches": out["alloc_sweep"]["batch_launches"],
+            "batch_selections": out["alloc_sweep"]["batch_selections"],
+            "walk_batch_launches": out["alloc_sweep"]["walk_batch_launches"]},
         "modes": modes,
         "generic": {"ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
                     "bound_ms": timing["bound_ms"], "bound_by": "bytes",

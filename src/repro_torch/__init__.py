@@ -1,10 +1,12 @@
 """PyTorch / CUDA port of the scheduling simulator, for NVIDIA Hopper.
 
 The JAX package ``repro`` is the reference; this package imports nothing of
-it.  It carries the single-cluster, scalar-counter engine with the six
-policies (fcfs, sjf, ljf, bestfit, backfill, preempt), whose every
-selection runs the ``queue_select`` CUDA kernel on a CUDA device, and the
-dense-family LM serving path (``repro_torch.launch.serve``), whose prefill
+it.  It carries the single-cluster engine with the six policies (fcfs, sjf,
+ljf, bestfit, backfill, preempt), in scalar-counter mode or on a machine
+(``Topology``: linear, mesh2d, dragonfly) under four placement strategies
+(simple, contiguous, spread, topo) with an optional contention model, whose
+every selection runs the ``queue_select`` CUDA kernel on a CUDA device, and
+the dense-family LM serving path (``repro_torch.launch.serve``), whose prefill
 runs the ``flash_attention`` CUDA kernel in every layer:
 
     import repro_torch as rt
@@ -15,6 +17,9 @@ runs the ``flash_attention`` CUDA kernel in every layer:
     res.to_np(), res.summary()
     grid = rt.sweep(scn, axes={"policy": ("fcfs", "backfill"),
                                "total_nodes": (128, 256)})
+    topo = scn.with_(total_nodes=None, topology=rt.Topology.dragonfly(16, 8))
+    grid = rt.sweep(topo, axes={"alloc": ("simple", "topo"),
+                                "contention": (None, (1, 5))})
 
 A sweep runs each static bucket of its grid as one ensemble
 (``simulate_ensemble``), whose members advance in lockstep and share each
@@ -23,11 +28,12 @@ batched launch of the ``queue_select`` kernel.
 
 from repro_torch.api import (
     ArrayTrace, Result, Scenario, SwfTrace, SweepCacheStats, SweepResult,
-    SyntheticTrace, cache_stats, reset_cache_stats, run, simulate_ensemble,
-    stack_jobsets, sweep,
+    SyntheticTrace, Topology, cache_stats, reset_cache_stats, run,
+    simulate_alloc_sweep, simulate_ensemble, stack_jobsets, sweep,
 )
 from repro_torch.core.engine import simulate
 
 __all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SweepCacheStats",
-           "SweepResult", "SyntheticTrace", "cache_stats", "reset_cache_stats",
-           "run", "simulate", "simulate_ensemble", "stack_jobsets", "sweep"]
+           "SweepResult", "SyntheticTrace", "Topology", "cache_stats",
+           "reset_cache_stats", "run", "simulate", "simulate_alloc_sweep",
+           "simulate_ensemble", "stack_jobsets", "sweep"]

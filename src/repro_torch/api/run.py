@@ -27,6 +27,14 @@ def build_jobset(scenario: Scenario, *, capacity: Optional[int] = None,
     )
 
 
+def build_machine(scenario: Scenario, device=None):
+    """The scenario's machine on ``device``, or ``None`` without a
+    topology."""
+    if scenario.topology is None:
+        return None
+    return scenario.topology.build(device)
+
+
 def run(scenario: Scenario, device=None) -> Result:
     """Run one scenario on the PyTorch engine.  ``device=None`` runs on
     ``cuda`` and raises when there is none; pass ``device="cpu"`` for the
@@ -34,5 +42,8 @@ def run(scenario: Scenario, device=None) -> Result:
     device = resolve_device(device)
     jobs = build_jobset(scenario, device=device)
     res = engine.simulate(jobs, scenario.policy, int(scenario.total_nodes),
+                          machine=build_machine(scenario, device),
+                          alloc=scenario.alloc,
+                          contention=scenario.contention,
                           max_events=scenario.max_events, device=device)
     return Result(scenario=scenario, raw=res, jobs=jobs)

@@ -1,9 +1,10 @@
 """Declarative experiment specs of the PyTorch port.
 
-Counterpart of ``repro.api.scenario`` for the scalar-counter slice: a
+Counterpart of ``repro.api.scenario`` for the ported slices: a
 :class:`Scenario` names a trace (:class:`SyntheticTrace`, :class:`SwfTrace`
-or :class:`ArrayTrace`), the cluster size, the policy, and optionally the
-padded table capacity and an event cap.  The same field values describe
+or :class:`ArrayTrace`), the cluster size, the policy, optionally a machine
+shape (:class:`Topology`) with its placement strategy and contention model,
+the padded table capacity and an event cap.  The same field values describe
 the same run as the reference's ``Scenario``.  Features of the reference
 that the port does not carry yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
@@ -16,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch import alloc as _alloc
 from repro_torch.core.jobs import INF_TIME
 from repro_torch.traces.swf import load_swf
 from repro_torch.traces.synthetic import das2_like, sdsc_sp2_like, synthetic_trace
@@ -159,11 +161,52 @@ def as_trace_spec(trace) -> TraceSpec:
         "tuples item 6, injected what-if jobs item 8")
 
 
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Declarative machine shape; builds a ``repro_torch.alloc.Machine``.
+
+    ``kind`` is "linear", "mesh2d" or "dragonfly"; ``shape`` the constructor's
+    positional arguments: (n_nodes, group_size), (rows, cols) or (n_groups,
+    nodes_per_group).
+    """
+
+    kind: str
+    shape: Tuple[int, int]
+
+    @classmethod
+    def linear(cls, n_nodes: int, *, group_size: int = 8) -> "Topology":
+        return cls("linear", (int(n_nodes), int(group_size)))
+
+    @classmethod
+    def mesh2d(cls, rows: int, cols: int) -> "Topology":
+        return cls("mesh2d", (int(rows), int(cols)))
+
+    @classmethod
+    def dragonfly(cls, n_groups: int, nodes_per_group: int) -> "Topology":
+        return cls("dragonfly", (int(n_groups), int(nodes_per_group)))
+
+    @property
+    def n_nodes(self) -> int:
+        if self.kind == "linear":
+            return self.shape[0]
+        return self.shape[0] * self.shape[1]
+
+    def build(self, device=None) -> _alloc.Machine:
+        """The machine on ``device`` (``cuda`` by default)."""
+        a, b = self.shape
+        if self.kind == "linear":
+            return _alloc.linear(a, group_size=b, device=device)
+        if self.kind == "mesh2d":
+            return _alloc.mesh2d(a, b, device=device)
+        if self.kind == "dragonfly":
+            return _alloc.dragonfly(a, b, device=device)
+        raise ValueError(
+            f"unknown topology kind {self.kind!r}; "
+            "known: linear, mesh2d, dragonfly")
+
+
 # fields of the reference's Scenario that later slices of the port bring
 _NOT_PORTED = {
-    "topology": "ROADMAP Queue 1 item 2 (topology-aware allocation)",
-    "alloc": "ROADMAP Queue 1 item 2 (topology-aware allocation)",
-    "contention": "ROADMAP Queue 1 item 2 (topology-aware allocation)",
     "failures": "ROADMAP Queue 1 item 5 (extra event sources)",
     "malleable": "ROADMAP Queue 1 item 5 (extra event sources)",
     "multicluster": "ROADMAP Queue 1 item 6 (multicluster windows)",
@@ -172,23 +215,27 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class Scenario:
-    """One single-cluster, scalar-counter experiment.
+    """One single-cluster experiment.
 
     ``trace`` is a trace spec, a dict of arrays or an .swf path;
-    ``total_nodes`` the cluster size; ``policy`` a name or id;
+    ``total_nodes`` the cluster size (default: the topology's node count);
+    ``policy`` a name or id; ``topology`` a :class:`Topology` (``None``:
+    scalar-counter mode); ``alloc`` its placement strategy (a name or id,
+    default ``simple``) and ``contention`` its runtime dilation (``None``,
+    ``(num, den)`` or a ``Contention``), both of which need a topology;
     ``capacity`` pads the job table; ``max_events`` caps the event loop.
     Passing any of the reference's other fields raises
     ``NotImplementedError``.
     """
 
     trace: Union[TraceSpec, Dict[str, Any], str]
-    total_nodes: int
+    total_nodes: Optional[int] = None
     policy: Union[str, int] = "fcfs"
+    topology: Optional[Topology] = None
+    alloc: Optional[Union[str, int]] = None
+    contention: Optional[Any] = None
     capacity: Optional[int] = None
     max_events: Optional[int] = None
-    topology: Any = None
-    alloc: Any = None
-    contention: Any = None
     failures: Any = None
     malleable: Any = None
     multicluster: Any = None
@@ -199,6 +246,22 @@ class Scenario:
                 raise NotImplementedError(
                     f"Scenario.{name} is not ported yet: {item}")
         object.__setattr__(self, "trace", as_trace_spec(self.trace))
+        if self.topology is None and (self.alloc is not None
+                                      or self.contention is not None):
+            raise ValueError(
+                "alloc/contention require topology=; without a Topology the "
+                "simulation runs in scalar-counter mode and would silently "
+                "ignore them")
+        if self.total_nodes is None:
+            if self.topology is None:
+                raise ValueError(
+                    "total_nodes is required when no topology is given")
+            object.__setattr__(self, "total_nodes", self.topology.n_nodes)
+        if (self.topology is not None
+                and int(self.total_nodes) != self.topology.n_nodes):
+            raise ValueError(
+                f"topology has {self.topology.n_nodes} nodes but "
+                f"total_nodes={self.total_nodes}")
 
     # -- sweep support ------------------------------------------------------
 

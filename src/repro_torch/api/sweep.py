@@ -7,10 +7,12 @@ axes over a base :class:`Scenario`:
 1. every grid point becomes a scenario via ``Scenario.with_``;
 2. points are partitioned into *static buckets*, keyed on what fixes the
    stacked table's shape: the trace's static key (everything but its
-   seed), ``capacity`` and ``max_events``, as the reference keys them;
-3. within a bucket the remaining axes (``policy``, ``total_nodes``,
-   ``trace.seed``) are data: the members' job tables are stacked and ONE
-   batched ``simulate_ensemble`` call runs the whole bucket;
+   seed), the topology (and ``total_nodes`` with it), ``capacity`` and
+   ``max_events``, as the reference keys them;
+3. within a bucket the remaining axes (``policy``, ``alloc``,
+   ``contention``, ``total_nodes`` without a topology, ``trace.seed``) are
+   data: the members' job tables are stacked and ONE batched
+   ``simulate_ensemble`` call runs the whole bucket;
 4. the batched result is sliced into per-point :class:`Result`\\ s in grid
    order.
 
@@ -20,11 +22,13 @@ call, whatever its number of points, and ``SweepResult.n_compiles`` counts
 the buckets, as the reference's counts its executables, so the two agree on
 the same grid.  The CUDA kernels are built once a process
 (``kernels/_build.py``) and loaded once.  ``cache_stats`` logs every bucket
-execution against its signature, the bucket key plus the stacked tensors'
-shapes and dtypes, as the reference logs its executions against its compile
-signature: a new signature counts as a ``compile``, a seen one as a ``hit``,
-so that a later service can assert that a repeated query reuses its bucket.
-No CUDA graphs are captured.
+execution against its signature, as the reference logs its executions
+against its compile signature: the bucket key, the policy and the strategy
+when every point of the bucket shares one (the reference bakes such a
+value into its executable), and the stacked tensors' shapes and dtypes.  A
+new signature counts as a ``compile``, a seen one as a ``hit``, so that a
+later service can assert that a repeated query reuses its bucket.  No CUDA
+graphs are captured.
 """
 
 from __future__ import annotations
@@ -35,18 +39,22 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import alloc as _alloc
 from repro_torch.api.result import Result
-from repro_torch.api.run import build_jobset, run
+from repro_torch.api.run import build_jobset, build_machine, run
 from repro_torch.api.scenario import Scenario
+from repro_torch.core import engine
 from repro_torch.core.jobs import JOB_FIELDS, JobSet, resolve_device
 from repro_torch.core.parallel import simulate_ensemble, stack_jobsets
 
 
 def _static_key(scenario: Scenario) -> tuple:
     """Hashable bucket key: everything that fixes the stacked shapes.
-    ``total_nodes`` is data in scalar-counter mode, so it is not part of
-    it."""
+    ``total_nodes`` is data in scalar-counter mode, and static with a
+    topology, which pins the machine."""
     return (tuple(t.static_key() for t in scenario.trace_specs()),
+            scenario.topology,
+            None if scenario.topology is None else scenario.total_nodes,
             scenario.capacity, scenario.max_events)
 
 
@@ -174,9 +182,19 @@ def reset_cache_stats(*, clear: bool = False) -> None:
         _SEEN_SIGNATURES.clear()
 
 
-def _log_bucket_execution(key: tuple, jobs_b: JobSet) -> None:
-    sig = (key, tuple((f, tuple(getattr(jobs_b, f).shape),
-                       str(getattr(jobs_b, f).dtype)) for f in JOB_FIELDS))
+def _uniform(values):
+    """The one value of ``values``, or ``None`` when they differ."""
+    return values[0] if len(set(values)) == 1 else None
+
+
+def _log_bucket_execution(key: tuple, bucket: List[Scenario],
+                          jobs_b: JobSet) -> None:
+    pols = [engine.policies_id(s.policy) for s in bucket]
+    allocs = ([_alloc.canonical_id(s.alloc) for s in bucket]
+              if bucket[0].topology is not None else [None])
+    sig = (key, _uniform(pols), _uniform(allocs),
+           tuple((f, tuple(getattr(jobs_b, f).shape),
+                  str(getattr(jobs_b, f).dtype)) for f in JOB_FIELDS))
     if sig in _SEEN_SIGNATURES:
         _CACHE_LOG["hits"] += 1
     else:
@@ -199,10 +217,16 @@ def _run_bucket(key: tuple, bucket: List[Scenario], device) -> List[Result]:
             jobs_cache[cache_key] = build_jobset(scn, device=device)
         jobsets.append(jobs_cache[cache_key])
     jobs_b = stack_jobsets(jobsets)
-    _log_bucket_execution(key, jobs_b)
+    _log_bucket_execution(key, bucket, jobs_b)
+    machine = build_machine(bucket[0], device)
+    alloc = {}
+    if machine is not None:
+        alloc = {"machine": machine,
+                 "alloc_b": [s.alloc for s in bucket],
+                 "contention": [s.contention for s in bucket]}
     batched = simulate_ensemble(
         jobs_b, [s.policy for s in bucket],
         [int(s.total_nodes) for s in bucket],
-        max_events=bucket[0].max_events, device=device)
+        max_events=bucket[0].max_events, device=device, **alloc)
     return [Result(scenario=scn, raw=batched.member(b), jobs=jobs_b.member(b))
             for b, scn in enumerate(bucket)]

@@ -23,6 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import (
     JOB_FIELDS, STATE_SCALARS, STATE_TENSORS, JobSet, SimState,
+    machine_fields,
 )
 from repro_torch.models.lm import LM, param_defs
 from repro_torch.sharding.rules import ParamDef, map_defs
@@ -40,22 +41,27 @@ def jobset_from_numpy(fields: Dict[str, np.ndarray], device) -> JobSet:
 
 
 def simstate_from_numpy(fields: Dict[str, np.ndarray], device) -> SimState:
-    """A ``SimState`` from the scalar-counter state fields: the per-job
-    int32 columns and the ``clock``/``free``/``n_events`` scalars."""
+    """A scalar-counter ``SimState`` from the per-job int32 columns and the
+    ``clock``/``free``/``n_events`` scalars (no machine)."""
     return SimState(
         **{f: _tensor(fields[f], device, np.int32) for f in STATE_TENSORS},
-        **{f: int(fields[f]) for f in STATE_SCALARS})
+        **{f: int(fields[f]) for f in STATE_SCALARS},
+        **machine_fields(len(fields["jstate"]), 0, 0, device))
+
+
+def _np(v) -> np.ndarray:
+    return (v.cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v, dtype=np.int32))
 
 
 def to_numpy(obj) -> Dict[str, np.ndarray]:
     """Any of the port's dataclasses (``JobSet``, ``SimState``,
-    ``SimResult``) as ``{field: np.ndarray}``; scalars become 0-d int32."""
-    out = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        out[f.name] = (v.cpu().numpy() if isinstance(v, torch.Tensor)
-                       else np.asarray(v, dtype=np.int32))
-    return out
+    ``SimResult``) as ``{field: np.ndarray}``; scalars become 0-d int32.
+    A ``SimState`` gives its scalar-counter fields."""
+    if isinstance(obj, SimState):
+        return {f: _np(getattr(obj, f))
+                for f in STATE_TENSORS + STATE_SCALARS}
+    return {f.name: _np(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
 
 
 def lm_params_from_numpy(tree, device) -> LM:

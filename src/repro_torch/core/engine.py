@@ -1,8 +1,9 @@
-"""The discrete-event engine of the PyTorch port (scalar-counter mode).
+"""The discrete-event engine of the PyTorch port.
 
-Counterpart of ``repro.core.engine`` with ``machine``, ``failures``,
-``service`` and ``malleable`` all ``None`` and no dependency edges.  Event
-semantics are the reference's:
+Counterpart of ``repro.core.engine`` with ``failures``, ``service`` and
+``malleable`` all ``None`` and no dependency edges, in scalar-counter mode
+or with a machine (topology-aware allocation).  Event semantics are the
+reference's:
 
   1. advance the clock to min(next arrival, next completion),
   2. process every completion with finish <= clock (reclaim nodes),
@@ -30,10 +31,11 @@ calls of its solo run.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import alloc as _alloc
 from repro_torch.core import policies
 from repro_torch.core.jobs import (
     BACKFILL, DONE, FCFS, INF_TIME, JOB_FIELDS, LJF, PENDING, POLICY_IDS,
@@ -45,33 +47,149 @@ from repro_torch.core.policies import (
 )
 from repro_torch.kernels.queue_select import ref as select_ref
 
-# Counts of the batched backfill pass, for the on-card checks: shadow-walk
-# recomputations after an overdraw of ``extra`` (``redo``), and the most walk
-# launches one event made besides those (``max_walks_per_event``).
-counters = {"redo": 0, "max_walks_per_event": 0}
+# Counts for the on-card checks: the batched backfill pass's shadow-walk
+# recomputations after an overdraw of ``extra`` (``redo``), the most walk
+# launches one event made besides those (``max_walks_per_event``), and the
+# reads of the largest free run that starts cost under ``contiguous``
+# (``cap_reads``, one a start; an ensemble's round reads once for all its
+# members' starts).
+counters = {"redo": 0, "max_walks_per_event": 0, "cap_reads": 0}
 
 
 def reset_counters() -> None:
-    counters.update(redo=0, max_walks_per_event=0)
+    counters.update(redo=0, max_walks_per_event=0, cap_reads=0)
 
 
-def _start_job(jobs: JobSet, state: SimState, idx: int) -> SimState:
+# Strategies whose placement cap IS the free counter and which take the
+# batched backfill pass; ``contiguous`` (largest-free-run cap) and ``topo``
+# keep the per-start loop, as in the reference (DESIGN.md §14).
+_COUNT_CAPPED = (_alloc.SIMPLE, _alloc.SPREAD)
+
+
+class AllocCtx(NamedTuple):
+    """A run's allocation context: the machine, the strategy id and the
+    contention model (host values)."""
+
+    machine: _alloc.Machine
+    strategy: int
+    contention: _alloc.Contention
+
+
+def make_alloc_ctx(machine, strategy, contention,
+                   total_nodes=None) -> Optional[AllocCtx]:
+    """Canonicalize the allocation arguments, or ``None`` for
+    scalar-counter mode.  ``alloc``/``contention`` without a ``machine``
+    raise (they would be ignored), and so does a ``total_nodes`` that
+    disagrees with the machine (it would corrupt the occupancy map)."""
+    if machine is None:
+        if strategy is not None or contention is not None:
+            raise ValueError(
+                "alloc/contention require machine=; without a Machine the "
+                "simulation runs in scalar-counter mode and would silently "
+                "ignore them")
+        return None
+    if total_nodes is not None and int(total_nodes) != machine.n_nodes:
+        raise ValueError(f"machine has {machine.n_nodes} nodes but "
+                         f"total_nodes={int(total_nodes)}")
+    sid = _alloc.canonical_id(strategy)
+    if isinstance(sid, list):
+        raise ValueError("one run takes one allocation strategy; sweep "
+                         "strategies with simulate_ensemble or sweep")
+    return AllocCtx(machine, sid, _alloc.Contention.canonical(contention))
+
+
+def _release_nodes(owner: torch.Tensor, released: torch.Tensor) -> None:
+    """Free, in place, every node whose owning job row is set in
+    ``released`` (``[..., N]`` maps against ``[..., J]`` masks)."""
+    J = released.shape[-1]
+    hit = (owner >= 0) & torch.gather(released, -1,
+                                      owner.clamp(0, J - 1).long())
+    owner.masked_fill_(hit, -1)
+
+
+class _MapLog:
+    """The ``ev_lfb`` column of the event log, filled in blocks.
+
+    The largest free run is a reduction of a few operations over the map;
+    taking it at every event would cost more than the event's other
+    allocation work.  So each event copies the map into a ring of
+    :attr:`SIZE` snapshots (one operation), and one reduction a full ring
+    writes the block of consecutive slots it covers.  An ensemble's map is
+    ``[B, N]``: a member's slot of round ``r`` is ``r`` while it is active,
+    and the slots past a member's event count keep their 0."""
+
+    SIZE = 128
+
+    def __init__(self, owner: torch.Tensor, ev_lfb: torch.Tensor):
+        self.ring = torch.empty((self.SIZE, *owner.shape), dtype=owner.dtype,
+                                device=owner.device)
+        self.ev_lfb, self.n, self.first = ev_lfb, 0, 0
+
+    def add(self, owner: torch.Tensor, slot: int, n_events=None) -> None:
+        if self.n == 0:
+            self.first = slot
+        self.ring[self.n].copy_(owner)
+        self.n += 1
+        if self.n == self.SIZE:
+            self.flush(n_events)
+
+    def flush(self, n_events=None) -> None:
+        """Write the ring's slots (``n_events``: each member's event count,
+        for an ensemble)."""
+        if self.n == 0:
+            return
+        lfb = _alloc.largest_free_run(self.ring[:self.n])
+        block = slice(self.first, self.first + self.n)
+        if n_events is None:
+            self.ev_lfb[block] = lfb
+        else:
+            rows = torch.arange(self.first, self.first + self.n,
+                                device=lfb.device)
+            n_ev = torch.tensor(n_events).to(lfb.device)
+            self.ev_lfb[:, block] = torch.where(
+                rows[None, :] < n_ev[:, None], lfb.T, self.ev_lfb[:, block])
+        self.n = 0
+
+
+def _start_job(jobs: JobSet, state: SimState, idx: int,
+               ctx: Optional[AllocCtx] = None) -> SimState:
     """Start job ``idx`` now: schedule its completion from its remaining
-    runtime, and record only its FIRST start time."""
+    runtime, and record only its FIRST start time.  With an allocation
+    context the strategy places its nodes (the occupancy map reads
+    ``node_owner`` as it is: down and offline nodes, which would be painted
+    busy first, arrive with ROADMAP Queue 1 item 5), the fingerprint is
+    recorded and contention dilates the remaining runtime by the span."""
     clock = state.clock
+    need = int(jobs.host["nodes"][idx])
     state.jstate[idx] = RUNNING
     state.start[idx : idx + 1].clamp_(max=clock)
-    state.finish[idx : idx + 1] = state.remaining[idx : idx + 1] + clock
+    if ctx is None:
+        state.finish[idx : idx + 1] = state.remaining[idx : idx + 1] + clock
+    else:
+        mask = _alloc.place(ctx.strategy, ctx.machine, state.node_owner, need)
+        span = _alloc.group_span(ctx.machine, mask)
+        first, asum = _alloc.alloc_fingerprint(mask)
+        state.node_owner.masked_fill_(mask, idx)
+        state.alloc[:, idx] = torch.stack([first, span, asum])
+        state.finish[idx] = _alloc.dilate(
+            ctx.contention, state.remaining[idx], span) + clock
+        if state.lfb is not None:
+            state.lfb = int(_alloc.largest_free_run(state.node_owner))
+            counters["cap_reads"] += 1
     state.rsv_finish[idx] = clock + int(jobs.host["estimate"][idx])
-    state.free -= int(jobs.host["nodes"][idx])
+    state.free -= need
     return state
 
 
-def _preempt_for(jobs: JobSet, state: SimState, idx: int) -> SimState:
+def _preempt_for(jobs: JobSet, state: SimState, idx: int,
+                 ctx: Optional[AllocCtx] = None) -> SimState:
     """Suspend the minimal set of strictly-lower-priority running jobs so
     that job ``idx`` fits.  Victims go most-preemptible-first, (priority
     desc, row desc): two stable sorts, the secondary key first.  Suspended
-    jobs keep their elapsed work and return to WAITING."""
+    jobs keep their elapsed work (already dilated) and return to WAITING;
+    with a machine they free their nodes.  The reclaim test counts nodes,
+    so under ``contiguous`` the placement that follows may fall back to
+    ``simple``."""
     J = jobs.capacity
     need = int(jobs.host["nodes"][idx]) - state.free
     lower = (state.jstate == RUNNING) & (jobs.priority
@@ -92,6 +210,8 @@ def _preempt_for(jobs: JobSet, state: SimState, idx: int) -> SimState:
     state.finish = torch.where(victim, INF_TIME, state.finish)
     state.rsv_finish = torch.where(victim, INF_TIME, state.rsv_finish)
     state.free += freed
+    if ctx is not None:
+        _release_nodes(state.node_owner, victim)
     return state
 
 
@@ -104,30 +224,46 @@ def blocking_order(jobs: JobSet, policy: int) -> torch.Tensor:
     return torch.sort(key, stable=True)[1]
 
 
-def _fast_order(jobs: JobSet, policy: int) -> Optional[torch.Tensor]:
+def _batches(policy: int, strategy: Optional[int]) -> bool:
+    """Whether a member's pass is the batched backfill pass: backfill
+    under the free counter's cap (scalar mode, ``simple``, ``spread``)."""
+    return policy == BACKFILL and (strategy is None
+                                   or strategy in _COUNT_CAPPED)
+
+
+def _fast_order(jobs: JobSet, policy: int,
+                strategy: Optional[int] = None) -> Optional[torch.Tensor]:
     """The batched pass's permutation, or ``None`` for the per-start loop.
 
-    As in the reference without dependency edges and without an allocation
-    context: backfill takes the batched pass (one shadow walk per event in
-    place of one per selection); FCFS, SJF and LJF batch only on
-    dependency-carrying tables, which the port does not carry yet; BestFit
-    and preempt never batch."""
-    return blocking_order(jobs, policy) if policy == BACKFILL else None
+    As in the reference without dependency edges: backfill takes the
+    batched pass (one shadow walk per event in place of one per selection)
+    in scalar mode and under the count-capped strategies; FCFS, SJF and
+    LJF batch only on dependency-carrying tables, which the port does not
+    carry yet; BestFit and preempt never batch."""
+    return (blocking_order(jobs, policy) if _batches(policy, strategy)
+            else None)
 
 
-def _batched_pass(jobs: JobSet, state: SimState,
-                  order: torch.Tensor) -> SimState:
+def _batched_pass(jobs: JobSet, state: SimState, order: torch.Tensor,
+                  ctx: Optional[AllocCtx] = None) -> SimState:
     """Start the whole feasible prefix of the waiting queue in one shot.
 
     The sequential pass walks the waiting jobs in ``order`` and starts each
     while it fits.  Node counts are >= 1, so the started set is exactly the
     longest ordered waiting prefix whose node sum stays <= free (DESIGN.md
-    §14).  Starts in a prefix are independent of one another, so they are
-    applied as one vectorised update; the host reads only the nodes taken.
+    §14).  In scalar mode starts in a prefix are independent of one
+    another, so they are applied as one vectorised update; the host reads
+    only the nodes taken.  With a machine each start places nodes on the
+    map the previous one left, so the host reads the started rows and
+    starts them one at a time, in key order, as the reference does.
     """
     w_sorted = (state.jstate == WAITING)[order]
     cum = torch.cumsum(torch.where(w_sorted, jobs.nodes[order], 0), 0,
                        dtype=torch.int32)
+    if ctx is not None:
+        for idx in order[(cum <= state.free) & w_sorted].tolist():
+            _start_job(jobs, state, idx, ctx)
+        return state
     started = torch.zeros_like(w_sorted)
     started[order] = (cum <= state.free) & w_sorted
     clock = state.clock
@@ -189,26 +325,29 @@ def _backfill_pass(host, st):
 
 def _loop_pass(policy: int, host, st):
     """The per-start selector loop (Algorithm 1 lines 16-21), as a
-    generator of requests: start jobs until the policy blocks."""
+    generator of requests: start jobs until the policy blocks.  Each
+    selection is capped by the strategy's placeable size
+    (``policies.placeable``)."""
     selector = policies.SELECTORS[policy]
-    idx = yield from selector(host, st, st.free)
+    idx = yield from selector(host, st, policies.placeable(st))
     while idx >= 0:
         if policy == PREEMPT and int(host["nodes"][idx]) > st.free:
             yield (SUSPEND, idx)
         yield (START, idx)
-        idx = yield from selector(host, st, st.free)
+        idx = yield from selector(host, st, policies.placeable(st))
 
 
 def _pass(policy: int, host, st, batched: bool):
     """A member's scheduling pass: the batched backfill pass when
-    ``_fast_order`` gives a permutation (backfill only), else the per-start
+    ``_fast_order`` gives a permutation (``_batches``), else the per-start
     selector loop."""
     return _backfill_pass(host, st) if batched else _loop_pass(policy, host,
                                                                st)
 
 
 def _drive_solo(gen, jobs: JobSet, state: SimState,
-                order: Optional[torch.Tensor]) -> int:
+                order: Optional[torch.Tensor],
+                ctx: Optional[AllocCtx] = None) -> int:
     """Answer a pass's requests one at a time on one table; returns the
     walks it made besides its redos."""
     walks = 0
@@ -217,11 +356,11 @@ def _drive_solo(gen, jobs: JobSet, state: SimState,
         nonlocal walks
         kind = req[0]
         if kind is START:
-            _start_job(jobs, state, req[1])
+            _start_job(jobs, state, req[1], ctx)
         elif kind is SUSPEND:
-            _preempt_for(jobs, state, req[1])
+            _preempt_for(jobs, state, req[1], ctx)
         elif kind is PREFIX:
-            _batched_pass(jobs, state, order)
+            _batched_pass(jobs, state, order, ctx)
         else:
             if kind is WALK:
                 if req[2]:
@@ -236,29 +375,37 @@ def _drive_solo(gen, jobs: JobSet, state: SimState,
 
 
 def _batched_backfill_pass(jobs: JobSet, state: SimState,
-                           order: torch.Tensor) -> SimState:
+                           order: torch.Tensor,
+                           ctx: Optional[AllocCtx] = None) -> SimState:
     """The batched backfill pass (:func:`_backfill_pass`) on one table."""
-    _drive_solo(_backfill_pass(jobs.host, state), jobs, state, order)
+    _drive_solo(_backfill_pass(jobs.host, state), jobs, state, order, ctx)
     return state
 
 
 def _schedule_pass(policy: int, jobs: JobSet, state: SimState,
-                   order: Optional[torch.Tensor] = None) -> SimState:
+                   order: Optional[torch.Tensor] = None,
+                   ctx: Optional[AllocCtx] = None) -> SimState:
     """Start jobs until the policy blocks (Algorithm 1 lines 16-21): the
-    batched backfill pass when ``_fast_order`` gave a permutation (it gives
-    one for backfill only), else the per-start selector loop."""
+    batched backfill pass when ``_fast_order`` gave a permutation, else the
+    per-start selector loop."""
     walks = _drive_solo(_pass(policy, jobs.host, state, order is not None),
-                        jobs, state, order)
+                        jobs, state, order, ctx)
     counters["max_walks_per_event"] = max(counters["max_walks_per_event"],
                                           walks)
     return state
 
 
 def _event_step(policy: int, jobs: JobSet, state: SimState,
-                order: Optional[torch.Tensor] = None) -> int:
+                order: Optional[torch.Tensor] = None,
+                ctx: Optional[AllocCtx] = None,
+                log: Optional[_MapLog] = None) -> int:
     """Process one event in place; returns the number of jobs it
     completed (the host's count of unfinished jobs drops by that much).
-    ``order`` is ``_fast_order``'s permutation (``None``: selector loop)."""
+    ``order`` is ``_fast_order``'s permutation (``None``: selector loop).
+    With a machine, completions free their nodes (before the one read,
+    which then carries the largest free run, where that run is the cap;
+    after it, and only when some job completed, elsewhere), and the
+    event's (clock, free, map) row goes to the log after the pass."""
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
     # min over arrivals and completions at once == min(t_arr, t_fin)
@@ -270,12 +417,24 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
     jstate = torch.where(completed, DONE, state.jstate)
     arrived = (jstate == PENDING) & (jobs.submit <= clock)
     state.jstate = torch.where(arrived, WAITING, jstate).to(torch.int32)
-    clock, freed, n_completed = torch.stack(
-        [clock.to(torch.int64), freed, torch.sum(completed)]).tolist()
+    reads = [clock.to(torch.int64), freed, torch.sum(completed)]
+    if state.lfb is not None:
+        _release_nodes(state.node_owner, completed)
+        reads.append(_alloc.largest_free_run(state.node_owner).long())
+    clock, freed, n_completed, *lfb = torch.stack(reads).tolist()
+    if ctx is not None and state.lfb is None and n_completed:
+        _release_nodes(state.node_owner, completed)
     state.clock = clock
     state.free += freed
     state.n_events += 1
-    _schedule_pass(policy, jobs, state, order)
+    if lfb:
+        state.lfb = lfb[0]
+    _schedule_pass(policy, jobs, state, order, ctx)
+    if ctx is not None:
+        slot = state.n_events - 1
+        state.ev_time[slot] = state.clock
+        state.ev_free[slot] = state.free
+        log.add(state.node_owner, slot)
     return n_completed
 
 
@@ -285,25 +444,42 @@ def policies_id(policy) -> int:
     return int(policy)
 
 
-def simulate(jobs: JobSet, policy, total_nodes: int, *,
-             max_events: Optional[int] = None, device=None) -> SimResult:
-    """Run the whole simulation of one cluster in scalar-counter mode.
+def simulate(jobs: JobSet, policy, total_nodes: int, *, machine=None,
+             alloc=None, contention=None, max_events: Optional[int] = None,
+             device=None) -> SimResult:
+    """Run the whole simulation of one cluster.
 
-    ``device=None`` runs on ``cuda`` (and raises without one); the job
-    table moves there if it lies elsewhere.  ``max_events`` caps the event
-    count (default ``6 * capacity + 8``, as in the reference).
+    Without ``machine`` the engine runs in scalar-counter mode.  With a
+    ``repro_torch.alloc.Machine`` of ``total_nodes`` nodes each start places
+    concrete nodes under the ``alloc`` strategy (a name or id, default
+    ``simple``), ``contention`` (``None``, ``(num, den)`` or a
+    ``Contention``) dilates runtimes by the allocation's span, and the
+    result carries the allocation fingerprints and the per-event
+    fragmentation log.  ``device=None`` runs on ``cuda`` (and raises
+    without one); the job table and the machine move there if they lie
+    elsewhere.  ``max_events`` caps the event count (default ``6 *
+    capacity + 8``, as in the reference).
     """
+    ctx = make_alloc_ctx(machine, alloc, contention, total_nodes)
     device = resolve_device(device)
     if jobs.device != device:
         jobs = jobs.to(device)
+    if ctx is not None and ctx.machine.device != device:
+        ctx = ctx._replace(machine=ctx.machine.to(device))
     policy = min(max(policies_id(policy), 0), len(policies.SELECTORS) - 1)
     cap = max_events if max_events is not None else 6 * jobs.capacity + 8
-    state = SimState.init(jobs, total_nodes)
-    order = _fast_order(jobs, policy)
+    state = SimState.init(jobs, total_nodes,
+                          None if ctx is None else ctx.machine, cap)
+    if ctx is not None and ctx.strategy == _alloc.CONTIGUOUS:
+        state.lfb = ctx.machine.n_nodes
+    order = _fast_order(jobs, policy, None if ctx is None else ctx.strategy)
+    log = None if ctx is None else _MapLog(state.node_owner, state.ev_lfb)
     jobs.selector.bind_stream()
     unfinished = int(torch.sum(jobs.valid))
     while unfinished > 0 and state.n_events < cap:
-        unfinished -= _event_step(policy, jobs, state, order)
+        unfinished -= _event_step(policy, jobs, state, order, ctx, log)
+    if log is not None:
+        log.flush()
     return result_from_state(jobs, state)
 
 
@@ -311,13 +487,53 @@ def simulate(jobs: JobSet, policy, total_nodes: int, *,
 # ensembles: B members in lockstep
 # ---------------------------------------------------------------------------
 
+class BatchAlloc(NamedTuple):
+    """An ensemble's allocation context: one machine for every member, and
+    each member's strategy id and contention model (host values);
+    ``contention`` stacks them as i32[B] tensors on the table's device."""
+
+    machine: _alloc.Machine
+    strategies: list
+    contentions: list
+    contention: _alloc.Contention
+
+    @classmethod
+    def make(cls, machine, strategies, contentions, device) -> "BatchAlloc":
+        return cls(machine, strategies, contentions,
+                   _alloc.Contention.stack(contentions, device))
+
+    def contention_of(self, m: torch.Tensor, ms) -> _alloc.Contention:
+        """The members ``m`` (device) / ``ms`` (host) of ``contention``;
+        host ``off`` when none of them dilates."""
+        if not any(self.contentions[b].enabled for b in ms):
+            return _alloc.Contention.off()
+        c = self.contention
+        return _alloc.Contention(c.enabled[m], c.alpha_num[m],
+                                 c.alpha_den[m])
+
+
+def _read_lfb(state: EnsembleState, actx: BatchAlloc, ms) -> None:
+    """Read the largest free run of the members ``ms`` whose cap it is
+    (``contiguous``) into their host scalars: one read for all of them."""
+    ms = [b for b in ms if state.members[b].lfb is not None]
+    if not ms:
+        return
+    m = _to_device([ms], state.node_owner.device)[0]
+    lfb = _alloc.largest_free_run(state.node_owner[m]).tolist()
+    counters["cap_reads"] += 1
+    for b, v in zip(ms, lfb):
+        state.members[b].lfb = v
+
+
 def _event_step_batch(jobs: JobSet, state: EnsembleState,
-                      active: Optional[torch.Tensor]) -> list:
+                      active: Optional[torch.Tensor],
+                      actx: Optional[BatchAlloc] = None) -> list:
     """:func:`_event_step`'s event for every member at once, over the
     ``[B, J]`` state, written in place.  ``active`` (bool[B], ``None`` for
     every member) masks the members that are done, whose state is left as
     it is.  One read: ``[clock, freed, n_completed]`` for each member (a
-    done member's row means nothing)."""
+    done member's row means nothing), with the largest free run after the
+    completions as a fourth column when some member's cap is that run."""
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
     nxt = torch.where(pending, jobs.submit,
@@ -332,8 +548,12 @@ def _event_step_batch(jobs: JobSet, state: EnsembleState,
     if active is not None:
         arrived &= active[:, None]
     state.jstate.copy_(torch.where(arrived, WAITING, jstate))
-    return torch.stack([clock.to(torch.int64), freed,
-                        torch.sum(completed, dim=1)], dim=1).tolist()
+    reads = [clock.to(torch.int64), freed, torch.sum(completed, dim=1)]
+    if actx is not None:
+        _release_nodes(state.node_owner, completed)
+        if _alloc.CONTIGUOUS in actx.strategies:
+            reads.append(_alloc.largest_free_run(state.node_owner).long())
+    return torch.stack(reads, dim=1).tolist()
 
 
 def _to_device(rows, device) -> torch.Tensor:
@@ -342,9 +562,13 @@ def _to_device(rows, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int64).to(device)
 
 
-def _start_batch(jobs: JobSet, state: EnsembleState, hosts, reqs) -> None:
+def _start_batch(jobs: JobSet, state: EnsembleState, hosts, reqs,
+                 actx: Optional[BatchAlloc] = None) -> None:
     """:func:`_start_job` for one job of each member in ``reqs`` (pairs of
-    member and row): one indexed write a column for all of them."""
+    member and row): one indexed write a column for all of them.  With a
+    machine, one placement over the members' rows (one call a strategy
+    among them), and one read of the new largest free runs where they are
+    the cap."""
     ms = [b for b, _ in reqs]
     ix = [i for _, i in reqs]
     clk = [state.members[b].clock for b in ms]
@@ -353,16 +577,32 @@ def _start_batch(jobs: JobSet, state: EnsembleState, hosts, reqs) -> None:
     c = c.to(torch.int32)
     state.jstate[m, i] = RUNNING
     state.start[m, i] = torch.minimum(state.start[m, i], c)
-    state.finish[m, i] = state.remaining[m, i] + c
+    if actx is None:
+        state.finish[m, i] = state.remaining[m, i] + c
+    else:
+        own = state.node_owner[m]
+        mask = _alloc.place_batch([actx.strategies[b] for b in ms],
+                                  actx.machine, own, jobs.nodes[m, i])
+        span = _alloc.group_span(actx.machine, mask)
+        first, asum = _alloc.alloc_fingerprint(mask)
+        state.node_owner[m] = torch.where(mask, i[:, None].to(torch.int32),
+                                          own)
+        state.alloc[m, :, i] = torch.stack([first, span, asum], dim=1)
+        state.finish[m, i] = _alloc.dilate(actx.contention_of(m, ms),
+                                           state.remaining[m, i], span) + c
     state.rsv_finish[m, i] = r.to(torch.int32)
     for b, idx in reqs:
         state.members[b].free -= int(hosts[b]["nodes"][idx])
+    if actx is not None:
+        _read_lfb(state, actx, ms)
 
 
 def _prefix_batch(jobs: JobSet, state: EnsembleState, order: torch.Tensor,
-                  ms) -> None:
+                  ms, hosts, actx: Optional[BatchAlloc] = None) -> None:
     """:func:`_batched_pass` for the members ``ms``, along ``dim=1``;
-    ``order`` is ``[B, J]``, each member's permutation in its row."""
+    ``order`` is ``[B, J]``, each member's permutation in its row.  With a
+    machine the host reads every member's started rows in key order and
+    starts the k-th of each member together (:func:`_start_batch`)."""
     m, free, clk = _to_device(
         [ms, [state.members[b].free for b in ms],
          [state.members[b].clock for b in ms]], jobs.device).unbind(0)
@@ -370,8 +610,18 @@ def _prefix_batch(jobs: JobSet, state: EnsembleState, order: torch.Tensor,
     w_sorted = torch.gather(jst == WAITING, 1, order)
     cum = torch.cumsum(torch.where(w_sorted, torch.gather(nodes, 1, order), 0),
                        1, dtype=torch.int32)
-    started = torch.zeros_like(w_sorted).scatter_(
-        1, order, (cum <= free[:, None]) & w_sorted)
+    take = (cum <= free[:, None]) & w_sorted
+    if actx is not None:
+        pos = torch.nonzero(take)
+        rows = [[] for _ in ms]
+        for k, idx in zip(*torch.stack([pos[:, 0], order[pos[:, 0],
+                                                         pos[:, 1]]]).tolist()):
+            rows[k].append(idx)
+        for k in range(max(map(len, rows))):
+            _start_batch(jobs, state, hosts, [
+                (b, r[k]) for b, r in zip(ms, rows) if len(r) > k], actx)
+        return
+    started = torch.zeros_like(w_sorted).scatter_(1, order, take)
     clk = clk[:, None].to(torch.int32)
     start, finish, rsv = state.start[m], state.finish[m], state.rsv_finish[m]
     state.jstate[m] = torch.where(started, RUNNING, jst).to(torch.int32)
@@ -383,9 +633,11 @@ def _prefix_batch(jobs: JobSet, state: EnsembleState, order: torch.Tensor,
         state.members[b].free -= t
 
 
-def _suspend_batch(jobs: JobSet, state: EnsembleState, hosts, reqs) -> None:
+def _suspend_batch(jobs: JobSet, state: EnsembleState, hosts, reqs,
+                   actx: Optional[BatchAlloc] = None) -> None:
     """:func:`_preempt_for` for one head of each member in ``reqs`` (pairs
-    of member and row), the two stable sorts along ``dim=1``."""
+    of member and row), the two stable sorts along ``dim=1``; with a
+    machine the victims free their nodes."""
     ms = [b for b, _ in reqs]
     need = [int(hosts[b]["nodes"][i]) - state.members[b].free
             for b, i in reqs]
@@ -413,6 +665,10 @@ def _suspend_batch(jobs: JobSet, state: EnsembleState, hosts, reqs) -> None:
     state.jstate[m] = torch.where(victim, WAITING, jst).to(torch.int32)
     state.finish[m] = torch.where(victim, INF_TIME, finish)
     state.rsv_finish[m] = torch.where(victim, INF_TIME, state.rsv_finish[m])
+    if actx is not None:
+        own = state.node_owner[m]
+        _release_nodes(own, victim)
+        state.node_owner[m] = own
     for b, f in zip(ms, freed):
         state.members[b].free += f
 
@@ -428,7 +684,8 @@ def _reclaim_batch(jobs: JobSet, state: EnsembleState, reqs) -> list:
 
 
 def _schedule_batch(jobs: JobSet, state: EnsembleState, pols, hosts,
-                    order, members) -> None:
+                    order, members, actx: Optional[BatchAlloc] = None
+                    ) -> None:
     """Every member's scheduling pass of this event, in lockstep rounds.
 
     Each round sends every member still in its pass the answer to its last
@@ -438,7 +695,9 @@ def _schedule_batch(jobs: JobSet, state: EnsembleState, pols, hosts,
     rest.  Members touch only their own rows, so the order of the kinds
     within a round does not matter."""
     gens = {b: _pass(pols[b], hosts[b], state.members[b],
-                     pols[b] == BACKFILL) for b in members}
+                     _batches(pols[b], None if actx is None
+                              else actx.strategies[b]))
+            for b in members}
     answers = dict.fromkeys(gens)
     walks = dict.fromkeys(gens, 0)
     sel = jobs.selector
@@ -474,18 +733,32 @@ def _schedule_batch(jobs: JobSet, state: EnsembleState, pols, hosts,
                 answers[b] = a
         if reqs[SUSPEND]:
             _suspend_batch(jobs, state, hosts,
-                           [(b, r[1]) for b, r in reqs[SUSPEND]])
+                           [(b, r[1]) for b, r in reqs[SUSPEND]], actx)
         if reqs[START]:
             _start_batch(jobs, state, hosts,
-                         [(b, r[1]) for b, r in reqs[START]])
+                         [(b, r[1]) for b, r in reqs[START]], actx)
         if reqs[PREFIX]:
-            _prefix_batch(jobs, state, order, [b for b, _ in reqs[PREFIX]])
+            _prefix_batch(jobs, state, order, [b for b, _ in reqs[PREFIX]],
+                          hosts, actx)
     if walks:
         counters["max_walks_per_event"] = max(
             counters["max_walks_per_event"], max(walks.values()))
 
 
+def _log_events_batch(state: EnsembleState, members, log: _MapLog,
+                      rnd: int) -> None:
+    """Each stepped member's (clock, free, map) row of this event-round
+    ``rnd`` (every active member's slot): the host columns in place, the
+    maps into the log."""
+    for b in members:
+        st = state.members[b]
+        state.ev_time[b, rnd] = st.clock
+        state.ev_free[b, rnd] = st.free
+    log.add(state.node_owner, rnd, state.n_events)
+
+
 def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
+                   machine=None, alloc_b=None, contention_b=None,
                    max_events: Optional[int] = None) -> SimResult:
     """Run B members of a stacked table (``[B, J]`` columns) in lockstep.
 
@@ -493,10 +766,15 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
     nodes, and its result equals :func:`simulate` of its own table bit for
     bit: an event step serves every member at once and every round of the
     scheduling passes answers each kind of request for every member with
-    one launch (:func:`_schedule_batch`).  A member is done once it has no
-    unfinished job or has reached its event cap; from then on its state is
-    never written again ("max iterations across members, finished carries
-    preserved", DESIGN.md §18.1).  Runs on the table's device."""
+    one launch (:func:`_schedule_batch`).  With ``machine`` (one machine on
+    the table's device, shared by every member) member ``b`` places under
+    ``alloc_b[b]`` (a canonical id) with ``contention_b[b]`` (a
+    ``Contention``); members of different strategies share the batch, and
+    each reads and writes only its own occupancy row.  A member is done
+    once it has no unfinished job or has reached its event cap; from then
+    on its state is never written again ("max iterations across members,
+    finished carries preserved", DESIGN.md §18.1).  Runs on the table's
+    device."""
     B = jobs.batch
     if B is None:
         raise ValueError("simulate_batch needs a stacked [B, J] table")
@@ -506,7 +784,15 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
         raise ValueError(f"{len(pols)} policies and {len(total_nodes_b)} "
                          f"node counts for {B} members")
     cap = max_events if max_events is not None else 6 * jobs.capacity + 8
-    state = EnsembleState.init(jobs, total_nodes_b)
+    actx = None
+    if machine is not None:
+        actx = BatchAlloc.make(machine, list(alloc_b), list(contention_b),
+                               jobs.device)
+    state = EnsembleState.init(jobs, total_nodes_b, machine, cap)
+    if actx is not None:
+        for b, s in enumerate(actx.strategies):
+            if s == _alloc.CONTIGUOUS:
+                state.members[b].lfb = machine.n_nodes
     # backfill's batched pass walks the FCFS permutation of its member
     order = (torch.sort(jobs.submit, dim=1, stable=True)[1]
              if BACKFILL in pols else None)
@@ -516,21 +802,30 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
     unfinished = torch.sum(jobs.valid, dim=1).tolist()
     members = [b for b in range(B) if unfinished[b] > 0 and cap > 0]
     active, n_masked = None, B
+    log = None if actx is None else _MapLog(state.node_owner, state.ev_lfb)
+    rnd = 0
     while members:
         if len(members) != n_masked:   # a member is done: mask it from now
             mask = [False] * B
             for b in members:
                 mask[b] = True
             active, n_masked = torch.tensor(mask).to(jobs.device), len(members)
-        stepped = _event_step_batch(jobs, state, active)
+        stepped = _event_step_batch(jobs, state, active, actx)
         for b in members:
-            clock, freed, n_completed = stepped[b]
+            clock, freed, n_completed, *lfb = stepped[b]
             st = state.members[b]
             st.clock = clock
             st.free += freed
             st.n_events += 1
+            if st.lfb is not None:
+                st.lfb = lfb[0]
             unfinished[b] -= n_completed
-        _schedule_batch(jobs, state, pols, hosts, order, members)
+        _schedule_batch(jobs, state, pols, hosts, order, members, actx)
+        if log is not None:
+            _log_events_batch(state, members, log, rnd)
+        rnd += 1
         members = [b for b in members
                    if unfinished[b] > 0 and state.members[b].n_events < cap]
+    if log is not None:
+        log.flush(state.n_events)
     return result_from_state(jobs, state)

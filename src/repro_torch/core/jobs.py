@@ -1,21 +1,27 @@
-"""Job table and simulation state of the PyTorch engine (scalar-counter mode).
+"""Job table and simulation state of the PyTorch engine.
 
 Counterpart of ``repro.core.jobs``.  The job table is a struct of int32
 tensors sorted by (submit, id); ``SimState`` holds the per-job state
-tensors plus the three scalars the host-driven event loop reads on every
-event (``clock``, ``free``, ``n_events``), which live on the host as Python
-ints.  Per-job times and counts are ``torch.int32`` with the sentinel
-``INF_TIME = 2**30 - 1``, as in the reference.
+tensors plus the scalars the host-driven event loop reads on every event
+(``clock``, ``free``, ``n_events``), which live on the host as Python ints.
+Per-job times and counts are ``torch.int32`` with the sentinel ``INF_TIME =
+2**30 - 1``, as in the reference.
+
+With a machine (topology-aware allocation, DESIGN.md §11) the state also
+carries the per-node occupancy map ``node_owner`` on the device, each job's
+allocation fingerprint (``alloc_first``/``alloc_span``/``alloc_sum``) and
+the per-event fragmentation log (``ev_time``/``ev_free``/``ev_lfb``), with
+the reference's initial values and lengths.
 
 An ensemble stacks B tables of one capacity into a ``JobSet`` whose
 columns are ``[B, J]`` (``core.parallel.stack_jobsets``), as the
 reference's ``stack_jobsets`` stacks its pytree: a member's row is a
 contiguous view, so ``JobSet.member(b)`` is the solo table of member ``b``
 without a copy.  ``EnsembleState`` holds the per-job state as ``[B, J]``
-tensors and each member's three scalars on the host.
+tensors and each member's scalars on the host.
 
-Only scalar-counter mode is carried here: no machine, no failures, no
-service plan, no malleable plan, and no dependency edges.
+Not carried yet: failures, service plans, malleable plans and dependency
+edges.
 """
 
 from __future__ import annotations
@@ -59,6 +65,8 @@ POLICY_IDS = {v: k for k, v in POLICY_NAMES.items()}
 JOB_FIELDS = ("submit", "runtime", "estimate", "nodes", "priority", "valid")
 STATE_TENSORS = ("jstate", "start", "finish", "rsv_finish", "remaining")
 STATE_SCALARS = ("clock", "free", "n_events")
+ALLOC_FIELDS = ("alloc_first", "alloc_span", "alloc_sum")
+EV_FIELDS = ("ev_time", "ev_free", "ev_lfb")
 
 
 def resolve_device(device) -> torch.device:
@@ -199,13 +207,52 @@ def make_jobset(
     )
 
 
+def machine_fields(J: int, N: int, L: int, device, batch=()) -> dict:
+    """The allocation fields' initial values, as in the reference: a free
+    map of ``N`` nodes, nothing placed (``alloc``: i32[..., 3, J], the rows
+    of ``alloc_first`` at -1, ``alloc_span`` and ``alloc_sum`` at 0,
+    written together at a start), an empty log of ``L`` events.  ``N`` and
+    ``L`` are 0 without a machine."""
+    alloc = torch.zeros(*batch, 3, J, dtype=torch.int32, device=device)
+    alloc[..., 0, :] = -1
+    return dict(
+        node_owner=torch.full((*batch, N), -1, dtype=torch.int32,
+                              device=device),
+        alloc=alloc,
+        ev_time=np.full((*batch, L), -1, dtype=np.int32),
+        ev_free=np.zeros((*batch, L), dtype=np.int32),
+        ev_lfb=torch.zeros((*batch, L), dtype=torch.int32, device=device))
+
+
+class _AllocViews:
+    """``alloc_first``, ``alloc_span`` and ``alloc_sum`` as views of the
+    ``alloc`` block."""
+
+    @property
+    def alloc_first(self) -> torch.Tensor:
+        return self.alloc[..., 0, :]
+
+    @property
+    def alloc_span(self) -> torch.Tensor:
+        return self.alloc[..., 1, :]
+
+    @property
+    def alloc_sum(self) -> torch.Tensor:
+        return self.alloc[..., 2, :]
+
+
 @dataclasses.dataclass
-class SimState:
+class SimState(_AllocViews):
     """Simulation state of one cluster, updated in place by the engine.
 
     The reference threads an immutable state through ``lax.while_loop``;
     here the host drives the loop, so the per-job tensors are written in
-    place (no copy per start) and the scalars are host ints.
+    place (no copy per start) and the scalars are host ints.  Without a
+    machine ``node_owner`` and the ``ev_*`` log have length 0, as in the
+    reference.  ``ev_time`` and ``ev_free`` are host numpy arrays (the
+    host knows both after each event); ``ev_lfb`` lives on the device.
+    ``lfb`` is the host's copy of the largest free run when the strategy's
+    placement cap is that run (``contiguous``), else ``None``.
     """
 
     clock: int
@@ -216,10 +263,19 @@ class SimState:
     remaining: torch.Tensor   # i32[J] runtime left (preemption suspends work)
     free: int                 # nodes currently free
     n_events: int             # events processed
+    node_owner: torch.Tensor  # i32[N] owning job row per node (-1 free)
+    alloc: torch.Tensor       # i32[3, J] alloc_first / alloc_span / alloc_sum
+    ev_time: np.ndarray       # i32[L] event clock log (-1 = unused slot)
+    ev_free: np.ndarray       # i32[L] free nodes after each event
+    ev_lfb: torch.Tensor      # i32[L] largest free run after each event
+    lfb: int | None = None
 
     @classmethod
-    def init(cls, jobs: JobSet, total_nodes: int) -> "SimState":
+    def init(cls, jobs: JobSet, total_nodes: int, machine=None,
+             event_log: int = 0) -> "SimState":
         J, dev = jobs.capacity, jobs.device
+        N = machine.n_nodes if machine is not None else 0
+        L = int(event_log) if machine is not None else 0
         inf = torch.full((J,), INF_TIME, dtype=torch.int32, device=dev)
         return cls(
             clock=0,
@@ -230,6 +286,7 @@ class SimState:
             remaining=jobs.runtime.clone(),
             free=int(total_nodes),
             n_events=0,
+            **machine_fields(J, N, L, dev),
         )
 
 
@@ -237,21 +294,23 @@ class MemberScalars:
     """The host scalars of one ensemble member, read and written by its
     scheduling pass as a ``SimState``'s are."""
 
-    __slots__ = ("clock", "free", "n_events")
+    __slots__ = ("clock", "free", "n_events", "lfb")
 
     def __init__(self, clock: int, free: int, n_events: int):
         self.clock, self.free, self.n_events = clock, free, n_events
+        self.lfb = None
 
 
 @dataclasses.dataclass
-class EnsembleState:
+class EnsembleState(_AllocViews):
     """Simulation state of B members in lockstep.
 
-    The per-job tensors are ``[B, J]`` and are written in place, so a
-    member's row keeps its address for the batched kernels; ``members[b]``
-    holds member ``b``'s ``clock``, ``free`` and ``n_events``.  A member
-    that is done (no unfinished job, or its event cap reached) is never
-    written again.
+    The per-job tensors are ``[B, J]`` (the occupancy maps ``[B, N]``, the
+    ``ev_*`` logs ``[B, L]``) and are written in place, so a member's row
+    keeps its address for the batched kernels; ``members[b]`` holds member
+    ``b``'s ``clock``, ``free``, ``n_events`` and ``lfb``.  A member that is
+    done (no unfinished job, or its event cap reached) is never written
+    again.
     """
 
     jstate: torch.Tensor      # i32[B, J]
@@ -260,11 +319,20 @@ class EnsembleState:
     rsv_finish: torch.Tensor  # i32[B, J]
     remaining: torch.Tensor   # i32[B, J]
     members: list             # [MemberScalars] * B
+    node_owner: torch.Tensor  # i32[B, N]
+    alloc: torch.Tensor       # i32[B, 3, J]
+    ev_time: np.ndarray       # i32[B, L]
+    ev_free: np.ndarray       # i32[B, L]
+    ev_lfb: torch.Tensor      # i32[B, L]
 
     @classmethod
-    def init(cls, jobs: JobSet, total_nodes) -> "EnsembleState":
+    def init(cls, jobs: JobSet, total_nodes, machine=None,
+             event_log: int = 0) -> "EnsembleState":
+        B, dev = jobs.batch, jobs.device
+        N = machine.n_nodes if machine is not None else 0
+        L = int(event_log) if machine is not None else 0
         inf = torch.full(jobs.submit.shape, INF_TIME, dtype=torch.int32,
-                         device=jobs.device)
+                         device=dev)
         return cls(
             jstate=torch.where(jobs.valid, PENDING, DONE).to(torch.int32),
             start=inf,
@@ -272,6 +340,7 @@ class EnsembleState:
             rsv_finish=inf.clone(),
             remaining=jobs.runtime.clone(),
             members=[MemberScalars(0, int(t), 0) for t in total_nodes],
+            **machine_fields(jobs.capacity, N, L, dev, (B,)),
         )
 
     @property
@@ -281,7 +350,9 @@ class EnsembleState:
 
 @dataclasses.dataclass(frozen=True)
 class SimResult:
-    """Per-job outcome of a scalar-counter run."""
+    """Per-job outcome of a run.  The allocation fingerprints and the
+    ``ev_*`` log are those of the state (``-1``/0 and length 0 without a
+    machine)."""
 
     start: torch.Tensor   # i32[J]
     finish: torch.Tensor  # i32[J]
@@ -290,23 +361,29 @@ class SimResult:
     makespan: int         # a list of B ints for an ensemble
     n_events: int         # a list of B ints for an ensemble
     done: torch.Tensor    # bool[J] reached DONE (False => event cap hit)
+    alloc_first: torch.Tensor  # i32[J] lowest node id of final allocation
+    alloc_span: torch.Tensor   # i32[J] topology groups spanned by it
+    alloc_sum: torch.Tensor    # i32[J] sum of its 1-based node ids
+    ev_time: torch.Tensor      # i32[L] per-event clock (-1 = unused slot)
+    ev_free: torch.Tensor      # i32[L] per-event free-node count
+    ev_lfb: torch.Tensor       # i32[L] per-event largest free run
 
     def member(self, b: int) -> "SimResult":
-        """Row ``b`` of an ensemble's result (``[B, J]`` fields)."""
-        return SimResult(start=self.start[b], finish=self.finish[b],
-                         ready=self.ready[b], wait=self.wait[b],
-                         makespan=self.makespan[b],
-                         n_events=self.n_events[b], done=self.done[b])
+        """Row ``b`` of an ensemble's result (``[B, ...]`` fields)."""
+        return SimResult(**{
+            f.name: getattr(self, f.name)[b]
+            for f in dataclasses.fields(self)})
 
 
 def result_from_state(jobs: JobSet, state) -> SimResult:
     """The result of a solo run (``SimState``) or of an ensemble
-    (``EnsembleState``: ``[B, J]`` fields, per-member makespan and event
+    (``EnsembleState``: ``[B, ...]`` fields, per-member makespan and event
     count)."""
     ready = jobs.submit
     wait = torch.where(jobs.valid, state.start - ready, 0).to(torch.int32)
     done = (state.jstate == DONE) & jobs.valid
     fin = torch.where(done, state.finish, 0)
+    dev = jobs.device
     return SimResult(
         start=state.start,
         finish=state.finish,
@@ -315,4 +392,10 @@ def result_from_state(jobs: JobSet, state) -> SimResult:
         makespan=fin.amax(dim=-1).tolist(),
         n_events=state.n_events,
         done=done,
+        alloc_first=state.alloc_first,
+        alloc_span=state.alloc_span,
+        alloc_sum=state.alloc_sum,
+        ev_time=torch.from_numpy(state.ev_time).to(dev),
+        ev_free=torch.from_numpy(state.ev_free).to(dev),
+        ev_lfb=state.ev_lfb,
     )

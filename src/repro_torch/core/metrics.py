@@ -1,10 +1,11 @@
-"""Offline metrics of a scalar-counter run (paper Figs. 3 and 4b).
+"""Offline metrics of a run (paper Figs. 3 and 4b, DESIGN.md §11.5).
 
 The PyTorch port's own copy of ``percentiles``, ``summary`` and the step
-series (occupancy, active jobs, queue length, sampling onto a grid) from
-``repro.core.metrics``: pure numpy functions of the canonical result dict
-(submit, start, finish, nodes, runtime, ready, valid, done), identical to
-the reference's, so both engines' metrics agree bit for bit.
+series (occupancy, active jobs, queue length, sampling onto a grid), and of
+the allocation series (fragmentation, largest free block, job span) and
+``alloc_summary``, from ``repro.core.metrics``: pure numpy functions of the
+canonical result dict, identical to the reference's, so both engines'
+metrics agree bit for bit.
 """
 
 from __future__ import annotations
@@ -118,3 +119,69 @@ def sample_series(t: np.ndarray, v: np.ndarray, grid: np.ndarray) -> np.ndarray:
     idx = np.searchsorted(t, grid, side="right") - 1
     out = np.where(idx >= 0, v[np.clip(idx, 0, len(v) - 1)], 0)
     return out.astype(np.float64)
+
+
+def fragmentation_series(res) -> tuple[np.ndarray, np.ndarray]:
+    """Fragmentation over time from the engine's per-event log
+    (DESIGN.md §11.5): ``1 - largest_free_block / free_nodes``, 0 when all
+    free capacity is one contiguous block.  Needs a result of a run with a
+    machine."""
+    t, lfb, freen = _event_log(res)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        frag = np.where(freen > 0, 1.0 - lfb / np.maximum(freen, 1), 0.0)
+    return t, frag
+
+
+def largest_free_block_series(res) -> tuple[np.ndarray, np.ndarray]:
+    """Largest free contiguous block over time (allocation results only)."""
+    t, lfb, _ = _event_log(res)
+    return t, lfb.astype(np.float64)
+
+
+def _event_log(res):
+    if "ev_time" not in res:
+        raise ValueError(
+            "result has no event log; run simulate with a Machine "
+            "(see repro_torch.alloc)")
+    t = np.asarray(res["ev_time"], dtype=np.int64)
+    lfb = np.asarray(res["ev_lfb"], dtype=np.int64)
+    freen = np.asarray(res["ev_free"], dtype=np.int64)
+    used = t >= 0
+    t, lfb, freen = t[used], lfb[used], freen[used]
+    # collapse duplicate timestamps to the final row at that time
+    keep = np.r_[t[1:] != t[:-1], True] if len(t) else np.zeros(0, bool)
+    return t[keep], lfb[keep], freen[keep]
+
+
+def job_span_series(res) -> tuple[np.ndarray, np.ndarray]:
+    """Mean topology-group span of *running* jobs over time (allocation
+    results only).  NaN while nothing runs."""
+    v = np.asarray(res["valid"], bool) & np.asarray(res["done"], bool)
+    start = np.asarray(res["start"])[v]
+    finish = np.asarray(res["finish"])[v]
+    span = np.asarray(res["alloc_span"])[v].astype(np.int64)
+    if len(start) == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.float64)
+    times = np.r_[start, finish]
+    t, tot = step_series(times, np.r_[span, -span])
+    _, cnt = step_series(times, np.r_[np.ones_like(start),
+                                      -np.ones_like(finish)].astype(np.int64))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        mean = np.where(cnt > 0, tot / np.maximum(cnt, 1), np.nan)
+    return t, mean
+
+
+def alloc_summary(res) -> Dict[str, float]:
+    """Scalar locality and fragmentation metrics (allocation results
+    only)."""
+    v = np.asarray(res["valid"], bool) & np.asarray(res["done"], bool)
+    span = np.asarray(res["alloc_span"])[v].astype(np.float64)
+    t, frag = fragmentation_series(res)
+    _, lfb, freen = _event_log(res)
+    busy = freen < freen.max(initial=0) if len(freen) else np.zeros(0, bool)
+    return {
+        "mean_job_span": float(span.mean()) if len(span) else 0.0,
+        "max_job_span": float(span.max()) if len(span) else 0.0,
+        "mean_frag": float(frag[busy].mean()) if busy.any() else 0.0,
+        "min_largest_free_block": float(lfb.min()) if len(lfb) else 0.0,
+    }

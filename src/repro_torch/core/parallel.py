@@ -1,8 +1,8 @@
 """Ensembles of the PyTorch port (paper Fig. 5, DESIGN.md §2 and §12.2).
 
-Counterpart of ``repro.core.parallel``'s ensemble mode in scalar-counter
-mode: many independent simulations (policy sweeps, machine sizes, trace
-seeds) advanced together.  The reference ``vmap``s its device
+Counterpart of ``repro.core.parallel``'s ensemble mode: many independent
+simulations (policy sweeps, machine sizes, trace seeds, placement
+strategies and contention models) advanced together.  The reference ``vmap``s its device
 ``while_loop``; here the members are the rows of a stacked ``[B, J]`` job
 table, and ``core.engine.simulate_batch`` drives them in lockstep from the
 host: one event step for every member, and one launch of the batched
@@ -10,9 +10,8 @@ host: one event step for every member, and one launch of the batched
 members still in their scheduling pass.  A member that is done is frozen,
 so each member equals its own solo run bit for bit.
 
-Not ported yet: allocation (``machine``, ``alloc_b``, ``contention``:
-ROADMAP Queue 1 item 2), failures (``failures_b``: item 5), sharding an
-ensemble over several cards (``mesh``: item 12), and multicluster windows
+Not ported yet: failures (``failures_b``: ROADMAP Queue 1 item 5), sharding
+an ensemble over several cards (``mesh``: item 12), and multicluster windows
 (item 6).
 """
 
@@ -22,16 +21,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch import alloc as _alloc
 from repro_torch.core import engine
 from repro_torch.core.jobs import (
     JOB_FIELDS, JobSet, SimResult, resolve_device,
 )
 
-_ITEM2 = "ROADMAP Queue 1 item 2 (topology-aware allocation)"
 _NOT_PORTED = {
-    "machine": _ITEM2,
-    "alloc_b": _ITEM2,
-    "contention": _ITEM2,
     "failures_b": "ROADMAP Queue 1 item 5 (extra event sources)",
     "mesh": "ROADMAP Queue 1 item 12 (ensembles over several cards)",
 }
@@ -68,17 +64,21 @@ def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
     """Run the members of a stacked table together, each with its own
     policy (a name or id) and its own node count.
 
-    Returns a ``SimResult`` with ``[B, J]`` fields and per-member
+    With ``machine`` (one machine for every member, whose node count every
+    ``total_nodes_b`` entry must equal) ``alloc_b`` gives each member's
+    placement strategy (names or ids; default ``simple``) and
+    ``contention`` the dilation: one spec (``None``, ``(num, den)`` or a
+    ``Contention``) for every member, or a list of one spec a member.
+
+    Returns a ``SimResult`` with ``[B, ...]`` fields and per-member
     ``makespan`` and ``n_events`` lists; ``SimResult.member(b)`` equals
     ``engine.simulate`` of member ``b`` alone.  ``max_events`` caps every
     member's event count (default ``6 * capacity + 8``, as in the
     reference).  ``device=None`` runs on ``cuda`` (and raises without one);
-    the table moves there if it lies elsewhere.  The reference's allocation,
-    failure and mesh arguments raise ``NotImplementedError`` naming the
-    ROADMAP item that brings them."""
-    given = {"machine": machine, "alloc_b": alloc_b,
-             "contention": contention, "failures_b": failures_b,
-             "mesh": mesh}
+    the table and the machine move there if they lie elsewhere.  The
+    reference's failure and mesh arguments raise ``NotImplementedError``
+    naming the ROADMAP item that brings them."""
+    given = {"failures_b": failures_b, "mesh": mesh}
     for name, item in _NOT_PORTED.items():
         if given[name] is not None:
             raise NotImplementedError(
@@ -89,6 +89,51 @@ def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
     device = resolve_device(device)
     if jobs_b.device != device:
         jobs_b = jobs_b.to(device)
-    return engine.simulate_batch(jobs_b, list(policies_b),
-                                 [int(t) for t in total_nodes_b],
+    B = jobs_b.batch
+    total_nodes_b = [int(t) for t in total_nodes_b]
+    strategies = contentions = None
+    if machine is None:
+        if alloc_b is not None or contention is not None:
+            raise ValueError(
+                "alloc_b/contention require machine=; without a Machine the "
+                "ensemble runs in scalar-counter mode and would silently "
+                "ignore them")
+    else:
+        bad = sorted({t for t in total_nodes_b if t != machine.n_nodes})
+        if bad:
+            raise ValueError(f"machine has {machine.n_nodes} nodes but "
+                             f"total_nodes_b contains {bad}")
+        if machine.device != device:
+            machine = machine.to(device)
+        strategies = (_alloc.canonical_id(list(alloc_b)) if alloc_b is not None
+                      else [_alloc.SIMPLE] * B)
+        cons = contention if isinstance(contention, list) else [contention] * B
+        contentions = [_alloc.Contention.canonical(c) for c in cons]
+        if len(strategies) != B or len(contentions) != B:
+            raise ValueError(f"{len(strategies)} strategies and "
+                             f"{len(contentions)} contention models for {B} "
+                             "members")
+    return engine.simulate_batch(jobs_b, list(policies_b), total_nodes_b,
+                                 machine=machine, alloc_b=strategies,
+                                 contention_b=contentions,
                                  max_events=max_events)
+
+
+def simulate_alloc_sweep(jobs: JobSet, policy, total_nodes: int, machine,
+                         strategies=("simple", "contiguous", "spread",
+                                     "topo"), *,
+                         contention=None, mesh=None,
+                         max_events: Optional[int] = None,
+                         device=None) -> SimResult:
+    """Run ONE trace under every allocation strategy as one ensemble.
+
+    ``sweep(scenario, axes={"alloc": strategies})`` is the general form and
+    gives the same members.  Returns a ``SimResult`` with a leading dim of
+    ``len(strategies)``, in the order given."""
+    B = len(strategies)
+    return simulate_ensemble(
+        stack_jobsets([jobs] * B), [int(engine.policies_id(policy))] * B,
+        [int(total_nodes)] * B, machine=machine,
+        alloc_b=_alloc.canonical_id(list(strategies)),
+        contention=contention, mesh=mesh, max_events=max_events,
+        device=device)

@@ -72,6 +72,13 @@ def backfill_shadow(jobs: JobSet, state: SimState,
                        state.clock, state.free, head_need)
 
 
+def placeable(st) -> int:
+    """The largest job a selection may start now (the reference's
+    ``placeable_cap``): the largest free run when the state tracks it
+    (``contiguous``), else the free counter."""
+    return st.free if st.lfb is None else st.lfb
+
+
 def walk_request(st, head_need: int, redo: bool = False) -> tuple:
     return (WALK, ref.params(clock=st.clock, free=st.free,
                              head_need=head_need), redo)
@@ -170,8 +177,8 @@ def drive(gen, respond):
 def select(policy: int, jobs: JobSet, state: SimState,
            cap: int | None = None) -> int:
     """Dispatch on the policy id, clamped to the table as in the reference;
-    ``cap`` defaults to the free counter."""
-    cap = state.free if cap is None else cap
+    ``cap`` defaults to the state's placeable size (:func:`placeable`)."""
+    cap = placeable(state) if cap is None else cap
     gen = SELECTORS[min(max(int(policy), 0), len(SELECTORS) - 1)](
         jobs.host, state, cap)
     return drive(gen, lambda req: answer(jobs, state, req))

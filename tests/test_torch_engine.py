@@ -175,12 +175,34 @@ def test_run_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("topology", object()), ("alloc", "topo"), ("failures", object()),
-    ("malleable", object()), ("multicluster", object())])
+    ("failures", object()), ("malleable", object()),
+    ("multicluster", object())])
 def test_unported_features_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rt.Scenario(trace=rt.SyntheticTrace(n_jobs=5), total_nodes=8,
                     **{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("topology", rt.Topology.linear(8, group_size=4)), ("alloc", "topo")])
+def test_allocation_fields_run(field, value):
+    """``topology`` and ``alloc``, refused before the allocation slice, now
+    run and equal the JAX engine (``alloc`` needs a topology)."""
+    kw = {field: value}
+    if field == "alloc":
+        kw["topology"] = rt.Topology.linear(8, group_size=4)
+    jax_kw = {k: (api.Topology(v.kind, v.shape)
+                  if isinstance(v, rt.Topology) else v)
+              for k, v in kw.items()}
+    port = rt.run(rt.Scenario(trace=rt.SyntheticTrace(n_jobs=30, seed=2),
+                              total_nodes=8, policy="backfill", **kw),
+                  device="cpu")
+    ref = api.run(api.Scenario(trace=api.SyntheticTrace(n_jobs=30, seed=2),
+                               total_nodes=8, policy="backfill", **jax_kw))
+    a, b = port.to_np(), ref.to_np()
+    assert set(a) == set(b) and "ev_lfb" in a
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_dependencies_raise():

@@ -109,16 +109,48 @@ def test_ensemble_counts_walks_per_event():
     assert engine.counters["max_walks_per_event"] == 1
 
 
-@pytest.mark.parametrize("arg", ("machine", "alloc_b", "contention",
-                                 "failures_b", "mesh"))
+@pytest.mark.parametrize("arg", ("failures_b", "mesh"))
 def test_unported_arguments_raise(arg):
     jobs = stack_jobsets([build_jobset(
         rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10), total_nodes=8),
         device="cpu")])
-    item = {"machine": "item 2", "alloc_b": "item 2", "contention": "item 2",
-            "failures_b": "item 5", "mesh": "item 12"}[arg]
+    item = {"failures_b": "item 5", "mesh": "item 12"}[arg]
     with pytest.raises(NotImplementedError, match=item):
         simulate_ensemble(jobs, ["fcfs"], [8], device="cpu", **{arg: object()})
+
+
+@pytest.mark.parametrize("arg", ("machine", "alloc_b", "contention"))
+def test_allocation_arguments_run(arg):
+    """``machine``, ``alloc_b`` and ``contention``, refused before the
+    allocation slice, now run: each member equals its JAX run, and the last
+    two still need a machine."""
+    scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=40, seed=1),
+                      total_nodes=8, policy="bestfit")
+    jobs = stack_jobsets([build_jobset(scn, device="cpu")] * 2)
+    topo = rt.Topology.dragonfly(2, 4)
+    kw = {"machine": topo.build("cpu")}
+    if arg == "alloc_b":
+        kw["alloc_b"] = ["topo", "contiguous"]
+        with pytest.raises(ValueError, match="require machine"):
+            simulate_ensemble(jobs, ["bestfit"] * 2, [8, 8], device="cpu",
+                              alloc_b=kw["alloc_b"])
+    if arg == "contention":
+        kw["contention"] = (1, 5)
+        with pytest.raises(ValueError, match="require machine"):
+            simulate_ensemble(jobs, ["bestfit"] * 2, [8, 8], device="cpu",
+                              contention=(1, 5))
+    res = simulate_ensemble(jobs, ["bestfit"] * 2, [8, 8], device="cpu", **kw)
+    allocs = kw.get("alloc_b", ["simple", "simple"])
+    for b, alloc in enumerate(allocs):
+        want = api.run(api.Scenario(
+            trace=api.SyntheticTrace(n_jobs=40, seed=1), policy="bestfit",
+            topology=api.Topology(topo.kind, topo.shape), alloc=alloc,
+            contention=kw.get("contention"))).to_np()
+        got = res.member(b)
+        for k in ("start", "finish", "alloc_first", "alloc_span",
+                  "alloc_sum"):
+            np.testing.assert_array_equal(getattr(got, k).numpy(), want[k],
+                                          err_msg=k)
 
 
 def test_stack_jobsets_checks_its_members():

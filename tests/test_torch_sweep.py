@@ -196,8 +196,15 @@ def test_unported_sweep_arguments_raise():
     scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10), total_nodes=8)
     with pytest.raises(NotImplementedError, match="item 12"):
         rt.sweep(scn, axes={"policy": ("fcfs",)}, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(NotImplementedError, match="item 5"):
+        rt.sweep(scn, axes={"failures": (object(),)}, device="cpu")
+    # the alloc axis, refused before the allocation slice, runs with a
+    # topology and is still refused without one, as in the reference
+    with pytest.raises(ValueError, match="require topology"):
         rt.sweep(scn, axes={"alloc": ("simple", "topo")}, device="cpu")
+    grid = rt.sweep(scn.with_(topology=rt.Topology.linear(8)),
+                    axes={"alloc": ("simple", "topo")}, device="cpu")
+    assert grid.n_compiles == 1 and "alloc_sum" in grid[1].to_np()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             rt.sweep(scn, axes={"policy": ("fcfs",)})
