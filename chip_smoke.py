@@ -70,7 +70,9 @@ Phases, each printing one JSON line with its wall time:
              finish, alloc_first, alloc_span, alloc_sum and the ev_lfb log
              (tests/data/torch_alloc_golden.json): Fig. alloc's grid
              (SDSC-SP2-like seed 1 on dragonfly(16, 8), backfill x simple,
-             contiguous, spread, topo x contention off and (1, 5)); the
+             contiguous, spread, topo, contention off; the runs with
+             contention (1, 5) meet theirs in phase 6e, cut to fit the DAG
+             phases); the
              per-start loop on DAS-2's 400 nodes as mesh2d(20, 20)
              (fcfs/topo, sjf/spread, bestfit/contiguous); preempt under
              contiguous on the SDSC-SP2 machine, which reaches the
@@ -83,8 +85,38 @@ Phases, each printing one JSON line with its wall time:
              every backfill run.
 6e. alloc_sweep - Fig. alloc's grid through sweep: one bucket of 8
              members in lockstep, each held to its solo run's digests;
-             n_compiles, events/s against phase 6d's eight solo runs,
-             batched launches and member-selections a launch.
+             n_compiles, events/s against phase 6d's four solo runs of
+             the grid, batched launches and member-selections a launch.
+6f. dag    - a workflow DAG on the cluster: galactic_like(256, 12, seed=0),
+             10,497 tasks and 18,944 edges, the six policies in scalar mode
+             on 128 nodes (preempt over critical-path priorities), then
+             backfill/topo, fcfs/contiguous and sjf/simple on
+             dragonfly(16, 8) with contention (1, 5); each run held to the
+             JAX engine's n_events, makespan and digests of start, finish
+             and ready (on the machine also the fingerprints and ev_lfb;
+             tests/data/torch_dag_golden.json).  Per run events/s, jobs/s,
+             jobs an event, selections, walks and launches an event;
+             beside them phase 4's scalar sdsc fcfs run of this call.
+             FCFS, SJF and LJF under the free counter's cap take the
+             prefix pass and must make no selection; every other run must
+             launch queue_select.
+6g. dag_sweep - fig_workflow_cluster.py's grid at that scale through
+             sweep: fcfs, sjf, backfill, bestfit x simple, contiguous,
+             topo on dragonfly(16, 8) with contention (1, 5), one bucket
+             of 12 members, each held to its digests
+             (tests/data/torch_dag_sweep_golden.json); events/s against
+             the twelve solo runs.  Then a seed axis with ragged edge
+             lists (a random layered DAG of 10,497 tasks, seeds 0-3, fcfs
+             and backfill, 128 nodes) in one bucket, each member equal to
+             its solo run.
+6h. workflow - the standalone pool engine: Figs. 6 and 7's 24 runs
+             (galactic_like tiles 2-64 on [64, 1 << 20], sipht_like widths
+             10-60 on [8, 8192], fcfs, fcfs_fit, cpath), each held to the
+             JAX pool engine's digests (tests/data/
+             torch_workflow_golden.json), then galactic_like(256, 12)
+             under fcfs_fit, checked by invariants (every task done, no
+             start before a dependency's finish, no pool exceeded); tasks/s
+             and queue_select launches a task, which must be > 0.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
              128 and the serve shape, f32 (the CUDA-core kernel) and bf16
@@ -138,8 +170,8 @@ Phases, each printing one JSON line with its wall time:
              phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4, 5 and 6d for queue_select and its walk, phases 6b, 6c and 6e
-for their batched entries, the serve of phase 9 for flash_attention,
+(phases 4, 5, 6d, 6f and 6h for queue_select and its walk, phases 6b,
+6c, 6e and 6g for their batched entries, the serve of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  TF32 is off for matrix products and
 convolutions throughout.  The script catches nothing: any failed check
@@ -168,6 +200,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 ALLOC_GOLDEN = ROOT / "tests" / "data" / "torch_alloc_golden.json"
 LM_GOLDEN = ROOT / "tests" / "data" / "torch_lm_golden.json"
+DAG_GOLDEN = ROOT / "tests" / "data" / "torch_dag_golden.json"
+DAG_SWEEP_GOLDEN = ROOT / "tests" / "data" / "torch_dag_sweep_golden.json"
+WORKFLOW_GOLDEN = ROOT / "tests" / "data" / "torch_workflow_golden.json"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
@@ -191,7 +226,21 @@ SWEEP_SOLO_POLICIES = ("backfill", "preempt")   # cut to fit the alloc phases
 ENSEMBLE_B = 8                   # ensemble phase: das2 trace seeds 0-7
 ALLOCS = ("simple", "contiguous", "spread", "topo")
 CONTENTIONS = (None, (1, 5))     # fig_alloc's two contention settings
+# phase 6d runs Fig. alloc's grid solo at this contention only; the runs
+# with contention (1, 5) meet their digests as members of phase 6e's sweep
+# (cut to fit the DAG phases)
+ALLOC_SOLO_CONTENTION = None
 ALLOC_DIGESTS = ("start", "finish", "alloc_first", "alloc_span", "alloc_sum")
+# dag_sweep phase: fig_workflow_cluster.py's grid, then a seed axis of a
+# random layered DAG of the Galactic Plane run's task count (galactic_like's
+# edge count is fixed by tiles and width, so its seeds are not ragged)
+DAG_POLICIES = ("fcfs", "sjf", "backfill", "bestfit")
+DAG_ALLOCS = ("simple", "contiguous", "topo")
+DAG_SEEDS = (0, 1, 2, 3)
+DAG_SEED_PARAMS = (("n_tasks", 10_497), ("n_layers", 64), ("p_edge", 0.0002))
+DAG_SEED_POLICIES = ("backfill",)
+# workflow phase: Fig. 6's largest DAG, checked by invariants only
+WORKFLOW_BIG = (256, "fcfs_fit")
 # flash_attention grid: (B, Sq, Sk, H, KV, hd), the CPU sweep's shapes
 # plus the models' head dims and the serve shape
 FLASH_SHAPES = [
@@ -565,9 +614,10 @@ def one_walk(scn) -> bool:
                                          in (None, "simple", "spread"))
 
 
-def run_counted(rt, ops, scn):
+def run_counted(rt, ops, scn, selects: bool = True):
     """One engine run on cuda with the kernels' launch counts around it:
-    ``(result, wall seconds, counts)``."""
+    ``(result, wall seconds, counts)``.  ``selects=False``: a run whose
+    pass makes no selection (the prefix pass), which must launch none."""
     import torch
     from repro_torch.core import engine
     ops.reset_launches()
@@ -583,8 +633,12 @@ def run_counted(rt, ops, scn):
               "redo_walks": engine.counters["redo"],
               "max_walks_per_event": engine.counters["max_walks_per_event"],
               "cap_reads": engine.counters["cap_reads"]}
-    check(counts["launches"] > 0,
-          f"{scn.policy} run launched no queue_select kernel")
+    if selects:
+        check(counts["launches"] > 0,
+              f"{scn.policy} run launched no queue_select kernel")
+    else:
+        check(counts["launches"] == 0, f"{scn.policy} prefix-pass run made "
+              f"{counts['launches']} selections")
     if scn.policy == "backfill":
         check(counts["walk_launches"] > 0,
               "backfill run launched no shadow-walk kernel")
@@ -999,8 +1053,9 @@ def check_alloc_golden(out, e, what: str = "") -> None:
 def phase_alloc(torch, rt, ops, golden_runs=None):
     """Topology-aware allocation at full size, each run held to its JAX
     digests: Fig. alloc's grid (SDSC-SP2-like seed 1, 10,000 jobs, on
-    dragonfly(16, 8), backfill x the four strategies x contention off and
-    (1, 5)); the per-start loop on DAS-2's 400 nodes as mesh2d(20, 20)
+    dragonfly(16, 8), backfill x the four strategies at
+    ``ALLOC_SOLO_CONTENTION``; the rest of the grid meets its digests in
+    phase alloc_sweep); the per-start loop on DAS-2's 400 nodes as mesh2d(20, 20)
     (fcfs/topo, sjf/spread, bestfit/contiguous); preempt/contiguous on the
     SDSC-SP2 machine, which reaches contiguous's fallback.  First, phase
     4's scalar-mode SDSC-SP2 backfill run of this call (``golden_runs``;
@@ -1028,6 +1083,9 @@ def phase_alloc(torch, rt, ops, golden_runs=None):
     solo = {}
     for e in json.loads(ALLOC_GOLDEN.read_text())["runs"]:
         scn = alloc_scenario(rt, e)
+        if (e["kind"], e["policy"]) == ("sdsc_sp2", "backfill") and (
+                scn.contention != ALLOC_SOLO_CONTENTION):
+            continue
         out, wall, counts = run_counted(rt, ops, scn)
         check_alloc_golden(out, e)
         launches += counts["launches"]
@@ -1065,8 +1123,9 @@ def phase_alloc(torch, rt, ops, golden_runs=None):
 def phase_alloc_sweep(torch, rt, ops, solo):
     """Fig. alloc's grid through ``sweep``: the four strategies x the two
     contention settings as one bucket of 8 members in lockstep, each held
-    to its solo run's JAX digests; events/s against the eight solo runs of
-    phase alloc (``solo``, when it ran in this call)."""
+    to its solo run's JAX digests; events/s against those of the grid's
+    solo runs in phase alloc (``solo``, when it ran in this call: the four
+    at ``ALLOC_SOLO_CONTENTION``)."""
     t0 = time.time()
     golden = alloc_golden()
     e = golden[("sdsc_sp2", "backfill", "simple", None)]
@@ -1078,18 +1137,267 @@ def phase_alloc_sweep(torch, rt, ops, solo):
     keys = [alloc_key(r.scenario) for r in grid.results]
     for k, out in zip(keys, outs):
         check_alloc_golden(out, golden[k], "alloc sweep ")
-    timed = solo is not None and all(k in solo for k in keys)
-    solo_s = (sum(solo[k][1] for k in keys) if timed else "not measured")
+    timed = [k for k in keys if solo is not None and k in solo]
+    solo_eps = (sum(solo[k][0] for k in timed) / sum(solo[k][1]
+                                                     for k in timed)
+                if timed else "not measured")
     ops.reset_launches()
     emit("alloc_sweep", t0, grid="sdsc_sp2 seed 1, 10,000 jobs, "
          "dragonfly(16, 8), backfill: alloc x contention",
          n_compiles=grid.n_compiles, members=len(grid), run_seconds=wall,
-         **counts, solo_seconds=solo_s,
-         solo_events_per_s=(counts["events"] / solo_s if timed
-                            else "not measured"),
-         batch_over_solo=solo_s / wall if timed else "not measured",
+         **counts, solo_runs=len(timed), solo_events_per_s=solo_eps,
+         batch_over_solo_rate=(counts["events_per_s"] / solo_eps if timed
+                               else "not measured"),
          matches_jax=True)
     return counts
+
+
+def dag_scenario(rt, e):
+    """The scenario of an entry of tests/data/torch_dag_golden.json."""
+    dag = e["dag"]
+    trace = rt.WorkflowTrace(
+        kind=dag["kind"], seed=dag["seed"], priority=e["priority"],
+        params=(("tiles", dag["tiles"]), ("width", dag["width"])))
+    if e["topology"] is None:
+        return rt.Scenario(trace=trace, total_nodes=e["total_nodes"],
+                           policy=e["policy"])
+    return rt.Scenario(trace=trace, policy=e["policy"], alloc=e["alloc"],
+                       topology=rt.Topology(e["topology"][0],
+                                            tuple(e["topology"][1])),
+                       contention=tuple(e["contention"]))
+
+
+def dag_key(scn) -> tuple:
+    """(policy, topology kind, alloc, contention) of a DAG scenario."""
+    return (scn.policy, None if scn.topology is None else scn.topology.kind,
+            scn.alloc, None if scn.contention is None
+            else tuple(scn.contention))
+
+
+def prefix_pass(scn) -> bool:
+    """Whether a run on a table with edges takes the blocking prefix pass,
+    which makes no selection: FCFS, SJF and LJF in scalar mode and under
+    the count-capped strategies."""
+    return scn.policy in ("fcfs", "sjf", "ljf") and (
+        scn.topology is None or scn.alloc in (None, "simple", "spread"))
+
+
+def check_dag_golden(out, e, what: str = "") -> None:
+    """A DAG run's n_events, makespan and digests (start, finish, ready;
+    on a machine the allocation fingerprints and the ev_lfb log) against
+    the JAX engine's."""
+    v = out["valid"]
+    got = {"n_events": out["n_events"], "makespan": out["makespan"]}
+    got.update({k: digest(out[k[:-len("_sha256")]][v]) for k in e
+                if k.endswith("_sha256") and k != "ev_lfb_sha256"})
+    if "ev_lfb_sha256" in e:
+        got["ev_lfb_sha256"] = digest(out["ev_lfb"])
+    check(int(v.sum()) == e["n_jobs"], f"{what}{e['n_jobs']} jobs expected")
+    for k, want in got.items():
+        check(want == e[k], f"{what}{e['policy']}/{e['alloc']}/"
+              f"{e['contention']}: {k} {want} != golden {e[k]}")
+
+
+def dag_run(rt, ops, e, what: str = ""):
+    """One DAG run on cuda held to its golden entry ``e``: ``(result, wall
+    seconds, counts)`` with the per-run rates."""
+    scn = dag_scenario(rt, e)
+    out, wall, counts = run_counted(rt, ops, scn,
+                                    selects=not prefix_pass(scn))
+    check_dag_golden(out, e, what)
+    check(bool(out["done"][out["valid"]].all()), f"{what}unfinished jobs")
+    n_jobs = int(out["valid"].sum())
+    counts.update(events_per_s=out["n_events"] / wall,
+                  jobs_per_s=n_jobs / wall,
+                  jobs_per_event=n_jobs / out["n_events"])
+    return scn, out, wall, counts
+
+
+def phase_dag(rt, ops, golden_runs=None):
+    """Galactic Plane (10,497 tasks, 18,944 edges) on the cluster, solo:
+    the six policies in scalar mode on 128 nodes (preempt over
+    critical-path priorities), then backfill/topo, fcfs/contiguous and
+    sjf/simple on dragonfly(16, 8) with contention (1, 5); each held to its
+    JAX digests.  Scalar FCFS, SJF and LJF take the prefix pass and make no
+    selection; the others must launch queue_select.  Beside them, phase
+    4's scalar SDSC-SP2 fcfs run of this call (``golden_runs``), when it
+    ran."""
+    t0 = time.time()
+    launches = walks = 0
+    solo = {}
+    for e in json.loads(DAG_GOLDEN.read_text())["runs"]:
+        scn, out, wall, counts = dag_run(rt, ops, e)
+        launches += counts["launches"]
+        walks += counts["walk_launches"]
+        solo[dag_key(scn)] = (out["n_events"], wall)
+        emit("dag", t0, dag="galactic_like(256, 12, seed=0)",
+             policy=e["policy"], priority=e["priority"],
+             topology=e["topology"], alloc=e["alloc"],
+             contention=e["contention"], n_jobs=e["n_jobs"],
+             n_edges=e["n_edges"], n_events=out["n_events"],
+             makespan=out["makespan"], run_seconds=wall,
+             scheduling_pass=("prefix" if prefix_pass(scn) else
+                              "batched" if one_walk(scn) else
+                              "per-start loop"),
+             **counts, matches_jax=True)
+    if golden_runs is not None:
+        n_events, wall, _ = golden_runs[("sdsc_sp2", "fcfs")]
+        emit("dag", t0, run="phase 4's scalar sdsc_sp2 fcfs of this call",
+             n_jobs=10_000, n_events=n_events, run_seconds=wall,
+             events_per_s=n_events / wall, jobs_per_s=10_000 / wall,
+             jobs_per_event=10_000 / n_events)
+    return {"launches": launches, "walk_launches": walks, "solo": solo}
+
+
+def phase_dag_sweep(torch, rt, ops, solo=None):
+    """fig_workflow_cluster.py's grid at full scale through ``sweep``: the
+    Galactic Plane DAG on dragonfly(16, 8) with contention (1, 5), fcfs,
+    sjf, backfill, bestfit x simple, contiguous, topo, one bucket of 12
+    members, each held to its solo run's JAX digests; its events/s beside
+    the solo events/s of the three grid members phase dag ran (``solo``,
+    when it ran in this call).  Then a seed axis over a random layered DAG
+    of the same task count (ragged edge lists), backfill in scalar mode,
+    one bucket of 4 members, each equal to its solo run."""
+    import numpy as np
+    t0 = time.time()
+    golden = json.loads(DAG_SWEEP_GOLDEN.read_text())["runs"]
+    base = dag_scenario(rt, golden[0]).with_(alloc=None)
+    grid, outs, wall, counts = run_sweep(
+        torch, rt, ops, base, {"policy": DAG_POLICIES, "alloc": DAG_ALLOCS},
+        "dag sweep")
+    check(grid.n_compiles == 1, f"{grid.n_compiles} buckets, expected 1")
+    for r, out, e in zip(grid.results, outs, golden):
+        check(dag_key(r.scenario) == dag_key(dag_scenario(rt, e)),
+              "dag sweep: grid order differs from the golden file")
+        check_dag_golden(out, e, "dag sweep ")
+    keys = [dag_key(r.scenario) for r in grid.results]
+    timed = [k for k in keys if solo is not None and k in solo]
+    solo_eps = (sum(solo[k][0] for k in timed) / sum(solo[k][1]
+                                                     for k in timed)
+                if timed else "not measured")
+    ops.reset_launches()
+    emit("dag_sweep", t0, grid="galactic_like(256, 12), dragonfly(16, 8), "
+         "contention (1, 5): policy x alloc", n_compiles=grid.n_compiles,
+         members=len(grid), run_seconds=wall, **counts,
+         solo_runs=[list(map(str, k)) for k in timed],
+         solo_events_per_s=solo_eps,
+         batch_over_solo_rate=(counts["events_per_s"] / solo_eps if timed
+                               else "not measured"), matches_jax=True)
+
+    # the seed axis: ragged edge lists in one bucket
+    t1 = time.time()
+    seed_base = rt.Scenario(trace=rt.WorkflowTrace(
+        kind="random", params=DAG_SEED_PARAMS), total_nodes=128)
+    grid2, outs2, wall2, counts2 = run_sweep(
+        torch, rt, ops, seed_base, {"trace.seed": DAG_SEEDS,
+                                    "policy": DAG_SEED_POLICIES},
+        "dag seed sweep")
+    check(grid2.n_compiles == 1, f"{grid2.n_compiles} buckets, expected 1")
+    edges = [len(r.scenario.trace.materialize()["deps"])
+             for r in grid2.results]
+    check(len(set(edges)) > 1, f"seed axis edge counts {edges} not ragged")
+    serial_s = 0.0
+    for r, out in zip(grid2.results, outs2):
+        t = time.time()
+        one = rt.run(r.scenario).to_np()
+        torch.cuda.synchronize()
+        serial_s += time.time() - t
+        check_same(out, one, f"dag seed sweep {r.scenario.policy}")
+        check(bool(np.array_equal(out["ready"], one["ready"])),
+              "dag seed sweep: ready differs from the solo run")
+    ops.reset_launches()
+    emit("dag_sweep", t1, grid="random_layered(10,497 tasks, 64 layers, "
+         "p_edge 2e-4), 128 nodes: trace.seed x policy",
+         n_edges=edges, edge_capacity=sorted({-(-n // 64) * 64
+                                              for n in edges}),
+         n_compiles=grid2.n_compiles, members=len(grid2),
+         run_seconds=wall2, **counts2, serial_seconds=serial_s,
+         serial_events_per_s=counts2["events"] / serial_s,
+         batch_over_serial=serial_s / wall2, matches_solo=True)
+    return counts, counts2
+
+
+def workflow_invariants(np, wf, out, pools) -> int:
+    """Every task done, no start before a dependency's finish, no resource
+    over its pool at any instant (releases before starts at one time);
+    returns the number of events checked."""
+    v = out["valid"]
+    check(bool(out["done"][v].all()), "workflow: a task is not done")
+    t, d = (np.asarray(a) for a in zip(*wf["dep_pairs"]))
+    check(bool((out["start"][t] >= out["finish"][d]).all()),
+          "workflow: a task started before a dependency finished")
+    st = out["start"][v].astype(np.int64)
+    fin = out["finish"][v].astype(np.int64)
+    res = np.asarray(wf["resources"], dtype=np.int64)
+    times = np.concatenate([fin, st])
+    delta = np.concatenate([-res, res])
+    order = np.lexsort((np.concatenate([np.zeros_like(fin),
+                                        np.ones_like(st)]), times))
+    used = np.cumsum(delta[order], axis=0)
+    check(bool((used <= np.asarray(pools)).all()),
+          f"workflow: a pool was exceeded: {used.max(axis=0)}")
+    return len(np.unique(times))
+
+
+def phase_workflow(torch, np, rt, ops):
+    """The standalone pool engine: Figs. 6 and 7's 24 runs (galactic_like
+    tiles 2-64 on [64, 1 << 20], sipht_like widths 10-60 on [8, 8192],
+    fcfs, fcfs_fit and cpath), each held to the JAX pool engine's digests,
+    then galactic_like(256, 12, seed=256) under fcfs_fit, checked by
+    invariants.  Every run must launch queue_select."""
+    from repro_torch.traces import workflows as W
+    t0 = time.time()
+    launches = 0
+
+    def one(wf, pools, policy):
+        prio = (rt.critical_path_length(wf["exec_time"], wf["dep_pairs"])
+                if policy == "cpath" else None)
+        ts = rt.make_taskset(wf["exec_time"], wf["resources"],
+                             wf["dep_pairs"], priority=prio, device="cuda")
+        ops.reset_launches()
+        t = time.time()
+        out = rt.workflow_result_np(ts, rt.simulate_workflow(
+            ts, np.asarray(pools), rt.WF_POLICY_IDS[policy]))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        n = ops.queue_select.launches
+        check(n > 0, f"workflow {policy}: no queue_select launch")
+        return out, wall, n
+
+    for e in json.loads(WORKFLOW_GOLDEN.read_text())["runs"]:
+        wf = (W.galactic_like(e["size"], 12, seed=e["size"])
+              if e["kind"] == "galactic"
+              else W.sipht_like(e["size"], seed=e["size"]))
+        out, wall, n = one(wf, e["pools"], e["policy"])
+        launches += n
+        v = out["valid"]
+        got = {"n_events": out["n_events"], "makespan": out["makespan"],
+               "done": bool(out["done"][v].all())}
+        got.update({f"{k}_sha256": digest(out[k][v])
+                    for k in ("start", "finish", "ready")})
+        for k, want in got.items():
+            check(want == e[k], f"workflow {e['kind']}/{e['size']}/"
+                  f"{e['policy']}: {k} {want} != golden {e[k]}")
+        emit("workflow", t0, kind=e["kind"], size=e["size"],
+             pools=e["pools"], policy=e["policy"], n_tasks=e["n_tasks"],
+             n_events=out["n_events"], makespan=out["makespan"],
+             run_seconds=wall, tasks_per_s=e["n_tasks"] / wall,
+             launches=n, launches_per_task=n / e["n_tasks"],
+             matches_jax=True)
+    tiles, policy = WORKFLOW_BIG
+    wf = W.galactic_like(tiles, 12, seed=tiles)
+    pools = [64, 1 << 20]
+    out, wall, n = one(wf, pools, policy)
+    launches += n
+    checked = workflow_invariants(np, wf, out, pools)
+    n_tasks = int(out["valid"].sum())
+    emit("workflow", t0, kind="galactic", size=tiles, pools=pools,
+         policy=policy, n_tasks=n_tasks, n_edges=len(wf["dep_pairs"]),
+         n_events=out["n_events"], makespan=out["makespan"],
+         run_seconds=wall, tasks_per_s=n_tasks / wall, launches=n,
+         launches_per_task=n / n_tasks, instants_checked=checked,
+         invariants_hold=True)
+    return launches
 
 
 def flash_check(torch, ops, ref, q, k, v, causal, window, tol) -> float:
@@ -1604,8 +1912,9 @@ def phase_rwkv_serve(torch, np):
 
 
 PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
-          "sweep", "ensemble", "alloc", "alloc_sweep", "flash", "lm_golden",
-          "serve", "linattn", "rwkv_golden", "rwkv_serve")
+          "sweep", "ensemble", "alloc", "alloc_sweep", "dag", "dag_sweep",
+          "workflow", "flash", "lm_golden", "serve", "linattn",
+          "rwkv_golden", "rwkv_serve")
 
 
 def main(argv=None) -> int:
@@ -1621,8 +1930,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not ((ROOT / "src" / "repro_torch").is_dir() and GOLDEN.exists()
-            and LM_GOLDEN.exists() and ALLOC_GOLDEN.exists()):
+    if not ((ROOT / "src" / "repro_torch").is_dir() and all(
+            g.exists() for g in (GOLDEN, LM_GOLDEN, ALLOC_GOLDEN, DAG_GOLDEN,
+                                 DAG_SWEEP_GOLDEN, WORKFLOW_GOLDEN))):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 1
@@ -1669,6 +1979,11 @@ def main(argv=None) -> int:
             torch, rt, ops, out["golden"][2] if "golden" in out else None),
         "alloc_sweep": lambda: phase_alloc_sweep(
             torch, rt, ops, out["alloc"]["solo"] if "alloc" in out else None),
+        "dag": lambda: phase_dag(
+            rt, ops, out["golden"][2] if "golden" in out else None),
+        "dag_sweep": lambda: phase_dag_sweep(
+            torch, rt, ops, out["dag"]["solo"] if "dag" in out else None),
+        "workflow": lambda: phase_workflow(torch, np, rt, ops),
         "flash": lambda: phase_flash(torch, np),
         "lm_golden": lambda: phase_lm_golden(torch, np),
         "serve": lambda: phase_serve(torch, np),
@@ -1686,13 +2001,15 @@ def main(argv=None) -> int:
 
     max_err, timing = out["kernel"]
     fused_err, modes, walk = out["fused"]
-    alloc = out["alloc"]
-    launches = out["golden"][0] + out["archive"][0] + alloc["launches"]
+    alloc, dag = out["alloc"], out["dag"]
+    launches = (out["golden"][0] + out["archive"][0] + alloc["launches"]
+                + dag["launches"] + out["workflow"])
     walk_launches = (out["golden"][1] + out["archive"][1]
-                     + alloc["walk_launches"])
+                     + alloc["walk_launches"] + dag["walk_launches"])
     cand = modes["backfill_cand"]
     batch_err, batch_timing = out["batched"]
-    batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"]]
+    batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"],
+                  *out["dag_sweep"]]
     batch_launches = sum(c["batch_launches"] for c in batch_runs)
     batch_selections = sum(c["batch_selections"] for c in batch_runs)
     walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
@@ -1725,6 +2042,16 @@ def main(argv=None) -> int:
             "batch_launches": out["alloc_sweep"]["batch_launches"],
             "batch_selections": out["alloc_sweep"]["batch_selections"],
             "walk_batch_launches": out["alloc_sweep"]["walk_batch_launches"]},
+        "dag_mode": {
+            "launches": dag["launches"],
+            "walk_launches": dag["walk_launches"],
+            "workflow_launches": out["workflow"],
+            "batch_launches": sum(c["batch_launches"]
+                                  for c in out["dag_sweep"]),
+            "batch_selections": sum(c["batch_selections"]
+                                    for c in out["dag_sweep"]),
+            "walk_batch_launches": sum(c["walk_batch_launches"]
+                                       for c in out["dag_sweep"])},
         "modes": modes,
         "generic": {"ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
                     "bound_ms": timing["bound_ms"], "bound_by": "bytes",

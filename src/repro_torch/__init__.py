@@ -4,9 +4,12 @@ The JAX package ``repro`` is the reference; this package imports nothing of
 it.  It carries the single-cluster engine with the six policies (fcfs, sjf,
 ljf, bestfit, backfill, preempt), in scalar-counter mode or on a machine
 (``Topology``: linear, mesh2d, dragonfly) under four placement strategies
-(simple, contiguous, spread, topo) with an optional contention model, whose
-every selection runs the ``queue_select`` CUDA kernel on a CUDA device, and
-the dense-family LM serving path (``repro_torch.launch.serve``), whose prefill
+(simple, contiguous, spread, topo) with an optional contention model, on
+job tables with or without workflow dependencies (``WorkflowTrace``), whose
+every selection runs the ``queue_select`` CUDA kernel on a CUDA device; the
+standalone multi-resource workflow engine (``simulate_workflow``, paper
+§3), whose selections run the same kernel; and the dense-family LM serving
+path (``repro_torch.launch.serve``), whose prefill
 runs the ``flash_attention`` CUDA kernel in every layer:
 
     import repro_torch as rt
@@ -20,6 +23,10 @@ runs the ``flash_attention`` CUDA kernel in every layer:
     topo = scn.with_(total_nodes=None, topology=rt.Topology.dragonfly(16, 8))
     grid = rt.sweep(topo, axes={"alloc": ("simple", "topo"),
                                 "contention": (None, (1, 5))})
+    dag = rt.Scenario(trace=rt.WorkflowTrace(kind="galactic",
+                                             params=(("tiles", 4),)),
+                      total_nodes=128, policy="fcfs")
+    rt.run(dag)["ready"]     # max(submit, last dependency's finish)
 
 A sweep runs each static bucket of its grid as one ensemble
 (``simulate_ensemble``), whose members advance in lockstep and share each
@@ -27,13 +34,17 @@ batched launch of the ``queue_select`` kernel.
 """
 
 from repro_torch.api import (
-    ArrayTrace, Result, Scenario, SwfTrace, SweepCacheStats, SweepResult,
-    SyntheticTrace, Topology, cache_stats, reset_cache_stats, run,
-    simulate_alloc_sweep, simulate_ensemble, stack_jobsets, sweep,
+    WF_POLICY_IDS, ArrayTrace, Result, Scenario, SwfTrace, SweepCacheStats,
+    SweepResult, SyntheticTrace, Topology, WorkflowTrace, cache_stats,
+    critical_path_length, make_taskset, reset_cache_stats, run,
+    simulate_alloc_sweep, simulate_ensemble, simulate_workflow,
+    stack_jobsets, sweep, workflow_result_np,
 )
 from repro_torch.core.engine import simulate
 
 __all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SweepCacheStats",
-           "SweepResult", "SyntheticTrace", "Topology", "cache_stats",
-           "reset_cache_stats", "run", "simulate", "simulate_alloc_sweep",
-           "simulate_ensemble", "stack_jobsets", "sweep"]
+           "SweepResult", "SyntheticTrace", "Topology", "WF_POLICY_IDS",
+           "WorkflowTrace", "cache_stats", "critical_path_length",
+           "make_taskset", "reset_cache_stats", "run", "simulate",
+           "simulate_alloc_sweep", "simulate_ensemble", "simulate_workflow",
+           "stack_jobsets", "sweep", "workflow_result_np"]

@@ -1,9 +1,11 @@
-"""Scenario specs, ``run()``, ``sweep()`` and ``Result`` of the PyTorch port."""
+"""Scenario specs, ``run()``, ``sweep()`` and ``Result`` of the PyTorch port,
+and the standalone workflow engine's entry points."""
 
 from repro_torch.api.result import Result, simresult_to_np
 from repro_torch.api.run import build_jobset, build_machine, run
 from repro_torch.api.scenario import (
-    ArrayTrace, Scenario, SwfTrace, SyntheticTrace, Topology, as_trace_spec,
+    ArrayTrace, Scenario, SwfTrace, SyntheticTrace, Topology, WorkflowTrace,
+    as_trace_spec,
 )
 from repro_torch.api.sweep import (
     SweepCacheStats, SweepResult, cache_stats, reset_cache_stats, sweep,
@@ -11,10 +13,15 @@ from repro_torch.api.sweep import (
 from repro_torch.core.parallel import (
     simulate_alloc_sweep, simulate_ensemble, stack_jobsets,
 )
+from repro_torch.core.workflow import (
+    WF_POLICY_IDS, critical_path_length, make_taskset, simulate_workflow,
+    workflow_result_np,
+)
 
 __all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SweepCacheStats",
-           "SweepResult", "SyntheticTrace", "Topology", "as_trace_spec",
-           "build_jobset", "build_machine", "cache_stats",
+           "SweepResult", "SyntheticTrace", "Topology", "WF_POLICY_IDS",
+           "WorkflowTrace", "as_trace_spec", "build_jobset", "build_machine",
+           "cache_stats", "critical_path_length", "make_taskset",
            "reset_cache_stats", "run", "simresult_to_np",
-           "simulate_alloc_sweep", "simulate_ensemble", "stack_jobsets",
-           "sweep"]
+           "simulate_alloc_sweep", "simulate_ensemble", "simulate_workflow",
+           "stack_jobsets", "sweep", "workflow_result_np"]

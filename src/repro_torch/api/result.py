@@ -6,7 +6,9 @@ canonical numpy dict (``submit``, ``nodes``, ``runtime``, ``start``,
 ``valid``, plus ``alloc_first``/``alloc_span``/``alloc_sum`` and the
 ``ev_*`` log cut to ``n_events`` when the scenario has a topology), so the
 two engines' results compare key by key, and ``summary()`` derives the same
-scalar metrics.
+scalar metrics.  ``ready`` is ``max(submit, last dependency's finish)`` and
+``wait`` is ``start - ready``, the paper's Fig. 7 workflow wait (``start -
+submit`` for a job without dependencies).
 """
 
 from __future__ import annotations

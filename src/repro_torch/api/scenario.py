@@ -1,8 +1,8 @@
 """Declarative experiment specs of the PyTorch port.
 
 Counterpart of ``repro.api.scenario`` for the ported slices: a
-:class:`Scenario` names a trace (:class:`SyntheticTrace`, :class:`SwfTrace`
-or :class:`ArrayTrace`), the cluster size, the policy, optionally a machine
+:class:`Scenario` names a trace (:class:`SyntheticTrace`, :class:`SwfTrace`,
+:class:`WorkflowTrace` or :class:`ArrayTrace`), the cluster size, the policy, optionally a machine
 shape (:class:`Topology`) with its placement strategy and contention model,
 the padded table capacity and an event cap.  The same field values describe
 the same run as the reference's ``Scenario``.  Features of the reference
@@ -13,6 +13,7 @@ ROADMAP item that brings them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -20,7 +21,9 @@ import numpy as np
 from repro_torch import alloc as _alloc
 from repro_torch.core.jobs import INF_TIME
 from repro_torch.traces.swf import load_swf
+from repro_torch.traces import workflows as _workflows
 from repro_torch.traces.synthetic import das2_like, sdsc_sp2_like, synthetic_trace
+from repro_torch.traces.workflows import workflow_to_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +104,75 @@ class SwfTrace:
         return None  # unknown until loaded
 
 
+@dataclasses.dataclass(frozen=True)
+class WorkflowTrace:
+    """A workflow DAG scheduled onto the cluster (paper §3, DESIGN.md §13).
+
+    ``kind`` selects the ``repro_torch.traces.workflows`` generator:
+    ``"montage"``, ``"galactic"`` (Galactic Plane: K montage tiles and a
+    merge), ``"sipht"``, ``"chain"``, ``"fork_join"`` or ``"random"`` (a
+    random layered DAG).  ``params`` are generator keyword arguments as
+    (name, value) pairs, e.g. ``(("tiles", 4), ("width", 8))``.  The DAG
+    lowers through ``workflow_to_trace``: tasks become jobs (cpu
+    requirement -> node count), edges become the job table's edge list, and
+    every task shares one ``submit`` time, so release order is driven by
+    the dependencies alone.  The shape (kind, params, submit, priority) is
+    the static key; ``seed`` is data within one sweep bucket, even where it
+    changes the edge count (``stack_jobsets`` pads ragged edge lists).
+    ``priority="cpath"`` attaches critical-path priorities for ``preempt``.
+    """
+
+    kind: str = "montage"
+    seed: int = 0
+    params: Tuple[Tuple[str, Any], ...] = ()
+    submit: int = 0
+    priority: Optional[str] = None
+
+    _GENERATORS = {
+        "montage": _workflows.montage_like,
+        "galactic": _workflows.galactic_like,
+        "sipht": _workflows.sipht_like,
+        "chain": _workflows.chain,
+        "fork_join": _workflows.fork_join,
+        "random": _workflows.random_layered,
+    }
+    _SEEDLESS = frozenset({"chain"})
+
+    def materialize(self) -> Dict[str, np.ndarray]:
+        # a shallow copy of the cached dict: the spec is frozen and
+        # hashable, so a sweep's points and n_rows reuse one DAG
+        return dict(_materialize_workflow(self))
+
+    def static_key(self):
+        """Everything except ``seed``: (kind, params) fix the task count."""
+        return ("workflow", self.kind, self.params, self.submit,
+                self.priority)
+
+    @property
+    def n_rows(self) -> int:
+        return len(self.materialize()["submit"])
+
+
+@functools.lru_cache(maxsize=128)
+def _materialize_workflow(spec: WorkflowTrace) -> Dict[str, np.ndarray]:
+    try:
+        gen = spec._GENERATORS[spec.kind]
+    except KeyError:
+        raise ValueError(
+            f"unknown workflow kind {spec.kind!r}; "
+            f"known: {sorted(spec._GENERATORS)}") from None
+    kwargs = dict(spec.params)
+    if spec.kind not in spec._SEEDLESS:
+        kwargs["seed"] = spec.seed
+    return workflow_to_trace(gen(**kwargs), submit=spec.submit,
+                             priority=spec.priority)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ArrayTrace:
-    """Explicit host arrays.  ``deps`` is accepted so that a workflow table
-    fails loudly: dependency edges are not ported yet.
+    """Explicit host arrays.  ``deps`` (optional ``(job, dependency)``
+    pairs or a dense bool matrix, in input order) makes the jobs a
+    workflow (DESIGN.md §13).
 
     ``eq=False`` keeps the spec hashable by identity: two array traces are
     the same trace for a sweep's buckets and job-table cache only when they
@@ -144,21 +212,21 @@ class ArrayTrace:
         return len(np.asarray(self.submit))
 
 
-TraceSpec = Union[SyntheticTrace, SwfTrace, ArrayTrace]
+TraceSpec = Union[SyntheticTrace, SwfTrace, WorkflowTrace, ArrayTrace]
 
 
 def as_trace_spec(trace) -> TraceSpec:
     """Accept a spec, a plain dict of arrays, or an .swf path string."""
-    if isinstance(trace, (SyntheticTrace, SwfTrace, ArrayTrace)):
+    if isinstance(trace, (SyntheticTrace, SwfTrace, WorkflowTrace, ArrayTrace)):
         return trace
     if isinstance(trace, dict):
         return ArrayTrace.from_dict(trace)
     if isinstance(trace, str):
         return SwfTrace(trace)
     raise NotImplementedError(
-        f"trace {type(trace).__name__} is not ported yet: workflow DAGs are "
-        "ROADMAP Queue 1 item 3, service traces item 5, per-cluster trace "
-        "tuples item 6, injected what-if jobs item 8")
+        f"trace {type(trace).__name__} is not ported yet: service traces "
+        "are ROADMAP Queue 1 item 5, per-cluster trace tuples item 6, "
+        "injected what-if jobs item 8")
 
 
 @dataclasses.dataclass(frozen=True)

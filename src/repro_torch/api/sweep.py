@@ -8,7 +8,9 @@ axes over a base :class:`Scenario`:
 2. points are partitioned into *static buckets*, keyed on what fixes the
    stacked table's shape: the trace's static key (everything but its
    seed), the topology (and ``total_nodes`` with it), ``capacity`` and
-   ``max_events``, as the reference keys them;
+   ``max_events``, as the reference keys them (a workflow DAG's seed axis
+   stays in one bucket even where its edge counts differ:
+   ``stack_jobsets`` pads the edge lists);
 3. within a bucket the remaining axes (``policy``, ``alloc``,
    ``contention``, ``total_nodes`` without a topology, ``trace.seed``) are
    data: the members' job tables are stacked and ONE batched
@@ -194,7 +196,8 @@ def _log_bucket_execution(key: tuple, bucket: List[Scenario],
               if bucket[0].topology is not None else [None])
     sig = (key, _uniform(pols), _uniform(allocs),
            tuple((f, tuple(getattr(jobs_b, f).shape),
-                  str(getattr(jobs_b, f).dtype)) for f in JOB_FIELDS))
+                  str(getattr(jobs_b, f).dtype)) for f in JOB_FIELDS
+                 if getattr(jobs_b, f) is not None))
     if sig in _SEEN_SIGNATURES:
         _CACHE_LOG["hits"] += 1
     else:

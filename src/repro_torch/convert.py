@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import (
-    JOB_FIELDS, STATE_SCALARS, STATE_TENSORS, JobSet, SimState,
+    EDGE_FIELDS, JOB_COLUMNS, STATE_SCALARS, STATE_TENSORS, JobSet, SimState,
     machine_fields,
 )
 from repro_torch.models.lm import LM, param_defs
@@ -34,10 +34,13 @@ def _tensor(a, device, dtype) -> torch.Tensor:
 
 
 def jobset_from_numpy(fields: Dict[str, np.ndarray], device) -> JobSet:
-    """A ``JobSet`` from the six job columns (int32, ``valid`` bool)."""
+    """A ``JobSet`` from the six job columns (int32, ``valid`` bool) and,
+    where ``fields`` has them, the edge list ``dep_dst``/``dep_src``."""
     return JobSet(**{
         f: _tensor(fields[f], device, bool if f == "valid" else np.int32)
-        for f in JOB_FIELDS})
+        for f in JOB_COLUMNS}, **{
+        f: _tensor(fields[f], device, np.int32) for f in EDGE_FIELDS
+        if fields.get(f) is not None})
 
 
 def simstate_from_numpy(fields: Dict[str, np.ndarray], device) -> SimState:
@@ -57,11 +60,13 @@ def _np(v) -> np.ndarray:
 def to_numpy(obj) -> Dict[str, np.ndarray]:
     """Any of the port's dataclasses (``JobSet``, ``SimState``,
     ``SimResult``) as ``{field: np.ndarray}``; scalars become 0-d int32.
-    A ``SimState`` gives its scalar-counter fields."""
+    A ``SimState`` gives its scalar-counter fields; a field that is
+    ``None`` (a table's absent edge list) is left out."""
     if isinstance(obj, SimState):
         return {f: _np(getattr(obj, f))
                 for f in STATE_TENSORS + STATE_SCALARS}
-    return {f.name: _np(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    return {f.name: _np(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None}
 
 
 def lm_params_from_numpy(tree, device) -> LM:

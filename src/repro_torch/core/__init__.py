@@ -1,1 +1,7 @@
-"""Job table, policies, event engine and metrics of the PyTorch port."""
+"""Job table, policies, event engine, metrics and the standalone workflow
+engine of the PyTorch port."""
+
+from repro_torch.core.workflow import (  # noqa: F401
+    WF_POLICY_IDS, TaskSet, WorkflowState, critical_path_length,
+    make_taskset, simulate_workflow, workflow_result_np,
+)

@@ -1,24 +1,32 @@
 """The discrete-event engine of the PyTorch port.
 
 Counterpart of ``repro.core.engine`` with ``failures``, ``service`` and
-``malleable`` all ``None`` and no dependency edges, in scalar-counter mode
-or with a machine (topology-aware allocation).  Event semantics are the
-reference's:
+``malleable`` all ``None``, in scalar-counter mode or with a machine
+(topology-aware allocation), on tables with or without dependency edges.
+Event semantics are the reference's:
 
   1. advance the clock to min(next arrival, next completion),
   2. process every completion with finish <= clock (reclaim nodes),
   3. process every arrival with submit <= clock (enqueue),
   4. run the scheduling pass: start jobs until the policy blocks.
 
+With dependency edges (paper §3, DESIGN.md §13-§14) a PENDING job arrives
+only once ``submit <= clock`` and its unmet-dependency counter
+``n_unmet`` is 0; an unreleased job does not set the clock.  Completions
+decrement the counters along their out-edges (one cumsum over the edge
+list between the CSR bounds of :func:`dep_csr`), so a job whose last
+dependency finished arrives in the same event.
+
 PyTorch has no device-side while loop, so the host drives both loops.  The
 per-job state stays on the device and is updated in place; the host keeps
 the clock, the free-node counter and the event count, and reads one small
 tensor per event (clock, freed nodes, completions) plus one ``(index,
-score)`` pair per selection.  The scheduling pass is the reference's: for
-backfill the batched pass ``_batched_backfill_pass`` (one shadow walk per
-event, DESIGN.md §18), for the other five policies the per-start selector
-loop (``_fast_order`` picks, as in ``repro.api.run`` on tables without
-dependency edges).  All paths are bit-identical.
+score)`` pair per selection.  The scheduling pass is the reference's
+(``_fast_order`` picks, as ``repro.api.run`` does): for backfill the
+batched pass ``_batched_backfill_pass`` (one shadow walk per event,
+DESIGN.md §18); for FCFS, SJF and LJF on a table with edges the blocking
+prefix pass ``_batched_pass``, which makes no selection; else the
+per-start selector loop.  All paths are bit-identical.
 
 Each pass is written once, as a generator of requests (``policies``'
 module docstring).  A solo run (:func:`simulate`) answers them one at a
@@ -38,9 +46,10 @@ import torch
 from repro_torch import alloc as _alloc
 from repro_torch.core import policies
 from repro_torch.core.jobs import (
-    BACKFILL, DONE, FCFS, INF_TIME, JOB_FIELDS, LJF, PENDING, POLICY_IDS,
-    PREEMPT, RUNNING, SJF, WAITING, EnsembleState, JobSet, SimResult,
-    SimState, resolve_device, result_from_state,
+    BACKFILL, DONE, FCFS, INF_TIME, LJF, PENDING, POLICY_IDS,
+    PREEMPT, RUNNING, SJF, WAITING, DepCsr, EnsembleState, JobSet,
+    SimResult, SimState, count_deps, edge_csr, resolve_device,
+    result_from_state,
 )
 from repro_torch.core.policies import (
     NO_PARAMS, PREFIX, RECLAIM, SELECT, START, SUSPEND, WALK,
@@ -61,9 +70,12 @@ def reset_counters() -> None:
 
 
 # Strategies whose placement cap IS the free counter and which take the
-# batched backfill pass; ``contiguous`` (largest-free-run cap) and ``topo``
-# keep the per-start loop, as in the reference (DESIGN.md §14).
+# batched passes; ``contiguous`` (largest-free-run cap) and ``topo`` keep
+# the per-start loop, as in the reference (DESIGN.md §14).
 _COUNT_CAPPED = (_alloc.SIMPLE, _alloc.SPREAD)
+# the blocking head-of-queue policies, which take the prefix pass on a
+# table with edges
+_BLOCKING = (FCFS, SJF, LJF)
 
 
 class AllocCtx(NamedTuple):
@@ -224,23 +236,26 @@ def blocking_order(jobs: JobSet, policy: int) -> torch.Tensor:
     return torch.sort(key, stable=True)[1]
 
 
-def _batches(policy: int, strategy: Optional[int]) -> bool:
-    """Whether a member's pass is the batched backfill pass: backfill
-    under the free counter's cap (scalar mode, ``simple``, ``spread``)."""
-    return policy == BACKFILL and (strategy is None
-                                   or strategy in _COUNT_CAPPED)
+def _batches(policy: int, strategy: Optional[int], has_edges: bool) -> bool:
+    """Whether a member's pass is a batched one: under the free counter's
+    cap (scalar mode, ``simple``, ``spread``), backfill always, and FCFS,
+    SJF and LJF on a table with edges."""
+    return (strategy is None or strategy in _COUNT_CAPPED) and (
+        policy == BACKFILL or (has_edges and policy in _BLOCKING))
 
 
 def _fast_order(jobs: JobSet, policy: int,
                 strategy: Optional[int] = None) -> Optional[torch.Tensor]:
     """The batched pass's permutation, or ``None`` for the per-start loop.
 
-    As in the reference without dependency edges: backfill takes the
-    batched pass (one shadow walk per event in place of one per selection)
-    in scalar mode and under the count-capped strategies; FCFS, SJF and
-    LJF batch only on dependency-carrying tables, which the port does not
-    carry yet; BestFit and preempt never batch."""
-    return (blocking_order(jobs, policy) if _batches(policy, strategy)
+    As in the reference: backfill takes the batched pass (one shadow walk
+    per event in place of one per selection) in scalar mode and under the
+    count-capped strategies; FCFS, SJF and LJF take the blocking prefix
+    pass there on tables with edges, whose events start whole release
+    waves (the per-start loop elsewhere, where an event starts 0-1 jobs);
+    BestFit and preempt never batch."""
+    return (blocking_order(jobs, policy)
+            if _batches(policy, strategy, jobs.dep_dst is not None)
             else None)
 
 
@@ -337,12 +352,20 @@ def _loop_pass(policy: int, host, st):
         idx = yield from selector(host, st, policies.placeable(st))
 
 
+def _prefix_pass(host, st):
+    """The blocking prefix pass of FCFS, SJF and LJF on a table with edges:
+    one request, answered by :func:`_batched_pass`; no selection."""
+    yield (PREFIX,)
+
+
 def _pass(policy: int, host, st, batched: bool):
-    """A member's scheduling pass: the batched backfill pass when
-    ``_fast_order`` gives a permutation (``_batches``), else the per-start
-    selector loop."""
-    return _backfill_pass(host, st) if batched else _loop_pass(policy, host,
-                                                               st)
+    """A member's scheduling pass: when ``_fast_order`` gives a
+    permutation (``_batches``), the batched backfill pass or the blocking
+    prefix pass; else the per-start selector loop."""
+    if not batched:
+        return _loop_pass(policy, host, st)
+    return _backfill_pass(host, st) if policy == BACKFILL else _prefix_pass(
+        host, st)
 
 
 def _drive_solo(gen, jobs: JobSet, state: SimState,
@@ -385,8 +408,8 @@ def _batched_backfill_pass(jobs: JobSet, state: SimState,
 def _schedule_pass(policy: int, jobs: JobSet, state: SimState,
                    order: Optional[torch.Tensor] = None,
                    ctx: Optional[AllocCtx] = None) -> SimState:
-    """Start jobs until the policy blocks (Algorithm 1 lines 16-21): the
-    batched backfill pass when ``_fast_order`` gave a permutation, else the
+    """Start jobs until the policy blocks (Algorithm 1 lines 16-21): a
+    batched pass when ``_fast_order`` gave a permutation, else the
     per-start selector loop."""
     walks = _drive_solo(_pass(policy, jobs.host, state, order is not None),
                         jobs, state, order, ctx)
@@ -395,19 +418,31 @@ def _schedule_pass(policy: int, jobs: JobSet, state: SimState,
     return state
 
 
+def dep_csr(jobs: JobSet) -> Optional[DepCsr]:
+    """The CSR bounds of the table's edge list (``jobs.edge_csr``), once a
+    run, or ``None`` without edges."""
+    if jobs.dep_dst is None:
+        return None
+    return edge_csr(jobs.dep_dst, jobs.dep_src, jobs.capacity)
+
+
 def _event_step(policy: int, jobs: JobSet, state: SimState,
                 order: Optional[torch.Tensor] = None,
                 ctx: Optional[AllocCtx] = None,
-                log: Optional[_MapLog] = None) -> int:
+                log: Optional[_MapLog] = None,
+                csr: Optional[DepCsr] = None) -> int:
     """Process one event in place; returns the number of jobs it
     completed (the host's count of unfinished jobs drops by that much).
-    ``order`` is ``_fast_order``'s permutation (``None``: selector loop).
-    With a machine, completions free their nodes (before the one read,
-    which then carries the largest free run, where that run is the cap;
-    after it, and only when some job completed, elsewhere), and the
-    event's (clock, free, map) row goes to the log after the pass."""
+    ``order`` is ``_fast_order``'s permutation (``None``: selector loop),
+    ``csr`` the table's :func:`dep_csr` (``None`` without edges).  With a
+    machine, completions free their nodes (before the one read, which then
+    carries the largest free run, where that run is the cap; after it, and
+    only when some job completed, elsewhere), and the event's (clock,
+    free, map) row goes to the log after the pass."""
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
+    if csr is not None:   # an unreleased job is no arrival event
+        pending &= state.n_unmet == 0
     # min over arrivals and completions at once == min(t_arr, t_fin)
     nxt = torch.where(pending, jobs.submit,
                       torch.where(running, state.finish, INF_TIME))
@@ -416,6 +451,9 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
     freed = torch.sum(torch.where(completed, jobs.nodes, 0))
     jstate = torch.where(completed, DONE, state.jstate)
     arrived = (jstate == PENDING) & (jobs.submit <= clock)
+    if csr is not None:
+        state.n_unmet -= count_deps(csr, completed)
+        arrived &= state.n_unmet == 0
     state.jstate = torch.where(arrived, WAITING, jstate).to(torch.int32)
     reads = [clock.to(torch.int64), freed, torch.sum(completed)]
     if state.lfb is not None:
@@ -474,10 +512,11 @@ def simulate(jobs: JobSet, policy, total_nodes: int, *, machine=None,
         state.lfb = ctx.machine.n_nodes
     order = _fast_order(jobs, policy, None if ctx is None else ctx.strategy)
     log = None if ctx is None else _MapLog(state.node_owner, state.ev_lfb)
+    csr = dep_csr(jobs)
     jobs.selector.bind_stream()
     unfinished = int(torch.sum(jobs.valid))
     while unfinished > 0 and state.n_events < cap:
-        unfinished -= _event_step(policy, jobs, state, order, ctx, log)
+        unfinished -= _event_step(policy, jobs, state, order, ctx, log, csr)
     if log is not None:
         log.flush()
     return result_from_state(jobs, state)
@@ -527,15 +566,20 @@ def _read_lfb(state: EnsembleState, actx: BatchAlloc, ms) -> None:
 
 def _event_step_batch(jobs: JobSet, state: EnsembleState,
                       active: Optional[torch.Tensor],
-                      actx: Optional[BatchAlloc] = None) -> list:
+                      actx: Optional[BatchAlloc] = None,
+                      csr: Optional[DepCsr] = None) -> list:
     """:func:`_event_step`'s event for every member at once, over the
     ``[B, J]`` state, written in place.  ``active`` (bool[B], ``None`` for
     every member) masks the members that are done, whose state is left as
-    it is.  One read: ``[clock, freed, n_completed]`` for each member (a
-    done member's row means nothing), with the largest free run after the
-    completions as a fourth column when some member's cap is that run."""
+    it is; ``csr`` is the stack's :func:`dep_csr` (``[B, ...]``, ``None``
+    without edges).  One read: ``[clock, freed, n_completed]`` for each
+    member (a done member's row means nothing), with the largest free run
+    after the completions as a fourth column when some member's cap is
+    that run."""
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
+    if csr is not None:
+        pending &= state.n_unmet == 0
     nxt = torch.where(pending, jobs.submit,
                       torch.where(running, state.finish, INF_TIME))
     clock = torch.amin(nxt, dim=1)
@@ -547,6 +591,9 @@ def _event_step_batch(jobs: JobSet, state: EnsembleState,
     arrived = (jstate == PENDING) & (jobs.submit <= clock[:, None])
     if active is not None:
         arrived &= active[:, None]
+    if csr is not None:   # a done member completes nothing: no decrement
+        state.n_unmet -= count_deps(csr, completed)
+        arrived &= state.n_unmet == 0
     state.jstate.copy_(torch.where(arrived, WAITING, jstate))
     reads = [clock.to(torch.int64), freed, torch.sum(completed, dim=1)]
     if actx is not None:
@@ -684,9 +731,10 @@ def _reclaim_batch(jobs: JobSet, state: EnsembleState, reqs) -> list:
 
 
 def _schedule_batch(jobs: JobSet, state: EnsembleState, pols, hosts,
-                    order, members, actx: Optional[BatchAlloc] = None
-                    ) -> None:
-    """Every member's scheduling pass of this event, in lockstep rounds.
+                    order, members, batched,
+                    actx: Optional[BatchAlloc] = None) -> None:
+    """Every member's scheduling pass of this event, in lockstep rounds
+    (``batched[b]``: whether member ``b`` takes a batched pass).
 
     Each round sends every member still in its pass the answer to its last
     request and gathers its next one; then each kind of request is answered
@@ -694,9 +742,7 @@ def _schedule_batch(jobs: JobSet, state: EnsembleState, pols, hosts,
     selections, one for the walks, one indexed write or reduction for the
     rest.  Members touch only their own rows, so the order of the kinds
     within a round does not matter."""
-    gens = {b: _pass(pols[b], hosts[b], state.members[b],
-                     _batches(pols[b], None if actx is None
-                              else actx.strategies[b]))
+    gens = {b: _pass(pols[b], hosts[b], state.members[b], batched[b])
             for b in members}
     answers = dict.fromkeys(gens)
     walks = dict.fromkeys(gens, 0)
@@ -757,6 +803,16 @@ def _log_events_batch(state: EnsembleState, members, log: _MapLog,
     log.add(state.node_owner, rnd, state.n_events)
 
 
+def _batch_order(jobs: JobSet, pols, batched) -> Optional[torch.Tensor]:
+    """Each batched member's ``blocking_order`` in its row of one ``[B,
+    J]`` permutation, or ``None`` when no member batches; the rows of the
+    other members (FCFS order) are never read."""
+    if not any(batched):
+        return None
+    return torch.stack([blocking_order(jobs.member(b), p if ok else FCFS)
+                        for b, (p, ok) in enumerate(zip(pols, batched))])
+
+
 def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
                    machine=None, alloc_b=None, contention_b=None,
                    max_events: Optional[int] = None) -> SimResult:
@@ -793,11 +849,16 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
         for b, s in enumerate(actx.strategies):
             if s == _alloc.CONTIGUOUS:
                 state.members[b].lfb = machine.n_nodes
-    # backfill's batched pass walks the FCFS permutation of its member
-    order = (torch.sort(jobs.submit, dim=1, stable=True)[1]
-             if BACKFILL in pols else None)
     host = jobs.host
-    hosts = [{f: host[f][b] for f in JOB_FIELDS} for b in range(B)]
+    hosts = [{f: a[b] for f, a in host.items()} for b in range(B)]
+    # a member batches as its solo run would: by its own table's edges
+    edged = [jobs.dep_dst is not None and bool((h["dep_dst"]
+                                                < jobs.capacity).any())
+             for h in hosts]
+    batched = [_batches(p, None if actx is None else actx.strategies[b],
+                        edged[b]) for b, p in enumerate(pols)]
+    order = _batch_order(jobs, pols, batched)
+    csr = dep_csr(jobs)
     jobs.selector.bind_stream()
     unfinished = torch.sum(jobs.valid, dim=1).tolist()
     members = [b for b in range(B) if unfinished[b] > 0 and cap > 0]
@@ -810,7 +871,7 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
             for b in members:
                 mask[b] = True
             active, n_masked = torch.tensor(mask).to(jobs.device), len(members)
-        stepped = _event_step_batch(jobs, state, active, actx)
+        stepped = _event_step_batch(jobs, state, active, actx, csr)
         for b in members:
             clock, freed, n_completed, *lfb = stepped[b]
             st = state.members[b]
@@ -820,7 +881,8 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
             if st.lfb is not None:
                 st.lfb = lfb[0]
             unfinished[b] -= n_completed
-        _schedule_batch(jobs, state, pols, hosts, order, members, actx)
+        _schedule_batch(jobs, state, pols, hosts, order, members, batched,
+                        actx)
         if log is not None:
             _log_events_batch(state, members, log, rnd)
         rnd += 1

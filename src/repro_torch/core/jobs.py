@@ -20,14 +20,23 @@ contiguous view, so ``JobSet.member(b)`` is the solo table of member ``b``
 without a copy.  ``EnsembleState`` holds the per-job state as ``[B, J]``
 tensors and each member's scalars on the host.
 
-Not carried yet: failures, service plans, malleable plans and dependency
-edges.
+Dependency edges (paper §3, DESIGN.md §13-§14) are the reference's padded
+edge list: ``JobSet.dep_dst``/``dep_src`` in dst-ascending order, pad slots
+holding the index ``capacity``, ``None`` for a table without edges; the
+state carries the in-degree counters ``n_unmet`` (``None`` without edges)
+and a result's ``ready`` is ``max(submit, last dependency's finish)``.  A
+pad index is never used as one: the engine keeps pad edges out by the CSR
+bounds, which sit past every row's range, or by a ``J + 1`` buffer whose
+last slot is cut off.
+
+Not carried yet: failures, service plans and malleable plans.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -62,7 +71,9 @@ POLICY_NAMES = {
 }
 POLICY_IDS = {v: k for k, v in POLICY_NAMES.items()}
 
-JOB_FIELDS = ("submit", "runtime", "estimate", "nodes", "priority", "valid")
+JOB_COLUMNS = ("submit", "runtime", "estimate", "nodes", "priority", "valid")
+EDGE_FIELDS = ("dep_dst", "dep_src")
+JOB_FIELDS = JOB_COLUMNS + EDGE_FIELDS
 STATE_TENSORS = ("jstate", "start", "finish", "rsv_finish", "remaining")
 STATE_SCALARS = ("clock", "free", "n_events")
 ALLOC_FIELDS = ("alloc_first", "alloc_span", "alloc_sum")
@@ -91,9 +102,12 @@ class JobSet:
 
     ``valid`` masks padding rows.  ``estimate`` is the user's walltime
     request (SJF/LJF order, EASY reservations); ``runtime`` the actual
-    duration.  ``host`` is a numpy copy the event loop reads single rows
-    from without a device round trip; ``selector`` the fused selections
-    (the ``queue_select`` kernels) over this table.
+    duration.  Edge ``e`` of ``dep_dst``/``dep_src`` means job
+    ``dep_dst[e]`` cannot enter the wait queue before job ``dep_src[e]`` is
+    DONE; both are ``None`` for a table without edges.  ``host`` is a numpy
+    copy the event loop reads single rows from without a device round
+    trip; ``selector`` the fused selections (the ``queue_select`` kernels)
+    over this table.
     """
 
     submit: torch.Tensor    # i32[J]
@@ -102,10 +116,36 @@ class JobSet:
     nodes: torch.Tensor     # i32[J] requested nodes, >= 1
     priority: torch.Tensor  # i32[J] lower = more important (preempt)
     valid: torch.Tensor     # bool[J]
+    dep_dst: Optional[torch.Tensor] = None  # i32[E] dependent row (pad: J)
+    dep_src: Optional[torch.Tensor] = None  # i32[E] dependency row (pad: J)
 
     @property
     def capacity(self) -> int:
         return self.submit.shape[-1]
+
+    @property
+    def edge_capacity(self) -> int:
+        """Padded edge-list length (0 when the table carries no edges)."""
+        return 0 if self.dep_dst is None else self.dep_dst.shape[-1]
+
+    @property
+    def deps(self) -> Optional[torch.Tensor]:
+        """Dense ``bool[J, J]`` of the edge list (``None`` without edges),
+        for tests on a solo table; the engine never builds it."""
+        if self.dep_dst is None:
+            return None
+        if self.dep_dst.dim() != 1:
+            raise ValueError("JobSet.deps is built for solo tables only; "
+                             "take a member of the stack first")
+        J = self.capacity
+        dense = torch.zeros((J + 1, J + 1), dtype=torch.bool,
+                            device=self.device)
+        dense[self.dep_dst.long(), self.dep_src.long()] = True
+        return dense[:J, :J]
+
+    def _map(self, fn) -> "JobSet":
+        return JobSet(**{f: None if getattr(self, f) is None
+                         else fn(getattr(self, f)) for f in JOB_FIELDS})
 
     @property
     def batch(self) -> int | None:
@@ -114,7 +154,7 @@ class JobSet:
 
     def member(self, b: int) -> "JobSet":
         """Member ``b`` of a stacked table: its rows, as views."""
-        return JobSet(**{f: getattr(self, f)[b] for f in JOB_FIELDS})
+        return self._map(lambda t: t[b])
 
     @property
     def device(self) -> torch.device:
@@ -122,7 +162,8 @@ class JobSet:
 
     @functools.cached_property
     def host(self) -> dict:
-        return {f: getattr(self, f).cpu().numpy() for f in JOB_FIELDS}
+        return {f: getattr(self, f).cpu().numpy() for f in JOB_FIELDS
+                if getattr(self, f) is not None}
 
     @functools.cached_property
     def selector(self):
@@ -134,7 +175,89 @@ class JobSet:
         return select_ops.BatchedTableSelect(cols)
 
     def to(self, device) -> "JobSet":
-        return JobSet(**{f: getattr(self, f).to(device) for f in JOB_FIELDS})
+        return self._map(lambda t: t.to(device))
+
+
+def _acyclic_pairs(n: int, dst: np.ndarray, src: np.ndarray) -> None:
+    """Kahn's algorithm over the pairs (``dst[e]`` depends on ``src[e]``,
+    no duplicates) of an ``n``-node graph; raises on a cycle."""
+    indeg = np.bincount(dst, minlength=n)
+    order = np.argsort(src, kind="stable")
+    starts = np.searchsorted(src[order], np.arange(n + 1))
+    succ = dst[order]
+    stack = list(np.nonzero(indeg == 0)[0])
+    seen = 0
+    while stack:
+        j = stack.pop()
+        seen += 1
+        for i in succ[starts[j]:starts[j + 1]]:
+            indeg[i] -= 1
+            if indeg[i] == 0:
+                stack.append(i)
+    if seen != n:
+        raise ValueError("dependency graph contains a cycle")
+
+
+def assert_acyclic(deps: np.ndarray) -> None:
+    """Raise on a cycle of a dense bool dependency matrix (``deps[i, j]``:
+    *i* depends on *j*), as the reference's ``assert_acyclic``."""
+    dst, src = np.nonzero(np.asarray(deps))
+    _acyclic_pairs(np.asarray(deps).shape[0], dst, src)
+
+
+def dep_pairs(deps, n: int) -> tuple:
+    """Normalize ``deps`` (a pair list or a dense matrix, input indices) to
+    validated, duplicate-free ``(dst, src)`` int64 arrays in (dst, src)
+    order, with the reference's ``_dense_deps`` rules and errors: a bool
+    2-D array is always a dense matrix (a wrong shape is an error), other
+    2-D arrays are a matrix only at the exact ``(n, n)`` shape, else a
+    ``(job, dependency)`` pair list; pairs are checked in order (range,
+    then self-dependency), then the graph for cycles.  No ``n x n`` matrix
+    is built for a pair list."""
+    mat = np.asarray(deps) if not isinstance(deps, (list, tuple)) else None
+    is_dense = (mat is not None and mat.ndim == 2 and mat.dtype != object
+                and (mat.dtype == bool or mat.shape == (n, n)))
+    if is_dense:
+        if mat.shape != (n, n):
+            raise ValueError(
+                f"dense deps matrix has shape {mat.shape}, expected ({n}, {n})")
+        dense = mat.astype(bool)
+        if dense.diagonal().any():
+            raise ValueError("self-dependency")
+        dst, src = np.nonzero(dense)
+    else:
+        pairs = np.array([(int(p[0]), int(p[1])) for p in deps],
+                         dtype=np.int64).reshape(-1, 2)
+        dst, src = pairs[:, 0], pairs[:, 1]
+        bad_range = (dst < 0) | (dst >= n) | (src < 0) | (src >= n)
+        bad = bad_range | (dst == src)
+        if bad.any():
+            e = int(np.argmax(bad))
+            if bad_range[e]:
+                raise ValueError(f"dependency pair ({dst[e]},{src[e]}) out "
+                                 "of range")
+            raise ValueError("self-dependency")
+        key = np.unique(dst * n + src)
+        dst, src = key // n, key % n
+    _acyclic_pairs(n, dst, src)
+    return dst.astype(np.int64), src.astype(np.int64)
+
+
+# Edge-list pads round up to this multiple, as in the reference
+_EDGE_ALIGN = 64
+
+
+def dep_edge_arrays(deps, n: int, order: np.ndarray) -> tuple:
+    """``deps`` as ``(dst, src)`` index arrays in sorted-row coordinates
+    (row ``r`` is input job ``order[r]``), in (dst, src) lexicographic
+    order: the reference's ``dep_edge_arrays``, by a sort of the permuted
+    pairs in place of a dense ``n x n`` matrix."""
+    dst, src = dep_pairs(deps, n)
+    inv = np.empty(n, dtype=np.int64)
+    inv[order] = np.arange(n)
+    dst, src = inv[dst], inv[src]
+    o = np.lexsort((src, dst))
+    return dst[o], src[o]
 
 
 def make_jobset(
@@ -146,6 +269,7 @@ def make_jobset(
     *,
     deps=None,
     capacity: int | None = None,
+    edge_capacity: int | None = None,
     total_nodes: int | None = None,
     device=None,
 ) -> JobSet:
@@ -154,11 +278,13 @@ def make_jobset(
     The same normalization as the reference: sort by (submit, original
     index), clamp node requests to ``total_nodes``, pad to ``capacity``
     with invalid rows, and refuse a horizon that would overflow the int32
-    sentinel.  ``device=None`` means ``cuda``.
+    sentinel.  ``deps`` (``(job, dependency)`` pairs or a dense bool
+    matrix, in input order) is cycle-checked, permuted into row order and
+    lowered to the padded edge list (dst-ascending, length rounded up to a
+    multiple of 64 or exactly ``edge_capacity``, pad slots holding
+    ``capacity``); an empty or all-False ``deps`` gives ``None``.
+    ``device=None`` means ``cuda``.
     """
-    if deps is not None:
-        raise NotImplementedError(
-            "dependency edges are not ported yet (ROADMAP Queue 1 item 3)")
     device = resolve_device(device)
     submit = np.asarray(submit, dtype=np.int64)
     runtime = np.asarray(runtime, dtype=np.int64)
@@ -190,6 +316,23 @@ def make_jobset(
     if cap < n:
         raise ValueError(f"capacity {cap} < number of jobs {n}")
 
+    edges = {}
+    if deps is not None:
+        dst, src = dep_edge_arrays(deps, n, order)
+        n_edges = int(dst.size)
+        if n_edges:
+            if edge_capacity is None:
+                ecap = -(-n_edges // _EDGE_ALIGN) * _EDGE_ALIGN
+            else:
+                ecap = int(edge_capacity)
+                if ecap < n_edges:
+                    raise ValueError(
+                        f"edge_capacity {ecap} < number of edges {n_edges}")
+            for f, a in zip(EDGE_FIELDS, (dst, src)):
+                out = np.full((ecap,), cap, dtype=np.int32)
+                out[:n_edges] = a
+                edges[f] = torch.from_numpy(out).to(device)
+
     def pad(a, fill):
         out = np.full((cap,), fill, dtype=np.int32)
         out[:n] = a[order].astype(np.int32)
@@ -204,7 +347,63 @@ def make_jobset(
         nodes=pad(nodes, 1),
         priority=pad(priority, 0),
         valid=torch.from_numpy(valid).to(device),
+        **edges,
     )
+
+
+class DepCsr(NamedTuple):
+    """A dst-ascending edge list's loop-invariant index: each row's range
+    of edges (``start``, ``end``, i64 ``[..., J]``) and the edges'
+    dependency rows clamped into the table (``src``, i64 ``[..., E]``; pad
+    edges lie past every row's range, so their clamped index is never
+    counted)."""
+
+    start: torch.Tensor
+    end: torch.Tensor
+    src: torch.Tensor
+
+
+def edge_csr(dep_dst: torch.Tensor, dep_src: torch.Tensor, J: int) -> DepCsr:
+    """The CSR bounds of a dst-ascending edge list over ``J`` rows: one
+    ``searchsorted`` of the rows ``0..J`` (the reference's ``side="left"``),
+    batched over a stack's members."""
+    rows = torch.arange(J + 1, dtype=dep_dst.dtype, device=dep_dst.device
+                        ).expand(*dep_dst.shape[:-1], J + 1).contiguous()
+    bounds = torch.searchsorted(dep_dst, rows)
+    return DepCsr(bounds[..., :-1], bounds[..., 1:],
+                  dep_src.long().clamp(max=max(J - 1, 0)))
+
+
+def count_deps(csr: DepCsr, flags: torch.Tensor) -> torch.Tensor:
+    """Each row's count of dependencies whose flag is set (``flags``:
+    bool ``[..., J]``): a cumsum of the flags gathered along the edge
+    list, differenced between each row's bounds; i32 ``[..., J]``."""
+    c = torch.nn.functional.pad(torch.cumsum(
+        torch.gather(flags, -1, csr.src).to(torch.int32), -1,
+        dtype=torch.int32), (1, 0))
+    return torch.gather(c, -1, csr.end) - torch.gather(c, -1, csr.start)
+
+
+def in_degrees(jobs: JobSet) -> Optional[torch.Tensor]:
+    """Each job's count of dependencies (``n_unmet`` at the start), i32
+    ``[J]`` or ``[B, J]``, or ``None`` for a table without edges."""
+    if jobs.dep_dst is None:
+        return None
+    return count_deps(edge_csr(jobs.dep_dst, jobs.dep_src, jobs.capacity),
+                      torch.ones_like(jobs.valid))
+
+
+def dependency_finish(jobs: JobSet, finish: torch.Tensor) -> torch.Tensor:
+    """Each job's latest dependency finish (0 without one), ``[..., J]``:
+    the reference's scatter-max of ``finish[dep_src]`` over ``dep_dst``,
+    with pad edges reading and writing a slot ``J`` that is cut off."""
+    J = jobs.capacity
+    ext = torch.zeros((*finish.shape[:-1], J + 1), dtype=finish.dtype,
+                      device=finish.device)
+    src_fin = torch.gather(torch.cat([finish, ext[..., :1]], -1), -1,
+                           jobs.dep_src.long())
+    return ext.scatter_reduce_(-1, jobs.dep_dst.long(), src_fin, "amax",
+                               include_self=True)[..., :J]
 
 
 def machine_fields(J: int, N: int, L: int, device, batch=()) -> dict:
@@ -252,7 +451,9 @@ class SimState(_AllocViews):
     reference.  ``ev_time`` and ``ev_free`` are host numpy arrays (the
     host knows both after each event); ``ev_lfb`` lives on the device.
     ``lfb`` is the host's copy of the largest free run when the strategy's
-    placement cap is that run (``contiguous``), else ``None``.
+    placement cap is that run (``contiguous``), else ``None``.  ``n_unmet``
+    counts each job's dependencies that are not DONE yet (``None`` for a
+    table without edges).
     """
 
     clock: int
@@ -269,6 +470,7 @@ class SimState(_AllocViews):
     ev_free: np.ndarray       # i32[L] free nodes after each event
     ev_lfb: torch.Tensor      # i32[L] largest free run after each event
     lfb: int | None = None
+    n_unmet: Optional[torch.Tensor] = None   # i32[J] unmet dependencies
 
     @classmethod
     def init(cls, jobs: JobSet, total_nodes: int, machine=None,
@@ -287,6 +489,7 @@ class SimState(_AllocViews):
             free=int(total_nodes),
             n_events=0,
             **machine_fields(J, N, L, dev),
+            n_unmet=in_degrees(jobs),
         )
 
 
@@ -308,7 +511,8 @@ class EnsembleState(_AllocViews):
     The per-job tensors are ``[B, J]`` (the occupancy maps ``[B, N]``, the
     ``ev_*`` logs ``[B, L]``) and are written in place, so a member's row
     keeps its address for the batched kernels; ``members[b]`` holds member
-    ``b``'s ``clock``, ``free``, ``n_events`` and ``lfb``.  A member that is
+    ``b``'s ``clock``, ``free``, ``n_events`` and ``lfb``; ``n_unmet`` is
+    ``[B, J]`` when the stack carries edges.  A member that is
     done (no unfinished job, or its event cap reached) is never written
     again.
     """
@@ -324,6 +528,7 @@ class EnsembleState(_AllocViews):
     ev_time: np.ndarray       # i32[B, L]
     ev_free: np.ndarray       # i32[B, L]
     ev_lfb: torch.Tensor      # i32[B, L]
+    n_unmet: Optional[torch.Tensor] = None   # i32[B, J] unmet dependencies
 
     @classmethod
     def init(cls, jobs: JobSet, total_nodes, machine=None,
@@ -341,6 +546,7 @@ class EnsembleState(_AllocViews):
             remaining=jobs.runtime.clone(),
             members=[MemberScalars(0, int(t), 0) for t in total_nodes],
             **machine_fields(jobs.capacity, N, L, dev, (B,)),
+            n_unmet=in_degrees(jobs),
         )
 
     @property
@@ -356,7 +562,7 @@ class SimResult:
 
     start: torch.Tensor   # i32[J]
     finish: torch.Tensor  # i32[J]
-    ready: torch.Tensor   # i32[J] == submit (no dependencies)
+    ready: torch.Tensor   # i32[J] max(submit, last dependency's finish)
     wait: torch.Tensor    # i32[J] start - ready
     makespan: int         # a list of B ints for an ensemble
     n_events: int         # a list of B ints for an ensemble
@@ -379,7 +585,8 @@ def result_from_state(jobs: JobSet, state) -> SimResult:
     """The result of a solo run (``SimState``) or of an ensemble
     (``EnsembleState``: ``[B, ...]`` fields, per-member makespan and event
     count)."""
-    ready = jobs.submit
+    ready = (jobs.submit if jobs.dep_dst is None else torch.maximum(
+        jobs.submit, dependency_finish(jobs, state.finish)))
     wait = torch.where(jobs.valid, state.start - ready, 0).to(torch.int32)
     done = (state.jstate == DONE) & jobs.valid
     fin = torch.where(done, state.finish, 0)

@@ -10,6 +10,9 @@ host: one event step for every member, and one launch of the batched
 members still in their scheduling pass.  A member that is done is frozen,
 so each member equals its own solo run bit for bit.
 
+Members may carry dependency edges of different counts (a seed axis over
+a DAG): ``stack_jobsets`` pads them to one length.
+
 Not ported yet: failures (``failures_b``: ROADMAP Queue 1 item 5), sharding
 an ensemble over several cards (``mesh``: item 12), and multicluster windows
 (item 6).
@@ -24,7 +27,7 @@ import torch
 from repro_torch import alloc as _alloc
 from repro_torch.core import engine
 from repro_torch.core.jobs import (
-    JOB_FIELDS, JobSet, SimResult, resolve_device,
+    EDGE_FIELDS, JOB_COLUMNS, JobSet, SimResult, resolve_device,
 )
 
 _NOT_PORTED = {
@@ -36,10 +39,12 @@ _NOT_PORTED = {
 def stack_jobsets(jobsets: list[JobSet]) -> JobSet:
     """Stack equally sized job tables into one with ``[B, J]`` columns.
 
-    Every member must have the same capacity and lie on one device.  The
-    reference pads the members' dependency edge lists to one length; the
-    port's tables carry none (``make_jobset`` raises on edges, ROADMAP
-    Queue 1 item 3), so there is nothing to pad."""
+    Every member must have the same capacity and lie on one device.  When
+    any member carries dependency edges, every member's edge list is
+    padded to the longest with pad edges (index ``capacity``, as
+    ``make_jobset`` pads), a member without edges getting pad edges only,
+    so the stack's ``dep_dst``/``dep_src`` are ``[B, E]``; pad edges sit
+    past every row's CSR range, so no member's schedule changes."""
     jobsets = list(jobsets)
     if not jobsets:
         raise ValueError("stack_jobsets needs at least one job table")
@@ -52,8 +57,17 @@ def stack_jobsets(jobsets: list[JobSet]) -> JobSet:
     devices = {j.device for j in jobsets}
     if len(devices) != 1:
         raise ValueError(f"stack_jobsets needs one device, got {devices}")
-    return JobSet(**{f: torch.stack([getattr(j, f) for j in jobsets])
-                     for f in JOB_FIELDS})
+    cols = {f: torch.stack([getattr(j, f) for j in jobsets])
+            for f in JOB_COLUMNS}
+    if any(j.dep_dst is not None for j in jobsets):
+        E = max(j.edge_capacity for j in jobsets)
+        for f in EDGE_FIELDS:
+            cols[f] = torch.stack([torch.nn.functional.pad(
+                torch.zeros(0, dtype=torch.int32, device=j.device)
+                if getattr(j, f) is None else getattr(j, f),
+                (0, E - j.edge_capacity), value=j.capacity)
+                for j in jobsets])
+    return JobSet(**cols)
 
 
 def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,

@@ -206,7 +206,17 @@ def test_allocation_fields_run(field, value):
 
 
 def test_dependencies_raise():
+    """Dependency edges are carried (ROADMAP Queue 1 item 3): valid edges
+    run as the JAX engine runs them, and bad ones raise as there."""
     trace = {"submit": [0, 0], "runtime": [1, 1], "nodes": [1, 1],
              "deps": [(1, 0)]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.run(rt.Scenario(trace=trace, total_nodes=4), device="cpu")
+    a = rt.run(rt.Scenario(trace=dict(trace), total_nodes=4),
+               device="cpu").to_np()
+    b = api.run(api.Scenario(trace=dict(trace), total_nodes=4)).to_np()
+    assert set(a) == set(b)
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert a["ready"][1] == a["finish"][0] == 1
+    with pytest.raises(ValueError, match="cycle"):
+        rt.run(rt.Scenario(trace=dict(trace, deps=[(1, 0), (0, 1)]),
+                           total_nodes=4), device="cpu")
