@@ -117,6 +117,32 @@ Phases, each printing one JSON line with its wall time:
              under fcfs_fit, checked by invariants (every task done, no
              start before a dependency's finish, no pool exceeded); tasks/s
              and queue_select launches a task, which must be > 0.
+6i. reliability - node failures at fig_reliability.py's size, each run
+             held to the JAX engine's digests (tests/data/
+             torch_rel_golden.json: start, finish, ready, n_restarts,
+             lost_work, aborted; on a machine the fingerprints and ev_lfb),
+             every failure stream checked untruncated: 2,000 congested
+             SDSC-SP2-like jobs on 128 nodes, backfill, MTBF 50,000 s over
+             2^19 s, requeue and abort; phase 4's 10,000 jobs at MTBF
+             400,000 s over 2^22 s; the requeue model on dragonfly(16, 8)
+             under backfill/simple and fcfs/contiguous, and under preempt;
+             Galactic Plane under fcfs with aborts (the prefix pass, no
+             selection).  Per run events/s, jobs/s, the failures, repairs
+             and ticks consumed, kills by kind, device reads a stream
+             entry and launches an event.
+6j. reliability_sweep - the figure's MTBF x kill-rule grid (12 members)
+             and its checkpoint axis (4) through sweep, one bucket each,
+             every member held to its digests; batch events/s beside the
+             solo rate of the members phase 6i ran.
+6k. serving - fig_serving.py's runs at full size (3,353 requests on 64
+             nodes with the autoscaler: fcfs, sjf, fcfs without it,
+             fcfs/simple and sjf/contiguous on mesh2d(8, 8), fcfs with
+             failures composed), held to tests/data/
+             torch_serving_golden.json (with slo_met, deadline, class_id
+             and the capacity log); the counts of phase 6i.
+6l. serving_sweep - the figure's 5 rates x fcfs/sjf x autoscaler on/off
+             (20 members, one bucket), each held to its digests; batch
+             events/s beside the solo rate of the members 6k ran.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
              128 and the serve shape, f32 (the CUDA-core kernel) and bf16
@@ -170,8 +196,8 @@ Phases, each printing one JSON line with its wall time:
              phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4, 5, 6d, 6f and 6h for queue_select and its walk, phases 6b,
-6c, 6e and 6g for their batched entries, the serve of phase 9 for flash_attention,
+(phases 4, 5, 6d, 6f, 6h, 6i and 6k for queue_select and its walk, phases
+6b, 6c, 6e, 6g, 6j and 6l for their batched entries, the serve of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  TF32 is off for matrix products and
 convolutions throughout.  The script catches nothing: any failed check
@@ -203,6 +229,8 @@ LM_GOLDEN = ROOT / "tests" / "data" / "torch_lm_golden.json"
 DAG_GOLDEN = ROOT / "tests" / "data" / "torch_dag_golden.json"
 DAG_SWEEP_GOLDEN = ROOT / "tests" / "data" / "torch_dag_sweep_golden.json"
 WORKFLOW_GOLDEN = ROOT / "tests" / "data" / "torch_workflow_golden.json"
+REL_GOLDEN = ROOT / "tests" / "data" / "torch_rel_golden.json"
+SERVING_GOLDEN = ROOT / "tests" / "data" / "torch_serving_golden.json"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
@@ -1400,6 +1428,162 @@ def phase_workflow(torch, np, rt, ops):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# node failures and online serving (the stream event sources)
+# ---------------------------------------------------------------------------
+
+STREAM_KEYS = ("failures", "repairs", "ticks", "requeues", "aborts",
+               "stream_reads")
+
+
+def build_spec(rt, spec):
+    """A golden entry's nested spec (dicts with a ``type``, lists for
+    tuples) made with the port's classes."""
+    if isinstance(spec, dict) and "type" in spec:
+        return getattr(rt, spec["type"])(**{
+            k: build_spec(rt, v) for k, v in spec.items()
+            if k != "type" and v is not None})
+    if isinstance(spec, list):
+        return tuple(build_spec(rt, v) for v in spec)
+    return spec
+
+
+def stream_scenario(rt, e):
+    """The scenario of an entry of the rel or serving golden file, every
+    stream checked untruncated and of the entry's size."""
+    scn = build_spec(rt, e["scenario"])
+    if e["point"]:
+        scn = scn.with_(**{k: build_spec(rt, v)
+                           for k, v in e["point"].items()})
+    if scn.failures is not None:
+        ft = scn.failures.materialize(int(scn.total_nodes))
+        check(not ft.truncated and ft.n_failures == e["n_failures"],
+              f"{e['name']}: failure stream truncated or resized")
+    if hasattr(scn.trace, "plan"):
+        plan = scn.trace.plan()
+        check(not plan.truncated and plan.n_requests == e["n_requests"],
+              f"{e['name']}: service trace truncated or resized")
+    return scn
+
+
+def check_stream_golden(out, e, what: str = "") -> None:
+    """A run's n_events, makespan and digests against the JAX engine's: the
+    valid rows of every per-job column the entry lists, and the whole
+    capacity log and ev_lfb log."""
+    v = out["valid"]
+    whole = ("cap_online", "cap_time", "ev_lfb")
+    got = {"n_jobs": int(v.sum()), "n_events": out["n_events"],
+           "makespan": out["makespan"]}
+    for k in e:
+        if k.endswith("_sha256"):
+            col = k[:-len("_sha256")]
+            got[k] = digest(out[col] if col in whole else out[col][v])
+    for k, want in got.items():
+        check(want == e[k], f"{what}{e['name']}: {k} {want} != golden "
+              f"{e[k]}")
+
+
+def _results(e) -> dict:
+    """The results of a golden entry (its digests, events and makespan)."""
+    return {k: v for k, v in e.items()
+            if k.endswith("_sha256") or k in ("n_events", "makespan")}
+
+
+def stream_counts(engine, counts: dict) -> dict:
+    """The stream counters of the run just made, beside its launch counts:
+    entries consumed, kills by kind, device reads an entry, launches an
+    event."""
+    c = {k: engine.counters[k] for k in STREAM_KEYS}
+    entries = c["failures"] + c["repairs"] + c["ticks"]
+    c["stream_entries"] = entries
+    c["reads_per_stream_entry"] = (c["stream_reads"] / entries if entries
+                                   else "no entries")
+    return {**counts, **c}
+
+
+def stream_run(rt, ops, e, what: str = ""):
+    """One run of a stream golden entry on cuda, held to it: ``(scenario,
+    result, wall seconds, counts)`` with the per-run rates."""
+    from repro_torch.core import engine
+    scn = stream_scenario(rt, e)
+    # a table with edges under a blocking policy and the free counter's
+    # cap takes the prefix pass, which makes no selection
+    edges = scn.trace.static_key()[0] == "workflow"
+    out, wall, counts = run_counted(rt, ops, scn,
+                                    selects=not (edges and prefix_pass(scn)))
+    check_stream_golden(out, e, what)
+    counts = stream_counts(engine, counts)
+    n_jobs = int(out["valid"].sum())
+    counts.update(events_per_s=out["n_events"] / wall,
+                  jobs_per_s=n_jobs / wall)
+    return scn, out, wall, counts
+
+
+def phase_streams(rt, ops, golden_path, phase: str):
+    """Every solo run of a stream golden file on cuda, each held to its
+    JAX digests; returns the launch counts and each run's (events, wall
+    seconds) by name."""
+    t0 = time.time()
+    launches = walks = 0
+    solo = {}
+    for e in json.loads(golden_path.read_text())["runs"]:
+        scn, out, wall, counts = stream_run(rt, ops, e)
+        launches += counts["launches"]
+        walks += counts["walk_launches"]
+        solo[e["name"]] = (out["n_events"], wall)
+        emit(phase, t0, run=e["name"], policy=scn.policy,
+             topology=None if scn.topology is None else
+             [scn.topology.kind, list(scn.topology.shape)],
+             alloc=scn.alloc, n_jobs=e["n_jobs"],
+             n_failures=e.get("n_failures"),
+             n_requests=e.get("n_requests"), n_events=out["n_events"],
+             makespan=out["makespan"], run_seconds=wall, **counts,
+             matches_jax=True)
+    return {"launches": launches, "walk_launches": walks, "solo": solo}
+
+
+def phase_stream_sweeps(torch, rt, ops, golden_path, phase: str,
+                        solo=None):
+    """Every sweep of a stream golden file through ``sweep`` on cuda: one
+    bucket each, every member held to its solo run's JAX digests; the
+    batch events/s beside the solo events/s of the members the solo phase
+    ran in this call (``solo``: events and wall seconds by run name)."""
+    from repro_torch.core import engine
+    g = json.loads(golden_path.read_text())
+    all_counts = []
+    for sw in g["sweeps"]:
+        t0 = time.time()
+        members = sw["members"]
+        base = build_spec(rt, sw["base"])
+        axes = {k: [build_spec(rt, v) for v in vals]
+                for k, vals in sw["axes"].items()}
+        for m in members:      # every stream untruncated
+            stream_scenario(rt, m)
+        grid, outs, wall, counts = run_sweep(torch, rt, ops, base, axes,
+                                             f"{phase} {sw['name']}")
+        counts = stream_counts(engine, counts)
+        check(grid.n_compiles == 1, f"{grid.n_compiles} buckets, expected 1")
+        check(len(outs) == len(members), "sweep member count")
+        for out, m in zip(outs, members):
+            check_stream_golden(out, m, f"{phase} ")
+        # the solo runs of this call that are members: the same results
+        timed = sorted({r["name"] for r in g["runs"] for m in members
+                        if _results(r) == _results(m)} & set(solo or ()))
+        solo_eps = (sum(solo[k][0] for k in timed)
+                    / sum(solo[k][1] for k in timed) if timed
+                    else "not measured")
+        ops.reset_launches()
+        emit(phase, t0, sweep=sw["name"], axes=list(sw["axes"]),
+             n_compiles=grid.n_compiles, members=len(grid),
+             run_seconds=wall, **counts, solo_runs=timed,
+             solo_events_per_s=solo_eps,
+             batch_over_solo_rate=(counts["events_per_s"] / solo_eps
+                                   if timed else "not measured"),
+             matches_jax=True)
+        all_counts.append(counts)
+    return all_counts
+
+
 def flash_check(torch, ops, ref, q, k, v, causal, window, tol) -> float:
     """One kernel call against the plain version; the largest error."""
     kw = dict(causal=causal, window=window, q_offset=k.shape[1] - q.shape[1])
@@ -1913,7 +2097,8 @@ def phase_rwkv_serve(torch, np):
 
 PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "sweep", "ensemble", "alloc", "alloc_sweep", "dag", "dag_sweep",
-          "workflow", "flash", "lm_golden", "serve", "linattn",
+          "workflow", "reliability", "reliability_sweep", "serving",
+          "serving_sweep", "flash", "lm_golden", "serve", "linattn",
           "rwkv_golden", "rwkv_serve")
 
 
@@ -1932,7 +2117,8 @@ def main(argv=None) -> int:
         return 1
     if not ((ROOT / "src" / "repro_torch").is_dir() and all(
             g.exists() for g in (GOLDEN, LM_GOLDEN, ALLOC_GOLDEN, DAG_GOLDEN,
-                                 DAG_SWEEP_GOLDEN, WORKFLOW_GOLDEN))):
+                                 DAG_SWEEP_GOLDEN, WORKFLOW_GOLDEN,
+                                 REL_GOLDEN, SERVING_GOLDEN))):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 1
@@ -1984,6 +2170,15 @@ def main(argv=None) -> int:
         "dag_sweep": lambda: phase_dag_sweep(
             torch, rt, ops, out["dag"]["solo"] if "dag" in out else None),
         "workflow": lambda: phase_workflow(torch, np, rt, ops),
+        "reliability": lambda: phase_streams(rt, ops, REL_GOLDEN,
+                                             "reliability"),
+        "reliability_sweep": lambda: phase_stream_sweeps(
+            torch, rt, ops, REL_GOLDEN, "reliability_sweep",
+            out["reliability"]["solo"] if "reliability" in out else None),
+        "serving": lambda: phase_streams(rt, ops, SERVING_GOLDEN, "serving"),
+        "serving_sweep": lambda: phase_stream_sweeps(
+            torch, rt, ops, SERVING_GOLDEN, "serving_sweep",
+            out["serving"]["solo"] if "serving" in out else None),
         "flash": lambda: phase_flash(torch, np),
         "lm_golden": lambda: phase_lm_golden(torch, np),
         "serve": lambda: phase_serve(torch, np),
@@ -2002,14 +2197,18 @@ def main(argv=None) -> int:
     max_err, timing = out["kernel"]
     fused_err, modes, walk = out["fused"]
     alloc, dag = out["alloc"], out["dag"]
+    rel, svc = out["reliability"], out["serving"]
+    stream_sweeps = out["reliability_sweep"] + out["serving_sweep"]
     launches = (out["golden"][0] + out["archive"][0] + alloc["launches"]
-                + dag["launches"] + out["workflow"])
+                + dag["launches"] + out["workflow"] + rel["launches"]
+                + svc["launches"])
     walk_launches = (out["golden"][1] + out["archive"][1]
-                     + alloc["walk_launches"] + dag["walk_launches"])
+                     + alloc["walk_launches"] + dag["walk_launches"]
+                     + rel["walk_launches"] + svc["walk_launches"])
     cand = modes["backfill_cand"]
     batch_err, batch_timing = out["batched"]
     batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"],
-                  *out["dag_sweep"]]
+                  *out["dag_sweep"], *stream_sweeps]
     batch_launches = sum(c["batch_launches"] for c in batch_runs)
     batch_selections = sum(c["batch_selections"] for c in batch_runs)
     walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
@@ -2052,6 +2251,17 @@ def main(argv=None) -> int:
                                     for c in out["dag_sweep"]),
             "walk_batch_launches": sum(c["walk_batch_launches"]
                                        for c in out["dag_sweep"])},
+        "stream_mode": {
+            "reliability_launches": rel["launches"],
+            "reliability_walk_launches": rel["walk_launches"],
+            "serving_launches": svc["launches"],
+            "serving_walk_launches": svc["walk_launches"],
+            "batch_launches": sum(c["batch_launches"]
+                                  for c in stream_sweeps),
+            "batch_selections": sum(c["batch_selections"]
+                                    for c in stream_sweeps),
+            "walk_batch_launches": sum(c["walk_batch_launches"]
+                                       for c in stream_sweeps)},
         "modes": modes,
         "generic": {"ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
                     "bound_ms": timing["bound_ms"], "bound_by": "bytes",

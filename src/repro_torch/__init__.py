@@ -27,6 +27,13 @@ runs the ``flash_attention`` CUDA kernel in every layer:
                                              params=(("tiles", 4),)),
                       total_nodes=128, policy="fcfs")
     rt.run(dag)["ready"]     # max(submit, last dependency's finish)
+    rel = scn.with_(failures=rt.FailureModel(
+        mtbf=50e3, horizon=2**19, max_failures=2048, requeue="abort"))
+    rt.run(rel).summary()["goodput"]
+    web = rt.Scenario(trace=rt.ServiceTrace(
+        horizon=2**16, rate=0.05, max_jobs=4096,
+        autoscale=rt.AutoscalePolicy(48, 8)), total_nodes=64)
+    rt.sweep(web, axes={"trace.rate": (0.01, 0.05)})   # one bucket
 
 A sweep runs each static bucket of its grid as one ensemble
 (``simulate_ensemble``), whose members advance in lockstep and share each
@@ -34,7 +41,8 @@ batched launch of the ``queue_select`` kernel.
 """
 
 from repro_torch.api import (
-    WF_POLICY_IDS, ArrayTrace, Result, Scenario, SwfTrace, SweepCacheStats,
+    WF_POLICY_IDS, ArrayTrace, AutoscalePolicy, FailureModel, Result,
+    Scenario, ServiceClass, ServiceTrace, SwfTrace, SweepCacheStats,
     SweepResult, SyntheticTrace, Topology, WorkflowTrace, cache_stats,
     critical_path_length, make_taskset, reset_cache_stats, run,
     simulate_alloc_sweep, simulate_ensemble, simulate_workflow,
@@ -42,8 +50,10 @@ from repro_torch.api import (
 )
 from repro_torch.core.engine import simulate
 
-__all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SweepCacheStats",
-           "SweepResult", "SyntheticTrace", "Topology", "WF_POLICY_IDS",
+__all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel", "Result",
+           "Scenario", "ServiceClass", "ServiceTrace", "SwfTrace",
+           "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
+           "WF_POLICY_IDS",
            "WorkflowTrace", "cache_stats", "critical_path_length",
            "make_taskset", "reset_cache_stats", "run", "simulate",
            "simulate_alloc_sweep", "simulate_ensemble", "simulate_workflow",

@@ -13,13 +13,17 @@ from repro_torch.api.sweep import (
 from repro_torch.core.parallel import (
     simulate_alloc_sweep, simulate_ensemble, stack_jobsets,
 )
+from repro_torch.reliability import FailureModel
+from repro_torch.serving import AutoscalePolicy, ServiceClass, ServiceTrace
 from repro_torch.core.workflow import (
     WF_POLICY_IDS, critical_path_length, make_taskset, simulate_workflow,
     workflow_result_np,
 )
 
-__all__ = ["ArrayTrace", "Result", "Scenario", "SwfTrace", "SweepCacheStats",
-           "SweepResult", "SyntheticTrace", "Topology", "WF_POLICY_IDS",
+__all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel", "Result",
+           "Scenario", "ServiceClass", "ServiceTrace", "SwfTrace",
+           "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
+           "WF_POLICY_IDS",
            "WorkflowTrace", "as_trace_spec", "build_jobset", "build_machine",
            "cache_stats", "critical_path_length", "make_taskset",
            "reset_cache_stats", "run", "simresult_to_np",

@@ -4,7 +4,10 @@ Counterpart of ``repro.api.result``: ``to_np()`` gives the reference's
 canonical numpy dict (``submit``, ``nodes``, ``runtime``, ``start``,
 ``finish``, ``ready``, ``wait``, ``makespan``, ``n_events``, ``done``,
 ``valid``, plus ``alloc_first``/``alloc_span``/``alloc_sum`` and the
-``ev_*`` log cut to ``n_events`` when the scenario has a topology), so the
+``ev_*`` log cut to ``n_events`` when the scenario has a topology, the
+reliability columns ``n_restarts``/``lost_work``/``aborted`` with a failure
+model, and the serving columns ``slo_met``/``deadline``/``class_id`` and the
+capacity log ``cap_online``/``cap_time`` with a ``ServiceTrace``), so the
 two engines' results compare key by key, and ``summary()`` derives the same
 scalar metrics.  ``ready`` is ``max(submit, last dependency's finish)`` and
 ``wait`` is ``start - ready``, the paper's Fig. 7 workflow wait (``start -
@@ -41,8 +44,13 @@ class Result:
         if self._np is None:
             self._np = simresult_to_np(
                 self.raw, self.jobs,
-                with_alloc=self.scenario.topology is not None)
+                with_alloc=self.scenario.topology is not None,
+                service=self._service_plan())
         return self._np
+
+    def _service_plan(self):
+        spec = self.scenario.trace
+        return spec.plan() if hasattr(spec, "plan") else None
 
     def __getitem__(self, key: str) -> np.ndarray:
         return self.to_np()[key]
@@ -50,11 +58,21 @@ class Result:
     def summary(self) -> Dict[str, float]:
         """n_jobs, wait statistics, bounded slowdown, makespan,
         utilization and throughput, plus the job-span and fragmentation
-        scalars when the scenario has a topology."""
+        scalars when the scenario has a topology, the reliability scalars
+        with a failure model and the SLO scalars with a
+        ``ServiceTrace``."""
         out = self.to_np()
-        s = metrics.summary(out, int(self.scenario.total_nodes))
+        total = int(self.scenario.total_nodes)
+        s = metrics.summary(out, total)
         if "ev_time" in out and "alloc_span" in out:
             s.update(metrics.alloc_summary(out))
+        if "n_restarts" in out:
+            s.update(metrics.reliability_summary(out))
+        if "slo_met" in out:
+            plan = self._service_plan()
+            s.update(metrics.slo_summary(
+                out, class_names=None if plan is None else plan.class_names,
+                total_nodes=total))
         return s
 
     @property
@@ -74,8 +92,11 @@ class Result:
 
 
 def simresult_to_np(res: SimResult, jobs: JobSet, *,
-                    with_alloc: bool = False) -> Dict[str, np.ndarray]:
-    """``SimResult`` + ``JobSet`` -> the canonical numpy dict."""
+                    with_alloc: bool = False,
+                    service=None) -> Dict[str, np.ndarray]:
+    """``SimResult`` + ``JobSet`` -> the canonical numpy dict.
+    ``service`` (the run's ``ServicePlan``) adds ``class_id`` and the
+    ticks' times ``cap_time``."""
     out = {
         "submit": jobs.submit.cpu().numpy(),
         "nodes": jobs.nodes.cpu().numpy(),
@@ -95,4 +116,19 @@ def simresult_to_np(res: SimResult, jobs: JobSet, *,
             out[k] = getattr(res, k).cpu().numpy()
         for k in EV_FIELDS:
             out[k] = getattr(res, k).cpu().numpy()[:n_ev]
+    if res.rel is not None:
+        for k in ("n_restarts", "lost_work", "aborted"):
+            out[k] = getattr(res.rel, k).cpu().numpy()
+    if res.svc is not None:
+        out["slo_met"] = res.svc.slo_met.cpu().numpy()
+        out["deadline"] = res.svc.deadline.cpu().numpy()
+        # the online level per consumed tick (-1: never consumed); the
+        # ticks' times come from the plan's stream
+        cap = res.svc.cap_online.cpu().numpy()
+        used = cap >= 0
+        out["cap_online"] = cap[used].astype(np.int64)
+        if service is not None:
+            out["class_id"] = np.asarray(service.class_id, dtype=np.int64)
+            out["cap_time"] = np.asarray(service.tick_time,
+                                         dtype=np.int64)[used]
     return out

@@ -13,10 +13,14 @@ from repro_torch.core.jobs import JobSet, make_jobset, resolve_device
 def build_jobset(scenario: Scenario, *, capacity: Optional[int] = None,
                  device=None) -> JobSet:
     """Materialize the scenario's trace into a ``JobSet`` on ``device``
-    (``cuda`` by default)."""
+    (``cuda`` by default).  A ``ServiceTrace`` pads the table to its
+    ``max_jobs`` when no capacity is given, so its deadline and class
+    columns stay row-aligned with the table at every rate."""
     trace = scenario.trace.materialize()
     if capacity is None:
         capacity = scenario.capacity
+    if capacity is None:
+        capacity = getattr(scenario.trace, "pad_capacity", None)
     return make_jobset(
         trace["submit"], trace["runtime"], trace["nodes"],
         trace.get("estimate"), trace.get("priority"),
@@ -35,6 +39,21 @@ def build_machine(scenario: Scenario, device=None):
     return scenario.topology.build(device)
 
 
+def _failure_trace(scenario: Scenario):
+    """The scenario's one materialized failure trace (the model's lru
+    cache keeps every call on the same arrays), or ``None``."""
+    if scenario.failures is None:
+        return None
+    return scenario.failures.materialize(int(scenario.total_nodes))
+
+
+def _service_plan(scenario: Scenario):
+    """The scenario's one materialized serving plan (the spec's lru
+    cache), or ``None`` when its trace is no ``ServiceTrace``."""
+    spec = scenario.trace
+    return spec.plan() if hasattr(spec, "plan") else None
+
+
 def run(scenario: Scenario, device=None) -> Result:
     """Run one scenario on the PyTorch engine.  ``device=None`` runs on
     ``cuda`` and raises when there is none; pass ``device="cpu"`` for the
@@ -45,5 +64,7 @@ def run(scenario: Scenario, device=None) -> Result:
                           machine=build_machine(scenario, device),
                           alloc=scenario.alloc,
                           contention=scenario.contention,
+                          failures=_failure_trace(scenario),
+                          service=_service_plan(scenario),
                           max_events=scenario.max_events, device=device)
     return Result(scenario=scenario, raw=res, jobs=jobs)

@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.api.scenario`` for the ported slices: a
 :class:`Scenario` names a trace (:class:`SyntheticTrace`, :class:`SwfTrace`,
-:class:`WorkflowTrace` or :class:`ArrayTrace`), the cluster size, the policy, optionally a machine
-shape (:class:`Topology`) with its placement strategy and contention model,
-the padded table capacity and an event cap.  The same field values describe
+:class:`WorkflowTrace`, :class:`ArrayTrace` or an open-arrival
+``ServiceTrace``), the cluster size, the policy, optionally a machine shape
+(:class:`Topology`) with its placement strategy and contention model, a
+node-failure model (``FailureModel``), the padded table capacity and an
+event cap.  The same field values describe
 the same run as the reference's ``Scenario``.  Features of the reference
 that the port does not carry yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
@@ -20,6 +22,8 @@ import numpy as np
 
 from repro_torch import alloc as _alloc
 from repro_torch.core.jobs import INF_TIME
+from repro_torch.reliability import FailureModel
+from repro_torch.serving import ServiceTrace
 from repro_torch.traces.swf import load_swf
 from repro_torch.traces import workflows as _workflows
 from repro_torch.traces.synthetic import das2_like, sdsc_sp2_like, synthetic_trace
@@ -212,21 +216,22 @@ class ArrayTrace:
         return len(np.asarray(self.submit))
 
 
-TraceSpec = Union[SyntheticTrace, SwfTrace, WorkflowTrace, ArrayTrace]
+TraceSpec = Union[SyntheticTrace, SwfTrace, WorkflowTrace, ArrayTrace,
+                  ServiceTrace]
 
 
 def as_trace_spec(trace) -> TraceSpec:
     """Accept a spec, a plain dict of arrays, or an .swf path string."""
-    if isinstance(trace, (SyntheticTrace, SwfTrace, WorkflowTrace, ArrayTrace)):
+    if isinstance(trace, (SyntheticTrace, SwfTrace, WorkflowTrace, ArrayTrace,
+                          ServiceTrace)):
         return trace
     if isinstance(trace, dict):
         return ArrayTrace.from_dict(trace)
     if isinstance(trace, str):
         return SwfTrace(trace)
     raise NotImplementedError(
-        f"trace {type(trace).__name__} is not ported yet: service traces "
-        "are ROADMAP Queue 1 item 5, per-cluster trace tuples item 6, "
-        "injected what-if jobs item 8")
+        f"trace {type(trace).__name__} is not ported yet: per-cluster trace "
+        "tuples are ROADMAP Queue 1 item 6, injected what-if jobs item 8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,8 +280,8 @@ class Topology:
 
 # fields of the reference's Scenario that later slices of the port bring
 _NOT_PORTED = {
-    "failures": "ROADMAP Queue 1 item 5 (extra event sources)",
-    "malleable": "ROADMAP Queue 1 item 5 (extra event sources)",
+    "malleable": "ROADMAP Queue 1 item 5 (extra event sources: malleable "
+                 "jobs, its remaining half)",
     "multicluster": "ROADMAP Queue 1 item 6 (multicluster windows)",
 }
 
@@ -291,7 +296,9 @@ class Scenario:
     scalar-counter mode); ``alloc`` its placement strategy (a name or id,
     default ``simple``) and ``contention`` its runtime dilation (``None``,
     ``(num, den)`` or a ``Contention``), both of which need a topology;
-    ``capacity`` pads the job table; ``max_events`` caps the event loop.
+    ``capacity`` pads the job table (a ``ServiceTrace`` pads it to its
+    ``max_jobs``); ``max_events`` caps the event loop.  ``failures`` (a
+    frozen ``FailureModel``) switches on node failures (DESIGN.md §15).
     Passing any of the reference's other fields raises
     ``NotImplementedError``.
     """
@@ -304,7 +311,7 @@ class Scenario:
     contention: Optional[Any] = None
     capacity: Optional[int] = None
     max_events: Optional[int] = None
-    failures: Any = None
+    failures: Optional[FailureModel] = None
     malleable: Any = None
     multicluster: Any = None
 
@@ -313,7 +320,28 @@ class Scenario:
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"Scenario.{name} is not ported yet: {item}")
+        if (self.failures is not None
+                and not isinstance(self.failures, FailureModel)):
+            raise TypeError(
+                "Scenario.failures must be a repro_torch.reliability."
+                f"FailureModel, got {type(self.failures).__name__} (specs "
+                "stay frozen/hashable; materialized FailureTraces belong to "
+                "the engine call, not the scenario)")
         object.__setattr__(self, "trace", as_trace_spec(self.trace))
+        if isinstance(self.trace, ServiceTrace):
+            if (self.failures is not None and self.topology is not None
+                    and self.trace.autoscale is not None):
+                raise ValueError(
+                    "machine-mode failures cannot be combined with an "
+                    "autoscaling ServiceTrace; drop topology=, failures=, "
+                    "or autoscale (engine restriction, DESIGN.md §16)")
+            if (self.capacity is not None
+                    and int(self.capacity) != self.trace.max_jobs):
+                raise ValueError(
+                    f"capacity={self.capacity} disagrees with "
+                    f"ServiceTrace.max_jobs={self.trace.max_jobs}; the "
+                    "deadline/class columns are padded to max_jobs, so the "
+                    "job table must share that shape")
         if self.topology is None and (self.alloc is not None
                                       or self.contention is not None):
             raise ValueError(

@@ -7,13 +7,17 @@ axes over a base :class:`Scenario`:
 1. every grid point becomes a scenario via ``Scenario.with_``;
 2. points are partitioned into *static buckets*, keyed on what fixes the
    stacked table's shape: the trace's static key (everything but its
-   seed), the topology (and ``total_nodes`` with it), ``capacity`` and
-   ``max_events``, as the reference keys them (a workflow DAG's seed axis
-   stays in one bucket even where its edge counts differ:
-   ``stack_jobsets`` pads the edge lists);
+   seed; for a ``ServiceTrace`` its ``max_jobs`` and the autoscaler's
+   ``max_ticks``), the topology (and ``total_nodes`` with it),
+   ``capacity``, ``max_events`` and the failure model's ``max_failures``,
+   as the reference keys them (a workflow DAG's seed axis stays in one
+   bucket even where its edge counts differ: ``stack_jobsets`` pads the
+   edge lists);
 3. within a bucket the remaining axes (``policy``, ``alloc``,
-   ``contention``, ``total_nodes`` without a topology, ``trace.seed``) are
-   data: the members' job tables are stacked and ONE batched
+   ``contention``, ``total_nodes`` without a topology, ``trace.seed``, the
+   failure model's other fields, the service's rate, classes and
+   autoscaler) are data: the members' job tables are stacked, each member
+   gets its own failure stream and service plan, and ONE batched
    ``simulate_ensemble`` call runs the whole bucket;
 4. the batched result is sliced into per-point :class:`Result`\\ s in grid
    order.
@@ -43,7 +47,9 @@ import numpy as np
 
 from repro_torch import alloc as _alloc
 from repro_torch.api.result import Result
-from repro_torch.api.run import build_jobset, build_machine, run
+from repro_torch.api.run import (
+    _failure_trace, _service_plan, build_jobset, build_machine, run,
+)
 from repro_torch.api.scenario import Scenario
 from repro_torch.core import engine
 from repro_torch.core.jobs import JOB_FIELDS, JobSet, resolve_device
@@ -53,11 +59,14 @@ from repro_torch.core.parallel import simulate_ensemble, stack_jobsets
 def _static_key(scenario: Scenario) -> tuple:
     """Hashable bucket key: everything that fixes the stacked shapes.
     ``total_nodes`` is data in scalar-counter mode, and static with a
-    topology, which pins the machine."""
+    topology, which pins the machine.  A failure model adds only its
+    padded capacity."""
     return (tuple(t.static_key() for t in scenario.trace_specs()),
             scenario.topology,
             None if scenario.topology is None else scenario.total_nodes,
-            scenario.capacity, scenario.max_events)
+            scenario.capacity, scenario.max_events,
+            None if scenario.failures is None
+            else scenario.failures.static_key())
 
 
 @dataclasses.dataclass
@@ -222,14 +231,18 @@ def _run_bucket(key: tuple, bucket: List[Scenario], device) -> List[Result]:
     jobs_b = stack_jobsets(jobsets)
     _log_bucket_execution(key, bucket, jobs_b)
     machine = build_machine(bucket[0], device)
-    alloc = {}
+    kw = {}
     if machine is not None:
-        alloc = {"machine": machine,
-                 "alloc_b": [s.alloc for s in bucket],
-                 "contention": [s.contention for s in bucket]}
+        kw = {"machine": machine,
+              "alloc_b": [s.alloc for s in bucket],
+              "contention": [s.contention for s in bucket]}
+    if bucket[0].failures is not None:
+        kw["failures_b"] = [_failure_trace(s) for s in bucket]
+    if _service_plan(bucket[0]) is not None:
+        kw["service_b"] = [_service_plan(s) for s in bucket]
     batched = simulate_ensemble(
         jobs_b, [s.policy for s in bucket],
         [int(s.total_nodes) for s in bucket],
-        max_events=bucket[0].max_events, device=device, **alloc)
+        max_events=bucket[0].max_events, device=device, **kw)
     return [Result(scenario=scn, raw=batched.member(b), jobs=jobs_b.member(b))
             for b, scn in enumerate(bucket)]

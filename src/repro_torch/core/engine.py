@@ -1,14 +1,18 @@
 """The discrete-event engine of the PyTorch port.
 
-Counterpart of ``repro.core.engine`` with ``failures``, ``service`` and
-``malleable`` all ``None``, in scalar-counter mode or with a machine
-(topology-aware allocation), on tables with or without dependency edges.
-Event semantics are the reference's:
+Counterpart of ``repro.core.engine`` with ``malleable=None``, in
+scalar-counter mode or with a machine (topology-aware allocation), on
+tables with or without dependency edges, with or without a failure stream
+(``failures``) and a service plan (``service``).  Event semantics are the
+reference's:
 
-  1. advance the clock to min(next arrival, next completion),
+  1. advance the clock to min(next arrival, next completion, next stream
+     entry),
   2. process every completion with finish <= clock (reclaim nodes),
-  3. process every arrival with submit <= clock (enqueue),
-  4. run the scheduling pass: start jobs until the policy blocks.
+  3. consume the failure/repair entries, then the autoscaler ticks, with
+     time <= clock (while some job is not DONE),
+  4. process every arrival with submit <= clock (enqueue),
+  5. run the scheduling pass: start jobs until the policy blocks.
 
 With dependency edges (paper §3, DESIGN.md §13-§14) a PENDING job arrives
 only once ``submit <= clock`` and its unmet-dependency counter
@@ -16,6 +20,20 @@ only once ``submit <= clock`` and its unmet-dependency counter
 decrement the counters along their out-edges (one cumsum over the edge
 list between the CSR bounds of :func:`dep_csr`), so a job whose last
 dependency finished arrives in the same event.
+
+Stream entries (DESIGN.md §15-§16) are known before the run, so their
+streams stay on the host (``reliability.FailCtx``, ``serving.SvcCtx``) and
+the next entry's time bounds the device's clock as a scalar.  A failure
+kills the job on its node (on a machine, the node's owner; in scalar mode
+the job whose running-node cumsum covers the slot ``node % (free +
+busy)``), which requeues at its submit rank with the work since its last
+checkpoint re-charged, or aborts and releases its dependents; a failure
+costs one read, a repair none.  A tick reads the queued demand once and
+moves nodes in or out of service.  On a machine, down and offline nodes
+are painted busy, owned by nobody (the out-of-range id ``J``), in every
+placement, cap and log (:func:`_owner_eff`); releases read the true map.
+Arrivals come after the event's one read and after the stream entries,
+with or without a stream.
 
 PyTorch has no device-side while loop, so the host drives both loops.  The
 per-job state stays on the device and is updated in place; the host keeps
@@ -55,18 +73,26 @@ from repro_torch.core.policies import (
     NO_PARAMS, PREFIX, RECLAIM, SELECT, START, SUSPEND, WALK,
 )
 from repro_torch.kernels.queue_select import ref as select_ref
+from repro_torch.reliability.model import FAIL, REQUEUE, make_fail_ctx
+from repro_torch.serving.model import make_svc_ctx
 
 # Counts for the on-card checks: the batched backfill pass's shadow-walk
 # recomputations after an overdraw of ``extra`` (``redo``), the most walk
 # launches one event made besides those (``max_walks_per_event``), and the
 # reads of the largest free run that starts cost under ``contiguous``
 # (``cap_reads``, one a start; an ensemble's round reads once for all its
-# members' starts).
-counters = {"redo": 0, "max_walks_per_event": 0, "cap_reads": 0}
+# members' starts).  The stream entries consumed (``failures``,
+# ``repairs``, ``ticks``), the kills by kind (``requeues``, ``aborts``) and
+# the device reads the streams cost (``stream_reads``: one a failure, one
+# an event with ticks, and one refresh of the largest free run after the
+# entries of an event that moved the map under ``contiguous``).
+COUNTER_KEYS = ("redo", "max_walks_per_event", "cap_reads", "failures",
+                "repairs", "ticks", "requeues", "aborts", "stream_reads")
+counters = dict.fromkeys(COUNTER_KEYS, 0)
 
 
 def reset_counters() -> None:
-    counters.update(redo=0, max_walks_per_event=0, cap_reads=0)
+    counters.update(dict.fromkeys(COUNTER_KEYS, 0))
 
 
 # Strategies whose placement cap IS the free counter and which take the
@@ -112,11 +138,28 @@ def make_alloc_ctx(machine, strategy, contention,
 
 def _release_nodes(owner: torch.Tensor, released: torch.Tensor) -> None:
     """Free, in place, every node whose owning job row is set in
-    ``released`` (``[..., N]`` maps against ``[..., J]`` masks)."""
+    ``released`` (``[..., N]`` maps against ``[..., J]`` masks).  ``owner``
+    is the true map, which never holds the painted id ``J``."""
     J = released.shape[-1]
     hit = (owner >= 0) & torch.gather(released, -1,
                                       owner.clamp(0, J - 1).long())
     owner.masked_fill_(hit, -1)
+
+
+def _owner_eff(state, m=None) -> torch.Tensor:
+    """The occupancy map as placements, caps and the log see it (the
+    reference's ``_owner_eff``): offline and down nodes painted with the
+    out-of-range id ``J``, "busy, owned by nobody", so every free test
+    excludes them.  ``m`` (device indices) takes those members' rows of an
+    ensemble's map.  The true map is returned as it is without a painted
+    mask."""
+    own = state.node_owner if m is None else state.node_owner[m]
+    J = state.jstate.shape[-1]
+    for mask in (None if state.svc is None else state.svc.offline,
+                 None if state.rel is None else state.rel.down):
+        if mask is not None and mask.shape[-1]:
+            own = torch.where(mask if m is None else mask[m], J, own)
+    return own
 
 
 class _MapLog:
@@ -166,19 +209,22 @@ class _MapLog:
 def _start_job(jobs: JobSet, state: SimState, idx: int,
                ctx: Optional[AllocCtx] = None) -> SimState:
     """Start job ``idx`` now: schedule its completion from its remaining
-    runtime, and record only its FIRST start time.  With an allocation
-    context the strategy places its nodes (the occupancy map reads
-    ``node_owner`` as it is: down and offline nodes, which would be painted
-    busy first, arrive with ROADMAP Queue 1 item 5), the fingerprint is
-    recorded and contention dilates the remaining runtime by the span."""
+    runtime, and record only its FIRST start time (and, with a failure
+    stream, this start as its checkpoint base).  With an allocation
+    context the strategy places its nodes on the painted map
+    (:func:`_owner_eff`), the fingerprint is recorded and contention
+    dilates the remaining runtime by the span."""
     clock = state.clock
     need = int(jobs.host["nodes"][idx])
     state.jstate[idx] = RUNNING
     state.start[idx : idx + 1].clamp_(max=clock)
+    if state.rel is not None:
+        state.rel.last_start[idx] = clock
     if ctx is None:
         state.finish[idx : idx + 1] = state.remaining[idx : idx + 1] + clock
     else:
-        mask = _alloc.place(ctx.strategy, ctx.machine, state.node_owner, need)
+        mask = _alloc.place(ctx.strategy, ctx.machine, _owner_eff(state),
+                            need)
         span = _alloc.group_span(ctx.machine, mask)
         first, asum = _alloc.alloc_fingerprint(mask)
         state.node_owner.masked_fill_(mask, idx)
@@ -186,7 +232,7 @@ def _start_job(jobs: JobSet, state: SimState, idx: int,
         state.finish[idx] = _alloc.dilate(
             ctx.contention, state.remaining[idx], span) + clock
         if state.lfb is not None:
-            state.lfb = int(_alloc.largest_free_run(state.node_owner))
+            state.lfb = int(_alloc.largest_free_run(_owner_eff(state)))
             counters["cap_reads"] += 1
     state.rsv_finish[idx] = clock + int(jobs.host["estimate"][idx])
     state.free -= need
@@ -288,6 +334,9 @@ def _batched_pass(jobs: JobSet, state: SimState, order: torch.Tensor,
     state.finish = torch.where(started, state.remaining + clock, state.finish)
     state.rsv_finish = torch.where(started, jobs.estimate + clock,
                                    state.rsv_finish)
+    if state.rel is not None:
+        state.rel.last_start.copy_(torch.where(started, clock,
+                                               state.rel.last_start))
     state.free -= int(torch.sum(torch.where(started, jobs.nodes, 0)))
     return state
 
@@ -426,19 +475,217 @@ def dep_csr(jobs: JobSet) -> Optional[DepCsr]:
     return edge_csr(jobs.dep_dst, jobs.dep_src, jobs.capacity)
 
 
+def _stream_time(state, k: int) -> int:
+    """The time of member ``k``'s next stream entry (the earlier of its
+    next failure/repair and its next autoscaler tick), ``INF_TIME`` when
+    both are drained: a host scalar that bounds the event's clock."""
+    t = INF_TIME
+    if state.rel is not None:
+        f, p = state.rel.ctx[k], state.rel.ptr[k]
+        if p < f.time.shape[0]:
+            t = min(t, int(f.time[p]))
+    if state.svc is not None:
+        c, p = state.svc.ctx[k], state.svc.ptr[k]
+        if p < c.tick_time.shape[0]:
+            t = min(t, int(c.tick_time[p]))
+    return t
+
+
+def _kill(jobs: JobSet, state, st, k: int, row, host, victim: int,
+          fin_v: int, last_v: int, machine: bool) -> int:
+    """Kill member ``k``'s job ``victim`` (its finish ``fin_v`` and latest
+    start ``last_v`` read with the failure) in place; returns 1 when it
+    aborted (it is DONE now), else 0.
+
+    Requeue: WAITING at its submit rank, its remaining runtime re-charged
+    by the work since its last checkpoint (all of it without checkpoints)
+    plus the restart overhead.  Abort: DONE at the kill time, the elapsed
+    work lost, and its dependents decremented along ``dep_src == victim``
+    through a ``J + 1`` buffer whose last slot takes the pad edges.  Either
+    way the victim's nodes are freed (on a machine, in the true map)."""
+    rel, f, clock = state.rel, state.rel.ctx[k], st.clock
+    el = clock - last_v
+    ckpt = f.checkpoint_interval
+    lost = el - ((el // ckpt) * ckpt if ckpt > 0 else 0)
+    v = slice(victim, victim + 1)
+    row(state.rsv_finish)[v] = INF_TIME
+    if f.requeue == REQUEUE:
+        row(state.jstate)[v] = WAITING
+        row(state.finish)[v] = INF_TIME
+        row(state.remaining)[v] = max(fin_v - clock + lost
+                                      + f.restart_overhead, 1)
+        row(rel.n_restarts)[v] += 1
+        row(rel.lost_work)[v] += lost + f.restart_overhead
+        counters["requeues"] += 1
+        aborted = 0
+    else:
+        row(state.jstate)[v] = DONE
+        row(state.finish)[v] = clock
+        row(rel.lost_work)[v] += el
+        row(rel.aborted)[v] = True
+        if state.n_unmet is not None:
+            J = jobs.capacity
+            hit = (row(jobs.dep_src) == victim).to(torch.int32)
+            dec = torch.zeros(J + 1, dtype=torch.int32, device=hit.device)
+            dec.scatter_add_(0, row(jobs.dep_dst).long(), hit)
+            row(state.n_unmet).sub_(dec[:J])
+        counters["aborts"] += 1
+        aborted = 1
+    st.free += int(host["nodes"][victim])
+    if machine:
+        own = row(state.node_owner)
+        own.masked_fill_(own == victim, -1)
+    return aborted
+
+
+def _rel_entries(jobs: JobSet, state, st, k: int, row, host,
+                 machine: bool) -> tuple:
+    """Consume member ``k``'s failure/repair entries with time <= clock,
+    one at a time (a kill changes the running set the next victim rule
+    reads): ``(aborts, whether the map's painted mask moved)``.
+
+    On a machine a failure takes its node down (the host keeps a copy of
+    the mask, so a repair needs no read) and kills the node's owner, read
+    with its finish and latest start in one read.  In scalar mode nodes
+    are anonymous: with ``busy`` running nodes, the slot ``node % max(free
+    + busy, 1)`` hits a job when it is below ``busy``, and the victim is
+    the first row whose running-node cumsum exceeds the slot (the count of
+    rows whose cumsum does not, the cumsum being nondecreasing); slot,
+    victim, finish and latest start come back in one read.  ``row`` maps a
+    ``[B, ...]`` tensor to member ``k``'s row (the identity in a solo
+    run)."""
+    rel = state.rel
+    f = rel.ctx[k]
+    K, p = f.time.shape[0], rel.ptr[k]
+    aborts, moved = 0, False
+    J = jobs.capacity
+    jst, fin, last = row(state.jstate), row(state.finish), row(
+        rel.last_start)
+    while p < K and int(f.time[p]) <= st.clock:
+        node, fail = int(f.node[p]), int(f.kind[p]) == FAIL
+        p += 1
+        counters["failures" if fail else "repairs"] += 1
+        got = None
+        if machine:
+            down_h = row(rel.down_host)
+            if bool(down_h[node]) == fail:   # a no-op of a hand-built stream
+                continue
+            down_h[node] = fail
+            row(rel.down)[node] = fail
+            moved = True
+            if not fail:
+                st.free += 1
+                continue
+            st.free -= 1
+            own = row(state.node_owner)[node]
+            vc = own.clamp(min=0).long()
+            got = torch.stack([own, fin[vc], last[vc]]).tolist()
+        else:
+            if not fail:
+                st.free += 1
+                continue
+            cum = torch.cumsum(torch.where(jst == RUNNING, row(jobs.nodes), 0),
+                               0, dtype=torch.int32)
+            busy = cum[-1]
+            slot = node % torch.clamp(busy + st.free, min=1)
+            vc = torch.sum(cum <= slot).clamp(max=J - 1)
+            hit, *got = torch.stack([busy - slot, vc.to(torch.int32),
+                                     fin[vc], last[vc]]).tolist()
+            got = got if hit > 0 else None
+            st.free -= 1
+        counters["stream_reads"] += 1
+        if got is not None and got[0] >= 0:
+            aborts += _kill(jobs, state, st, k, row, host, *got, machine)
+    rel.ptr[k] = p
+    return aborts, moved
+
+
+def _tick_entries(jobs: JobSet, state, st, k: int, row,
+                  machine: bool) -> bool:
+    """Consume member ``k``'s autoscaler ticks with time <= clock; returns
+    whether the offline mask moved.
+
+    The queued demand (nodes of the WAITING jobs, before this event's
+    arrivals) is read once: ticks do not change it.  At ``demand >=
+    up_threshold`` up to ``step`` nodes come back (never past
+    ``max_nodes``; on a machine the lowest-index offline ones), else at
+    ``demand <= down_threshold`` up to ``step`` free nodes leave (never
+    below ``min_nodes``, never more than ``free``; on a machine the
+    highest-index free online ones).  The online count after each tick
+    goes to ``cap_online``.  In scalar mode a tick only moves ``free``."""
+    svc = state.svc
+    c = svc.ctx[k]
+    T, p = c.tick_time.shape[0], svc.ptr[k]
+    if p >= T or int(c.tick_time[p]) > st.clock:
+        return False
+    demand = int(torch.sum(torch.where(row(state.jstate) == WAITING,
+                                       row(jobs.nodes), 0)))
+    counters["stream_reads"] += 1
+    moved = False
+    while p < T and int(c.tick_time[p]) <= st.clock:
+        n_on = svc.n_online[k]
+        k_up = k_down = 0
+        if demand >= c.up_threshold:
+            k_up = min(max(c.max_nodes - n_on, 0), c.step)
+        elif demand <= c.down_threshold:
+            k_down = min(max(n_on - c.min_nodes, 0), c.step, max(st.free, 0))
+        if machine and (k_up or k_down):
+            off = row(svc.offline)
+            if k_up:
+                off &= torch.cumsum(off, 0, dtype=torch.int32) > k_up
+            else:
+                cand = (row(state.node_owner) < 0) & ~off
+                rank = torch.cumsum(cand.flip(0), 0, dtype=torch.int32).flip(0)
+                off |= cand & (rank <= k_down)
+            moved = True
+        n_on += k_up - k_down
+        svc.n_online[k] = n_on
+        row(svc.cap_online)[p] = n_on
+        st.free += k_up - k_down
+        p += 1
+        counters["ticks"] += 1
+    svc.ptr[k] = p
+    return moved
+
+
+def _streams_step(jobs: JobSet, state, st, k: int, row, host,
+                  machine: bool, unfinished: int) -> tuple:
+    """Member ``k``'s stream entries of this event, after its completions
+    (``unfinished``: its jobs not DONE after them): the failure/repair
+    entries, then the ticks, each only while some job is not DONE (a
+    finished member never drains its streams' tails).  Returns ``(aborts,
+    whether the painted mask moved)``."""
+    aborts, moved = 0, False
+    if state.rel is not None and unfinished > 0:
+        aborts, moved = _rel_entries(jobs, state, st, k, row, host, machine)
+    if state.svc is not None and unfinished - aborts > 0:
+        moved |= _tick_entries(jobs, state, st, k, row, machine)
+    return aborts, moved
+
+
+def _solo_row(t):
+    return t
+
+
 def _event_step(policy: int, jobs: JobSet, state: SimState,
                 order: Optional[torch.Tensor] = None,
                 ctx: Optional[AllocCtx] = None,
                 log: Optional[_MapLog] = None,
-                csr: Optional[DepCsr] = None) -> int:
-    """Process one event in place; returns the number of jobs it
-    completed (the host's count of unfinished jobs drops by that much).
-    ``order`` is ``_fast_order``'s permutation (``None``: selector loop),
-    ``csr`` the table's :func:`dep_csr` (``None`` without edges).  With a
-    machine, completions free their nodes (before the one read, which then
-    carries the largest free run, where that run is the cap; after it, and
-    only when some job completed, elsewhere), and the event's (clock,
-    free, map) row goes to the log after the pass."""
+                csr: Optional[DepCsr] = None,
+                *, unfinished: int) -> int:
+    """Process one event in place; returns the number of jobs it made DONE
+    (completions and aborts: the host's count of unfinished jobs,
+    ``unfinished`` before the event, drops by that much).  ``order`` is
+    ``_fast_order``'s permutation (``None``: selector loop), ``csr`` the
+    table's :func:`dep_csr` (``None`` without edges).  With a machine,
+    completions free their nodes (before the one read, which then carries
+    the largest free run, where that run is the cap; after it, and only
+    when some job completed, elsewhere), and the event's (clock, free,
+    painted map) row goes to the log after the pass.  With a stream the
+    next entry's time bounds the clock.  The arrivals come after the one
+    read and after the stream entries (:func:`_streams_step`), so that a
+    released dependent or a requeued victim arrives in the same event."""
+    streams = state.rel is not None or state.svc is not None
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
     if csr is not None:   # an unreleased job is no arrival event
@@ -447,18 +694,17 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
     nxt = torch.where(pending, jobs.submit,
                       torch.where(running, state.finish, INF_TIME))
     clock = torch.min(nxt)
+    if streams:
+        clock = torch.clamp(clock, max=_stream_time(state, 0))
     completed = running & (state.finish <= clock)
     freed = torch.sum(torch.where(completed, jobs.nodes, 0))
-    jstate = torch.where(completed, DONE, state.jstate)
-    arrived = (jstate == PENDING) & (jobs.submit <= clock)
+    state.jstate = torch.where(completed, DONE, state.jstate).to(torch.int32)
     if csr is not None:
         state.n_unmet -= count_deps(csr, completed)
-        arrived &= state.n_unmet == 0
-    state.jstate = torch.where(arrived, WAITING, jstate).to(torch.int32)
     reads = [clock.to(torch.int64), freed, torch.sum(completed)]
     if state.lfb is not None:
         _release_nodes(state.node_owner, completed)
-        reads.append(_alloc.largest_free_run(state.node_owner).long())
+        reads.append(_alloc.largest_free_run(_owner_eff(state)).long())
     clock, freed, n_completed, *lfb = torch.stack(reads).tolist()
     if ctx is not None and state.lfb is None and n_completed:
         _release_nodes(state.node_owner, completed)
@@ -467,12 +713,24 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
     state.n_events += 1
     if lfb:
         state.lfb = lfb[0]
+    if streams:
+        aborts, moved = _streams_step(jobs, state, state, 0, _solo_row,
+                                      jobs.host, ctx is not None,
+                                      unfinished - n_completed)
+        n_completed += aborts
+        if moved and state.lfb is not None:
+            state.lfb = int(_alloc.largest_free_run(_owner_eff(state)))
+            counters["stream_reads"] += 1
+    arrived = (state.jstate == PENDING) & (jobs.submit <= clock)
+    if csr is not None:
+        arrived &= state.n_unmet == 0
+    state.jstate = torch.where(arrived, WAITING, state.jstate).to(torch.int32)
     _schedule_pass(policy, jobs, state, order, ctx)
     if ctx is not None:
         slot = state.n_events - 1
         state.ev_time[slot] = state.clock
         state.ev_free[slot] = state.free
-        log.add(state.node_owner, slot)
+        log.add(_owner_eff(state), slot)
     return n_completed
 
 
@@ -482,9 +740,48 @@ def policies_id(policy) -> int:
     return int(policy)
 
 
+def _event_cap(J: int, fctx, sctx) -> int:
+    """The default event cap, as in the reference: ``6 J + 8``, plus ``6
+    F`` with a failure stream of capacity ``F`` (a kill adds at most a
+    start and a completion, and two entries), plus the ``T`` ticks."""
+    cap = 6 * J + 8
+    if fctx is not None:
+        cap += 6 * fctx.capacity
+    if sctx is not None:
+        cap += sctx.tick_time.shape[-1]
+    return cap
+
+
+def _check_streams(machine, fctxs, sctxs, J: int) -> None:
+    """Refuse what the reference refuses: failures on a machine with an
+    autoscaler (the down and offline masks would double-count the free
+    counter), a deadline column that is not the table's length, and an
+    ensemble's streams of different shapes."""
+    if (machine is not None and fctxs is not None and sctxs is not None
+            and any(c.tick_time.shape[-1] > 0 for c in sctxs)):
+        raise ValueError(
+            "machine-mode failures cannot be combined with an active "
+            "autoscaler; drop machine=, failures=, or autoscale")
+    for c in sctxs or ():
+        if c.deadline.shape[-1] != J:
+            raise ValueError(
+                f"service plan has {c.deadline.shape[-1]} deadline rows but "
+                f"the job table's capacity is {J}; pad the table to the "
+                "plan's max_jobs")
+    # an ensemble's members share one event cap and one capacity log
+    # shape, as the reference's stacked streams share one shape
+    for what, sizes in (("failure capacities", {c.capacity for c in
+                                                fctxs or ()}),
+                        ("tick counts", {c.tick_time.shape[-1] for c in
+                                         sctxs or ()})):
+        if len(sizes) > 1:
+            raise ValueError(f"an ensemble's members need one shape of "
+                             f"stream; got {what} {sorted(sizes)}")
+
+
 def simulate(jobs: JobSet, policy, total_nodes: int, *, machine=None,
-             alloc=None, contention=None, max_events: Optional[int] = None,
-             device=None) -> SimResult:
+             alloc=None, contention=None, failures=None, service=None,
+             max_events: Optional[int] = None, device=None) -> SimResult:
     """Run the whole simulation of one cluster.
 
     Without ``machine`` the engine runs in scalar-counter mode.  With a
@@ -493,21 +790,31 @@ def simulate(jobs: JobSet, policy, total_nodes: int, *, machine=None,
     ``simple``), ``contention`` (``None``, ``(num, den)`` or a
     ``Contention``) dilates runtimes by the allocation's span, and the
     result carries the allocation fingerprints and the per-event
-    fragmentation log.  ``device=None`` runs on ``cuda`` (and raises
-    without one); the job table and the machine move there if they lie
-    elsewhere.  ``max_events`` caps the event count (default ``6 *
-    capacity + 8``, as in the reference).
+    fragmentation log.  ``failures`` (``None``, a ``FailureModel``, a
+    ``FailureTrace`` or a ``FailCtx``) switches on node failures (DESIGN.md
+    §15), ``service`` (``None``, a ``ServiceTrace``, a ``ServicePlan`` or
+    a ``SvcCtx``) the serving plan's deadlines and autoscaler (§16).
+    ``device=None`` runs on ``cuda`` (and raises without one); the job
+    table and the machine move there if they lie elsewhere.
+    ``max_events`` caps the event count (default ``6 * capacity + 8``,
+    plus ``6 * max_failures`` and the tick count, as in the reference).
     """
     ctx = make_alloc_ctx(machine, alloc, contention, total_nodes)
+    fctx = make_fail_ctx(failures, n_nodes=int(total_nodes))
+    sctx = make_svc_ctx(service, n_nodes=int(total_nodes))
+    _check_streams(machine, None if fctx is None else [fctx],
+                   None if sctx is None else [sctx], jobs.capacity)
     device = resolve_device(device)
     if jobs.device != device:
         jobs = jobs.to(device)
     if ctx is not None and ctx.machine.device != device:
         ctx = ctx._replace(machine=ctx.machine.to(device))
     policy = min(max(policies_id(policy), 0), len(policies.SELECTORS) - 1)
-    cap = max_events if max_events is not None else 6 * jobs.capacity + 8
+    cap = (max_events if max_events is not None
+           else _event_cap(jobs.capacity, fctx, sctx))
     state = SimState.init(jobs, total_nodes,
-                          None if ctx is None else ctx.machine, cap)
+                          None if ctx is None else ctx.machine, cap,
+                          fctx, sctx)
     if ctx is not None and ctx.strategy == _alloc.CONTIGUOUS:
         state.lfb = ctx.machine.n_nodes
     order = _fast_order(jobs, policy, None if ctx is None else ctx.strategy)
@@ -516,7 +823,8 @@ def simulate(jobs: JobSet, policy, total_nodes: int, *, machine=None,
     jobs.selector.bind_stream()
     unfinished = int(torch.sum(jobs.valid))
     while unfinished > 0 and state.n_events < cap:
-        unfinished -= _event_step(policy, jobs, state, order, ctx, log, csr)
+        unfinished -= _event_step(policy, jobs, state, order, ctx, log, csr,
+                                  unfinished=unfinished)
     if log is not None:
         log.flush()
     return result_from_state(jobs, state)
@@ -551,23 +859,37 @@ class BatchAlloc(NamedTuple):
                                  c.alpha_den[m])
 
 
-def _read_lfb(state: EnsembleState, actx: BatchAlloc, ms) -> None:
+def _read_lfb(state: EnsembleState, ms, counter: str = "cap_reads") -> None:
     """Read the largest free run of the members ``ms`` whose cap it is
-    (``contiguous``) into their host scalars: one read for all of them."""
+    (``contiguous``) into their host scalars: one read for all of them,
+    counted under ``counter``."""
     ms = [b for b in ms if state.members[b].lfb is not None]
     if not ms:
         return
     m = _to_device([ms], state.node_owner.device)[0]
-    lfb = _alloc.largest_free_run(state.node_owner[m]).tolist()
-    counters["cap_reads"] += 1
+    lfb = _alloc.largest_free_run(_owner_eff(state, m)).tolist()
+    counters[counter] += 1
     for b, v in zip(ms, lfb):
         state.members[b].lfb = v
+
+
+def _arrive_batch(jobs: JobSet, state: EnsembleState, clock: torch.Tensor,
+                  active: Optional[torch.Tensor], has_edges: bool) -> None:
+    """Every active member's arrivals at its ``clock`` (i32[B]), in place,
+    after the event's read and the members' stream entries."""
+    arrived = (state.jstate == PENDING) & (jobs.submit <= clock[:, None])
+    if active is not None:
+        arrived &= active[:, None]
+    if has_edges:
+        arrived &= state.n_unmet == 0
+    state.jstate.copy_(torch.where(arrived, WAITING, state.jstate))
 
 
 def _event_step_batch(jobs: JobSet, state: EnsembleState,
                       active: Optional[torch.Tensor],
                       actx: Optional[BatchAlloc] = None,
-                      csr: Optional[DepCsr] = None) -> list:
+                      csr: Optional[DepCsr] = None,
+                      t_stream: Optional[torch.Tensor] = None) -> tuple:
     """:func:`_event_step`'s event for every member at once, over the
     ``[B, J]`` state, written in place.  ``active`` (bool[B], ``None`` for
     every member) masks the members that are done, whose state is left as
@@ -575,7 +897,10 @@ def _event_step_batch(jobs: JobSet, state: EnsembleState,
     without edges).  One read: ``[clock, freed, n_completed]`` for each
     member (a done member's row means nothing), with the largest free run
     after the completions as a fourth column when some member's cap is
-    that run."""
+    that run.  With streams, ``t_stream`` (i32[B] on the device) bounds
+    each member's clock.  The arrivals are left to the caller
+    (:func:`_arrive_batch`, after the stream entries).  Returns the read
+    rows and the clocks on the device."""
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
     if csr is not None:
@@ -583,24 +908,21 @@ def _event_step_batch(jobs: JobSet, state: EnsembleState,
     nxt = torch.where(pending, jobs.submit,
                       torch.where(running, state.finish, INF_TIME))
     clock = torch.amin(nxt, dim=1)
+    if t_stream is not None:
+        clock = torch.minimum(clock, t_stream)
     completed = running & (state.finish <= clock[:, None])
     if active is not None:
         completed &= active[:, None]
     freed = torch.sum(torch.where(completed, jobs.nodes, 0), dim=1)
-    jstate = torch.where(completed, DONE, state.jstate)
-    arrived = (jstate == PENDING) & (jobs.submit <= clock[:, None])
-    if active is not None:
-        arrived &= active[:, None]
+    state.jstate.copy_(torch.where(completed, DONE, state.jstate))
     if csr is not None:   # a done member completes nothing: no decrement
         state.n_unmet -= count_deps(csr, completed)
-        arrived &= state.n_unmet == 0
-    state.jstate.copy_(torch.where(arrived, WAITING, jstate))
     reads = [clock.to(torch.int64), freed, torch.sum(completed, dim=1)]
     if actx is not None:
         _release_nodes(state.node_owner, completed)
         if _alloc.CONTIGUOUS in actx.strategies:
-            reads.append(_alloc.largest_free_run(state.node_owner).long())
-    return torch.stack(reads, dim=1).tolist()
+            reads.append(_alloc.largest_free_run(_owner_eff(state)).long())
+    return torch.stack(reads, dim=1).tolist(), clock
 
 
 def _to_device(rows, device) -> torch.Tensor:
@@ -624,12 +946,15 @@ def _start_batch(jobs: JobSet, state: EnsembleState, hosts, reqs,
     c = c.to(torch.int32)
     state.jstate[m, i] = RUNNING
     state.start[m, i] = torch.minimum(state.start[m, i], c)
+    if state.rel is not None:
+        state.rel.last_start[m, i] = c
     if actx is None:
         state.finish[m, i] = state.remaining[m, i] + c
     else:
         own = state.node_owner[m]
         mask = _alloc.place_batch([actx.strategies[b] for b in ms],
-                                  actx.machine, own, jobs.nodes[m, i])
+                                  actx.machine, _owner_eff(state, m),
+                                  jobs.nodes[m, i])
         span = _alloc.group_span(actx.machine, mask)
         first, asum = _alloc.alloc_fingerprint(mask)
         state.node_owner[m] = torch.where(mask, i[:, None].to(torch.int32),
@@ -641,7 +966,7 @@ def _start_batch(jobs: JobSet, state: EnsembleState, hosts, reqs,
     for b, idx in reqs:
         state.members[b].free -= int(hosts[b]["nodes"][idx])
     if actx is not None:
-        _read_lfb(state, actx, ms)
+        _read_lfb(state, ms)
 
 
 def _prefix_batch(jobs: JobSet, state: EnsembleState, order: torch.Tensor,
@@ -675,6 +1000,9 @@ def _prefix_batch(jobs: JobSet, state: EnsembleState, order: torch.Tensor,
     state.start[m] = torch.where(started, torch.minimum(start, clk), start)
     state.finish[m] = torch.where(started, state.remaining[m] + clk, finish)
     state.rsv_finish[m] = torch.where(started, jobs.estimate[m] + clk, rsv)
+    if state.rel is not None:
+        last = state.rel.last_start
+        last[m] = torch.where(started, clk, last[m])
     taken = torch.sum(torch.where(started, nodes, 0), dim=1).tolist()
     for b, t in zip(ms, taken):
         state.members[b].free -= t
@@ -800,7 +1128,7 @@ def _log_events_batch(state: EnsembleState, members, log: _MapLog,
         st = state.members[b]
         state.ev_time[b, rnd] = st.clock
         state.ev_free[b, rnd] = st.free
-    log.add(state.node_owner, rnd, state.n_events)
+    log.add(_owner_eff(state), rnd, state.n_events)
 
 
 def _batch_order(jobs: JobSet, pols, batched) -> Optional[torch.Tensor]:
@@ -815,6 +1143,7 @@ def _batch_order(jobs: JobSet, pols, batched) -> Optional[torch.Tensor]:
 
 def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
                    machine=None, alloc_b=None, contention_b=None,
+                   failures_b=None, service_b=None,
                    max_events: Optional[int] = None) -> SimResult:
     """Run B members of a stacked table (``[B, J]`` columns) in lockstep.
 
@@ -826,10 +1155,15 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
     the table's device, shared by every member) member ``b`` places under
     ``alloc_b[b]`` (a canonical id) with ``contention_b[b]`` (a
     ``Contention``); members of different strategies share the batch, and
-    each reads and writes only its own occupancy row.  A member is done
-    once it has no unfinished job or has reached its event cap; from then
-    on its state is never written again ("max iterations across members,
-    finished carries preserved", DESIGN.md §18.1).  Runs on the table's
+    each reads and writes only its own occupancy row.  ``failures_b`` and
+    ``service_b`` give each member its ``FailCtx`` and ``SvcCtx`` (lists,
+    or ``None``); each member keeps its own stream pointers and consumes
+    its entries inside the lockstep event step, and its next entry's time
+    bounds its clock through one device row ``t_stream`` written only when
+    a pointer moves.  A member is done once it has no unfinished job or
+    has reached its event cap; from then on its state is never written
+    again ("max iterations across members, finished carries preserved",
+    DESIGN.md §18.1), nor are its streams drained.  Runs on the table's
     device."""
     B = jobs.batch
     if B is None:
@@ -839,12 +1173,19 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
     if len(pols) != B or len(total_nodes_b) != B:
         raise ValueError(f"{len(pols)} policies and {len(total_nodes_b)} "
                          f"node counts for {B} members")
-    cap = max_events if max_events is not None else 6 * jobs.capacity + 8
+    for name, ctxs in (("failures_b", failures_b), ("service_b", service_b)):
+        if ctxs is not None and len(ctxs) != B:
+            raise ValueError(f"{len(ctxs)} {name} contexts for {B} members")
+    _check_streams(machine, failures_b, service_b, jobs.capacity)
+    cap = max_events if max_events is not None else _event_cap(
+        jobs.capacity, None if failures_b is None else failures_b[0],
+        None if service_b is None else service_b[0])
     actx = None
     if machine is not None:
         actx = BatchAlloc.make(machine, list(alloc_b), list(contention_b),
                                jobs.device)
-    state = EnsembleState.init(jobs, total_nodes_b, machine, cap)
+    state = EnsembleState.init(jobs, total_nodes_b, machine, cap,
+                               failures_b, service_b)
     if actx is not None:
         for b, s in enumerate(actx.strategies):
             if s == _alloc.CONTIGUOUS:
@@ -864,6 +1205,11 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
     members = [b for b in range(B) if unfinished[b] > 0 and cap > 0]
     active, n_masked = None, B
     log = None if actx is None else _MapLog(state.node_owner, state.ev_lfb)
+    streams = state.rel is not None or state.svc is not None
+    t_host = t_stream = None
+    if streams:
+        t_host = [_stream_time(state, b) for b in range(B)]
+        t_stream = torch.tensor(t_host, dtype=torch.int32).to(jobs.device)
     rnd = 0
     while members:
         if len(members) != n_masked:   # a member is done: mask it from now
@@ -871,7 +1217,8 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
             for b in members:
                 mask[b] = True
             active, n_masked = torch.tensor(mask).to(jobs.device), len(members)
-        stepped = _event_step_batch(jobs, state, active, actx, csr)
+        stepped, clock_d = _event_step_batch(jobs, state, active, actx, csr,
+                                             t_stream)
         for b in members:
             clock, freed, n_completed, *lfb = stepped[b]
             st = state.members[b]
@@ -881,6 +1228,23 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
             if st.lfb is not None:
                 st.lfb = lfb[0]
             unfinished[b] -= n_completed
+        if streams:
+            moved = []
+            for b in members:
+                aborts, mv = _streams_step(
+                    jobs, state, state.members[b], b,
+                    lambda t, b=b: t[b], hosts[b], actx is not None,
+                    unfinished[b])
+                unfinished[b] -= aborts
+                if mv:
+                    moved.append(b)
+                t = _stream_time(state, b)
+                if t != t_host[b]:
+                    t_host[b] = t
+                    t_stream[b] = t
+            if moved:
+                _read_lfb(state, moved, "stream_reads")
+        _arrive_batch(jobs, state, clock_d, active, csr is not None)
         _schedule_batch(jobs, state, pols, hosts, order, members, batched,
                         actx)
         if log is not None:

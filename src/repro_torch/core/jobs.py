@@ -29,7 +29,14 @@ pad index is never used as one: the engine keeps pad edges out by the CSR
 bounds, which sit past every row's range, or by a ``J + 1`` buffer whose
 last slot is cut off.
 
-Not carried yet: failures, service plans and malleable plans.
+With a failure stream (DESIGN.md §15) the state carries ``rel``
+(:class:`RelState`: each job's latest start, restarts, lost work and abort
+flag, and the down-node mask), with a service plan (§16) ``svc``
+(:class:`SvcState`: the online count, the offline-node mask and the
+capacity log); each is ``None`` when its source is off, and the result
+carries their columns (:class:`FailureInfo`, :class:`SvcInfo`).
+
+Not carried yet: malleable plans.
 """
 
 from __future__ import annotations
@@ -441,6 +448,72 @@ class _AllocViews:
 
 
 @dataclasses.dataclass
+class RelState:
+    """Reliability state (DESIGN.md §15) of a run with a failure stream.
+
+    The host keeps each member's stream (``ctx``: a ``FailCtx``) and its
+    pointer to the next unconsumed entry (``ptr``), and, on a machine, a
+    copy of the down mask (``down_host``), so a repair needs no read.  The
+    per-job columns are ``[..., J]`` on the device: the clock of the
+    latest start (the checkpoint base), the requeue kills survived, the
+    work charged (rework and overhead, or the aborted work) and the abort
+    flag.  ``down`` is the device down mask ``[..., N]`` (``N`` = 0
+    without a machine).  A solo run's lists have one entry."""
+
+    ctx: list
+    ptr: list
+    last_start: torch.Tensor   # i32[..., J]
+    n_restarts: torch.Tensor   # i32[..., J]
+    lost_work: torch.Tensor    # i32[..., J]
+    aborted: torch.Tensor      # bool[..., J]
+    down: torch.Tensor         # bool[..., N]
+    down_host: np.ndarray      # bool[..., N]
+
+    @classmethod
+    def init(cls, ctxs, J: int, N: int, device, batch=()) -> "RelState":
+        zeros = torch.zeros((*batch, J), dtype=torch.int32, device=device)
+        return cls(ctx=list(ctxs), ptr=[0] * len(ctxs), last_start=zeros,
+                   n_restarts=zeros.clone(), lost_work=zeros.clone(),
+                   aborted=torch.zeros((*batch, J), dtype=torch.bool,
+                                       device=device),
+                   down=torch.zeros((*batch, N), dtype=torch.bool,
+                                    device=device),
+                   down_host=np.zeros((*batch, N), dtype=bool))
+
+
+@dataclasses.dataclass
+class SvcState:
+    """Serving state (DESIGN.md §16) of a run with a service plan.
+
+    The host keeps each member's plan (``ctx``: a ``SvcCtx``), its pointer
+    to the next autoscaler tick (``ptr``), its online node count
+    (``n_online``) and the capacity log (``cap_online``, ``[..., T]``, the
+    online count after each consumed tick, -1 where none was).  On a
+    machine ``offline`` is the device mask of the scaled-out nodes
+    ``[..., N]`` (``N`` = 0 without one).  ``deadline`` is the plan's
+    deadline column on the device.  A solo run's lists have one entry."""
+
+    ctx: list
+    ptr: list
+    n_online: list
+    offline: torch.Tensor      # bool[..., N]
+    cap_online: np.ndarray     # i32[..., T]
+    deadline: torch.Tensor     # i32[..., J]
+
+    @classmethod
+    def init(cls, ctxs, total_nodes, N: int, device, batch=()) -> "SvcState":
+        T = ctxs[0].tick_time.shape[-1]
+        deadline = np.stack([c.deadline for c in ctxs])
+        return cls(ctx=list(ctxs), ptr=[0] * len(ctxs),
+                   n_online=[int(t) for t in total_nodes],
+                   offline=torch.zeros((*batch, N), dtype=torch.bool,
+                                       device=device),
+                   cap_online=np.full((*batch, T), -1, dtype=np.int32),
+                   deadline=torch.from_numpy(
+                       deadline if batch else deadline[0]).to(device))
+
+
+@dataclasses.dataclass
 class SimState(_AllocViews):
     """Simulation state of one cluster, updated in place by the engine.
 
@@ -471,10 +544,15 @@ class SimState(_AllocViews):
     ev_lfb: torch.Tensor      # i32[L] largest free run after each event
     lfb: int | None = None
     n_unmet: Optional[torch.Tensor] = None   # i32[J] unmet dependencies
+    rel: Optional[RelState] = None
+    svc: Optional[SvcState] = None
 
     @classmethod
     def init(cls, jobs: JobSet, total_nodes: int, machine=None,
-             event_log: int = 0) -> "SimState":
+             event_log: int = 0, failures=None,
+             service=None) -> "SimState":
+        """``failures``/``service``: the run's ``FailCtx``/``SvcCtx`` (or
+        ``None``)."""
         J, dev = jobs.capacity, jobs.device
         N = machine.n_nodes if machine is not None else 0
         L = int(event_log) if machine is not None else 0
@@ -490,6 +568,10 @@ class SimState(_AllocViews):
             n_events=0,
             **machine_fields(J, N, L, dev),
             n_unmet=in_degrees(jobs),
+            rel=None if failures is None else RelState.init(
+                [failures], J, N, dev),
+            svc=None if service is None else SvcState.init(
+                [service], [total_nodes], N, dev),
         )
 
 
@@ -529,10 +611,15 @@ class EnsembleState(_AllocViews):
     ev_free: np.ndarray       # i32[B, L]
     ev_lfb: torch.Tensor      # i32[B, L]
     n_unmet: Optional[torch.Tensor] = None   # i32[B, J] unmet dependencies
+    rel: Optional[RelState] = None
+    svc: Optional[SvcState] = None
 
     @classmethod
     def init(cls, jobs: JobSet, total_nodes, machine=None,
-             event_log: int = 0) -> "EnsembleState":
+             event_log: int = 0, failures_b=None,
+             service_b=None) -> "EnsembleState":
+        """``failures_b``/``service_b``: one ``FailCtx``/``SvcCtx`` a
+        member (or ``None``)."""
         B, dev = jobs.batch, jobs.device
         N = machine.n_nodes if machine is not None else 0
         L = int(event_log) if machine is not None else 0
@@ -547,6 +634,10 @@ class EnsembleState(_AllocViews):
             members=[MemberScalars(0, int(t), 0) for t in total_nodes],
             **machine_fields(jobs.capacity, N, L, dev, (B,)),
             n_unmet=in_degrees(jobs),
+            rel=None if failures_b is None else RelState.init(
+                failures_b, jobs.capacity, N, dev, (B,)),
+            svc=None if service_b is None else SvcState.init(
+                service_b, total_nodes, N, dev, (B,)),
         )
 
     @property
@@ -554,11 +645,40 @@ class EnsembleState(_AllocViews):
         return [m.n_events for m in self.members]
 
 
+def _member(x, b: int):
+    """Row ``b`` of an ensemble's result field (``None`` stays ``None``)."""
+    if x is None:
+        return None
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _member(getattr(x, f.name), b)
+                          for f in dataclasses.fields(x)})
+    return x[b]
+
+
+@dataclasses.dataclass(frozen=True)
+class FailureInfo:
+    """Per-job reliability columns of a result (``SimResult.rel``)."""
+
+    n_restarts: torch.Tensor  # i32[J] requeue kills survived
+    lost_work: torch.Tensor   # i32[J] rework + overhead (+ aborted work)
+    aborted: torch.Tensor     # bool[J] terminated by a failure under abort
+
+
+@dataclasses.dataclass(frozen=True)
+class SvcInfo:
+    """Per-request serving columns of a result (``SimResult.svc``)."""
+
+    slo_met: torch.Tensor     # bool[J] started by its deadline, and done
+    deadline: torch.Tensor    # i32[J] submit + slo_wait (INF_TIME = pad)
+    cap_online: torch.Tensor  # i32[T] online nodes after each tick (-1)
+
+
 @dataclasses.dataclass(frozen=True)
 class SimResult:
     """Per-job outcome of a run.  The allocation fingerprints and the
     ``ev_*`` log are those of the state (``-1``/0 and length 0 without a
-    machine)."""
+    machine); ``rel`` and ``svc`` carry the reliability and serving
+    columns (``None`` when the source was off)."""
 
     start: torch.Tensor   # i32[J]
     finish: torch.Tensor  # i32[J]
@@ -566,31 +686,43 @@ class SimResult:
     wait: torch.Tensor    # i32[J] start - ready
     makespan: int         # a list of B ints for an ensemble
     n_events: int         # a list of B ints for an ensemble
-    done: torch.Tensor    # bool[J] reached DONE (False => event cap hit)
+    done: torch.Tensor    # bool[J] completed (False => aborted or cap hit)
     alloc_first: torch.Tensor  # i32[J] lowest node id of final allocation
     alloc_span: torch.Tensor   # i32[J] topology groups spanned by it
     alloc_sum: torch.Tensor    # i32[J] sum of its 1-based node ids
     ev_time: torch.Tensor      # i32[L] per-event clock (-1 = unused slot)
     ev_free: torch.Tensor      # i32[L] per-event free-node count
     ev_lfb: torch.Tensor       # i32[L] per-event largest free run
+    rel: Optional[FailureInfo] = None
+    svc: Optional[SvcInfo] = None
 
     def member(self, b: int) -> "SimResult":
         """Row ``b`` of an ensemble's result (``[B, ...]`` fields)."""
-        return SimResult(**{
-            f.name: getattr(self, f.name)[b]
-            for f in dataclasses.fields(self)})
+        return _member(self, b)
 
 
 def result_from_state(jobs: JobSet, state) -> SimResult:
     """The result of a solo run (``SimState``) or of an ensemble
     (``EnsembleState``: ``[B, ...]`` fields, per-member makespan and event
-    count)."""
+    count).  An aborted job reached DONE only to end its run: it is not
+    done, and its kill time is no part of the makespan."""
     ready = (jobs.submit if jobs.dep_dst is None else torch.maximum(
         jobs.submit, dependency_finish(jobs, state.finish)))
     wait = torch.where(jobs.valid, state.start - ready, 0).to(torch.int32)
     done = (state.jstate == DONE) & jobs.valid
+    rel = svc = None
+    if state.rel is not None:
+        done &= ~state.rel.aborted
+        rel = FailureInfo(n_restarts=state.rel.n_restarts,
+                          lost_work=state.rel.lost_work,
+                          aborted=state.rel.aborted)
     fin = torch.where(done, state.finish, 0)
     dev = jobs.device
+    if state.svc is not None:
+        svc = SvcInfo(slo_met=done & (state.start <= state.svc.deadline),
+                      deadline=state.svc.deadline,
+                      cap_online=torch.from_numpy(
+                          state.svc.cap_online).to(dev))
     return SimResult(
         start=state.start,
         finish=state.finish,
@@ -605,4 +737,6 @@ def result_from_state(jobs: JobSet, state) -> SimResult:
         ev_time=torch.from_numpy(state.ev_time).to(dev),
         ev_free=torch.from_numpy(state.ev_free).to(dev),
         ev_lfb=state.ev_lfb,
+        rel=rel,
+        svc=svc,
     )

@@ -2,8 +2,9 @@
 
 The PyTorch port's own copy of ``percentiles``, ``summary`` and the step
 series (occupancy, active jobs, queue length, sampling onto a grid), and of
-the allocation series (fragmentation, largest free block, job span) and
-``alloc_summary``, from ``repro.core.metrics``: pure numpy functions of the
+the allocation series (fragmentation, largest free block, job span),
+``alloc_summary``, ``reliability_summary`` and ``slo_summary``, from
+``repro.core.metrics``: pure numpy functions of the
 canonical result dict, identical to the reference's, so both engines'
 metrics agree bit for bit.
 """
@@ -185,3 +186,91 @@ def alloc_summary(res) -> Dict[str, float]:
         "mean_frag": float(frag[busy].mean()) if busy.any() else 0.0,
         "min_largest_free_block": float(lfb.min()) if len(lfb) else 0.0,
     }
+
+
+def reliability_summary(res) -> Dict[str, float]:
+    """Scalar reliability metrics (results carrying failure columns,
+    DESIGN.md §15).
+
+    ``goodput`` is the fraction of consumed node-seconds that produced
+    completed work: useful / (useful + lost), where *useful* counts
+    completed (non-aborted) jobs' runtimes and *lost* counts every
+    node-second of checkpoint rework, restart overhead, and aborted
+    partial work the failure model charged.
+
+    Unit caveat: with a contention model active, *lost* accrues in
+    dilated wall-clock units (elapsed time of a dilated run) while
+    *useful* counts nominal runtimes, biasing goodput low by up to the
+    dilation factor — compare goodput across contention settings with
+    care, or run reliability studies with contention off.
+    """
+    valid = np.asarray(res["valid"], dtype=bool)
+    done = valid & np.asarray(res["done"], dtype=bool)
+    nodes = np.asarray(res["nodes"], dtype=np.float64)
+    runtime = np.asarray(res["runtime"], dtype=np.float64)
+    lost = np.asarray(res["lost_work"], dtype=np.float64)
+    useful_ns = float((nodes * runtime)[done].sum())
+    lost_ns = float((nodes * lost)[valid].sum())
+    denom = useful_ns + lost_ns
+    return {
+        "total_restarts": float(np.asarray(res["n_restarts"])[valid].sum()),
+        "n_aborted": float(np.asarray(res["aborted"])[valid].sum()),
+        "lost_node_s": lost_ns,
+        "goodput": useful_ns / denom if denom > 0 else 1.0,
+    }
+
+
+def slo_summary(res, class_names=None, total_nodes=None) -> Dict[str, float]:
+    """Scalar serving metrics (results carrying SLO columns, DESIGN.md §16).
+
+    - ``slo_attainment`` / ``deadline_miss_rate``: fraction of completed
+      requests that started by / after their deadline (the verdict both
+      engines fix at start time);
+    - ``p50_wait`` / ``p99_wait``: exact wait percentiles over completed
+      requests (and ``{class}_p50_wait`` / ``{class}_p99_wait`` /
+      ``{class}_miss_rate`` per class when ``class_names`` is given);
+    - ``slo_goodput``: SLO-met node-seconds over the *provisioned capacity
+      integral* — under autoscaling the capacity level steps through the
+      consumed tick stream (``cap_time``/``cap_online``), so scaling down
+      idle capacity raises goodput even at equal attainment.  Requires
+      ``total_nodes`` (the level before the first tick); omitted when
+      unavailable or when the makespan is empty.
+    """
+    valid = np.asarray(res["valid"], dtype=bool)
+    done = valid & np.asarray(res["done"], dtype=bool)
+    met = np.asarray(res["slo_met"], dtype=bool)
+    wait = np.asarray(res["wait"], dtype=np.float64)
+    n_done = int(done.sum())
+    attain = float(met[done].sum()) / n_done if n_done else 1.0
+    out = {
+        "n_requests": float(valid.sum()),
+        "slo_attainment": attain,
+        "deadline_miss_rate": 1.0 - attain,
+        "p50_wait": percentiles(wait, 50, mask=done),
+        "p99_wait": percentiles(wait, 99, mask=done),
+    }
+    if class_names is not None and "class_id" in res:
+        cid = np.asarray(res["class_id"], dtype=np.int64)
+        for c, name in enumerate(class_names):
+            sel = done & (cid == c)
+            k = int(sel.sum())
+            out[f"{name}_p50_wait"] = percentiles(wait, 50, mask=sel)
+            out[f"{name}_p99_wait"] = percentiles(wait, 99, mask=sel)
+            out[f"{name}_miss_rate"] = (
+                float((~met[sel]).sum()) / k if k else 0.0)
+    if total_nodes is not None and n_done:
+        nodes = np.asarray(res["nodes"], dtype=np.float64)
+        start = np.asarray(res["start"], dtype=np.float64)
+        finish = np.asarray(res["finish"], dtype=np.float64)
+        useful = float((nodes * (finish - start))[done & met].sum())
+        makespan = float(finish[done].max())
+        # capacity integral: total_nodes until the first consumed tick,
+        # then the logged online level between ticks, clipped to makespan
+        t = np.asarray(res.get("cap_time", ()), dtype=np.float64)
+        lvl = np.asarray(res.get("cap_online", ()), dtype=np.float64)
+        edges = np.clip(np.r_[0.0, t, makespan], 0.0, makespan)
+        levels = np.r_[float(total_nodes), lvl]
+        cap_int = float((np.maximum(np.diff(edges), 0.0) * levels).sum())
+        if cap_int > 0:
+            out["slo_goodput"] = useful / cap_int
+    return out

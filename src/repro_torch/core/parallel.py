@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.core.parallel``'s ensemble mode: many independent
 simulations (policy sweeps, machine sizes, trace seeds, placement
-strategies and contention models) advanced together.  The reference ``vmap``s its device
+strategies, contention models, failure streams and service plans) advanced
+together.  The reference ``vmap``s its device
 ``while_loop``; here the members are the rows of a stacked ``[B, J]`` job
 table, and ``core.engine.simulate_batch`` drives them in lockstep from the
 host: one event step for every member, and one launch of the batched
@@ -13,9 +14,8 @@ so each member equals its own solo run bit for bit.
 Members may carry dependency edges of different counts (a seed axis over
 a DAG): ``stack_jobsets`` pads them to one length.
 
-Not ported yet: failures (``failures_b``: ROADMAP Queue 1 item 5), sharding
-an ensemble over several cards (``mesh``: item 12), and multicluster windows
-(item 6).
+Not ported yet: sharding an ensemble over several cards (``mesh``: ROADMAP
+Queue 1 item 12), and multicluster windows (item 6).
 """
 
 from __future__ import annotations
@@ -29,9 +29,10 @@ from repro_torch.core import engine
 from repro_torch.core.jobs import (
     EDGE_FIELDS, JOB_COLUMNS, JobSet, SimResult, resolve_device,
 )
+from repro_torch.reliability.model import make_fail_ctx
+from repro_torch.serving.model import make_svc_ctx
 
 _NOT_PORTED = {
-    "failures_b": "ROADMAP Queue 1 item 5 (extra event sources)",
     "mesh": "ROADMAP Queue 1 item 12 (ensembles over several cards)",
 }
 
@@ -72,7 +73,7 @@ def stack_jobsets(jobsets: list[JobSet]) -> JobSet:
 
 def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
                       machine=None, alloc_b=None, contention=None,
-                      failures_b=None, mesh=None,
+                      failures_b=None, service_b=None, mesh=None,
                       max_events: Optional[int] = None,
                       device=None) -> SimResult:
     """Run the members of a stacked table together, each with its own
@@ -83,16 +84,20 @@ def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
     placement strategy (names or ids; default ``simple``) and
     ``contention`` the dilation: one spec (``None``, ``(num, den)`` or a
     ``Contention``) for every member, or a list of one spec a member.
+    ``failures_b`` (what ``simulate``'s ``failures`` takes) and
+    ``service_b`` (what its ``service`` takes) are likewise one spec for
+    every member or a list of one a member; each member consumes its own
+    streams.
 
     Returns a ``SimResult`` with ``[B, ...]`` fields and per-member
     ``makespan`` and ``n_events`` lists; ``SimResult.member(b)`` equals
     ``engine.simulate`` of member ``b`` alone.  ``max_events`` caps every
     member's event count (default ``6 * capacity + 8``, as in the
-    reference).  ``device=None`` runs on ``cuda`` (and raises without one);
-    the table and the machine move there if they lie elsewhere.  The
-    reference's failure and mesh arguments raise ``NotImplementedError``
-    naming the ROADMAP item that brings them."""
-    given = {"failures_b": failures_b, "mesh": mesh}
+    reference, plus the streams' share).  ``device=None`` runs on ``cuda``
+    (and raises without one); the table and the machine move there if they
+    lie elsewhere.  The reference's mesh argument raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it."""
+    given = {"mesh": mesh}
     for name, item in _NOT_PORTED.items():
         if given[name] is not None:
             raise NotImplementedError(
@@ -127,10 +132,23 @@ def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
             raise ValueError(f"{len(strategies)} strategies and "
                              f"{len(contentions)} contention models for {B} "
                              "members")
+    fails = _per_member(failures_b, B, make_fail_ctx, total_nodes_b)
+    svcs = _per_member(service_b, B, make_svc_ctx, total_nodes_b)
     return engine.simulate_batch(jobs_b, list(policies_b), total_nodes_b,
                                  machine=machine, alloc_b=strategies,
-                                 contention_b=contentions,
-                                 max_events=max_events)
+                                 contention_b=contentions, failures_b=fails,
+                                 service_b=svcs, max_events=max_events)
+
+
+def _per_member(spec, B: int, make, total_nodes_b) -> Optional[list]:
+    """One context a member (``make(spec, n_nodes=...)``) from one spec for
+    all or a list of one a member; ``None`` stays ``None``."""
+    if spec is None:
+        return None
+    specs = spec if isinstance(spec, list) else [spec] * B
+    if len(specs) != B:
+        raise ValueError(f"{len(specs)} stream specs for {B} members")
+    return [make(s, n_nodes=n) for s, n in zip(specs, total_nodes_b)]
 
 
 def simulate_alloc_sweep(jobs: JobSet, policy, total_nodes: int, machine,

@@ -134,7 +134,8 @@ def _loop_run(jobs, policy, total_nodes):
     state = SimState.init(jobs, total_nodes)
     unfinished = int(jobs.valid.sum())
     while unfinished > 0 and state.n_events < 6 * jobs.capacity + 8:
-        unfinished -= engine._event_step(policy, jobs, state)
+        unfinished -= engine._event_step(policy, jobs, state,
+                                         unfinished=unfinished)
     return result_from_state(jobs, state)
 
 

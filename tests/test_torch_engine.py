@@ -175,12 +175,42 @@ def test_run_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("failures", object()), ("malleable", object()),
-    ("multicluster", object())])
+    ("malleable", object()), ("multicluster", object())])
 def test_unported_features_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         rt.Scenario(trace=rt.SyntheticTrace(n_jobs=5), total_nodes=8,
                     **{field: value})
+    if field == "malleable":       # item 5's remaining half
+        assert "item 5" in str(err.value) and "malleable" in str(err.value)
+
+
+@pytest.mark.parametrize("field", ("failures", "failures_on_a_machine"))
+def test_failure_field_runs(field):
+    """``failures``, refused before the reliability slice, now runs and
+    equals the JAX engine, in scalar mode and on a machine; a value that
+    is no ``FailureModel`` is refused as the reference refuses it."""
+    fm = dict(mtbf=400.0, seed=3, mean_repair=40, horizon=3000,
+              max_failures=32)
+    kw, jax_kw = dict(total_nodes=8), dict(total_nodes=8)
+    if field == "failures_on_a_machine":
+        kw = dict(topology=rt.Topology.linear(8, group_size=4),
+                  alloc="contiguous")
+        jax_kw = dict(topology=api.Topology("linear", (8, 4)),
+                      alloc="contiguous")
+    port = rt.run(rt.Scenario(trace=rt.SyntheticTrace(n_jobs=30, seed=2),
+                              policy="backfill",
+                              failures=rt.FailureModel(**fm), **kw),
+                  device="cpu")
+    ref = api.run(api.Scenario(trace=api.SyntheticTrace(n_jobs=30, seed=2),
+                               policy="backfill",
+                               failures=api.FailureModel(**fm), **jax_kw))
+    a, b = port.to_np(), ref.to_np()
+    assert set(a) == set(b) and "n_restarts" in a
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    with pytest.raises(TypeError, match="FailureModel"):
+        rt.Scenario(trace=rt.SyntheticTrace(n_jobs=5), total_nodes=8,
+                    failures=object())
 
 
 @pytest.mark.parametrize("field,value", [

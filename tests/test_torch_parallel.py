@@ -111,12 +111,35 @@ def test_ensemble_counts_walks_per_event():
 
 @pytest.mark.parametrize("arg", ("failures_b", "mesh"))
 def test_unported_arguments_raise(arg):
-    jobs = stack_jobsets([build_jobset(
-        rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10), total_nodes=8),
-        device="cpu")])
-    item = {"failures_b": "item 5", "mesh": "item 12"}[arg]
-    with pytest.raises(NotImplementedError, match=item):
-        simulate_ensemble(jobs, ["fcfs"], [8], device="cpu", **{arg: object()})
+    """``mesh`` is still refused; ``failures_b``, refused before the
+    reliability slice, runs, each member equal to its JAX run, and a value
+    that is no failure spec is refused."""
+    scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10), total_nodes=8)
+    jobs = stack_jobsets([build_jobset(scn, device="cpu")] * 2)
+    if arg == "mesh":
+        with pytest.raises(NotImplementedError, match="item 12"):
+            simulate_ensemble(jobs, ["fcfs"] * 2, [8] * 2, device="cpu",
+                              mesh=object())
+        return
+    with pytest.raises(TypeError, match="fail ctx"):
+        simulate_ensemble(jobs, ["fcfs"] * 2, [8] * 2, device="cpu",
+                          failures_b=object())
+    fm = [rt.FailureModel(mtbf=m, seed=1, max_failures=16, horizon=2000,
+                          requeue=r) for m, r in ((200.0, "requeue"),
+                                                  (200.0, "abort"))]
+    res = simulate_ensemble(jobs, ["fcfs", "backfill"], [8] * 2,
+                            failures_b=fm, device="cpu")
+    for b, (f, p) in enumerate(zip(fm, ("fcfs", "backfill"))):
+        want = api.run(api.Scenario(
+            trace=api.SyntheticTrace(n_jobs=10), total_nodes=8, policy=p,
+            failures=api.FailureModel(mtbf=f.mtbf, seed=1, max_failures=16,
+                                      horizon=2000, requeue=f.requeue)))
+        got = res.member(b)
+        np.testing.assert_array_equal(got.finish.numpy(),
+                                      np.asarray(want.raw.finish))
+        np.testing.assert_array_equal(got.rel.aborted.numpy(),
+                                      np.asarray(want.raw.rel.aborted))
+        assert got.n_events == int(want.raw.n_events)
 
 
 @pytest.mark.parametrize("arg", ("machine", "alloc_b", "contention"))

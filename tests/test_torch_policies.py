@@ -150,7 +150,9 @@ def test_event_step_matches(seed):
         want = _jit_step[p](jj, js)
         completed = int(np.sum((np.asarray(js.jstate) == RUNNING)
                                & (np.asarray(want.jstate) == 3)))
-        assert engine._event_step(i, pj, ps) == completed, p
+        unfinished = int(((ps.jstate != 3) & pj.valid).sum())
+        assert engine._event_step(i, pj, ps,
+                                  unfinished=unfinished) == completed, p
         _assert_state_equal(ps, want)
 
 

@@ -196,8 +196,21 @@ def test_unported_sweep_arguments_raise():
     scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10), total_nodes=8)
     with pytest.raises(NotImplementedError, match="item 12"):
         rt.sweep(scn, axes={"policy": ("fcfs",)}, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # the failures axis, refused before the reliability slice, runs; a
+    # value that is no FailureModel is refused as in the reference
+    with pytest.raises(TypeError, match="FailureModel"):
         rt.sweep(scn, axes={"failures": (object(),)}, device="cpu")
+    fm = [rt.FailureModel(mtbf=m, max_failures=16, horizon=2000)
+          for m in (300.0, 3000.0)]
+    grid = rt.sweep(scn, axes={"failures": fm}, device="cpu")
+    assert grid.n_compiles == 1 and "n_restarts" in grid[0].to_np()
+    for f, res in zip(fm, grid.results):
+        want = api.run(api.Scenario(
+            trace=api.SyntheticTrace(n_jobs=10), total_nodes=8,
+            failures=api.FailureModel(mtbf=f.mtbf, max_failures=16,
+                                      horizon=2000))).to_np()
+        for k in want:
+            np.testing.assert_array_equal(res.to_np()[k], want[k], k)
     # the alloc axis, refused before the allocation slice, runs with a
     # topology and is still refused without one, as in the reference
     with pytest.raises(ValueError, match="require topology"):
