@@ -17,7 +17,10 @@ Phases, each printing one JSON line with its wall time:
              feasibility rates, negative scores, ties and the feasible-BIG
              corner; every fused mode (key and mask built in the kernel)
              and the shadow walk over random job tables at N = 7, 1,000,
-             8,191-8,193 (one cluster's threads) and 73,496.  Then, at N =
+             8,191-8,193 (one cluster's threads) and 73,496, and the
+             modes that read the node column and the walk once more over a
+             per-call width column (a malleable run's), which must change
+             some answers.  Then, at N =
              73,496, each one's time: the generic op CUDA-event-timed beside
              its plain version, a two-call PyTorch yardstick and its bound;
              each fused mode and the walk by the host clock around the call
@@ -44,9 +47,10 @@ Phases, each printing one JSON line with its wall time:
              queue_select and walk launches, launches per event, and the
              batched backfill pass's redo walks; a backfill run must
              launch the walk, at most once an event besides its redos.
-5. archive - backfill over 36,748 SDSC-SP2-like jobs on 128 nodes (half
-             the SDSC-SP2 log's job count on its machine: the whole log's
-             73,496 until the alloc phases came), checked for
+5. archive - backfill over 18,374 SDSC-SP2-like jobs on 128 nodes (a
+             quarter of the SDSC-SP2 log's job count on its machine: the
+             whole log's 73,496 until the alloc phases came, half until
+             the malleable ones), checked for
              completion, start >= submit, finish == start + runtime and a
              busy-node count that never exceeds the machine; the counts of
              phase 4.
@@ -61,11 +65,14 @@ Phases, each printing one JSON line with its wall time:
              batched launches and the member-selections a launch served.
 6c. ensemble - Fig. 5(a)'s shape: DAS-2-like backfill on 400 nodes,
              10,000 jobs, trace seeds 0-7 as one batch of 8 and as a serial
-             loop of run, member by member equal (seed 0 also to its
-             digest); events/s both ways and their ratio; B = 1 through
+             loop of run (seed 0's is phase 4's run), member by member
+             equal (seed 0 also to its digest); events/s both ways and
+             their ratio; B = 1 through
              sweep against the solo run (the lockstep driver's own cost);
              the card's busy share of a profiled 250-job batch of 8.
-6d. alloc  - topology-aware allocation at 10,000 jobs, each run held to
+6d. alloc  - topology-aware allocation at 5,000 jobs (5x fig_alloc.py's
+             1,000; 10,000 until the malleable phases came, PERF.md
+             section 4), each run held to
              the JAX engine's n_events, makespan and digests of start,
              finish, alloc_first, alloc_span, alloc_sum and the ev_lfb log
              (tests/data/torch_alloc_golden.json): Fig. alloc's grid
@@ -78,8 +85,9 @@ Phases, each printing one JSON line with its wall time:
              contiguous on the SDSC-SP2 machine, which reaches the
              fallback to simple.  Per run events/s, selections, walks,
              launches an event and the largest-free-run reads an event;
-             beside them phase 4's scalar-mode SDSC-SP2 backfill run of
-             this call (run here when phase 4 did not run), and the busy
+             beside them the scalar-mode SDSC-SP2 backfill run of the
+             same 5,000 jobs (phase 4's run when the sizes agree), and the
+             busy
              share and device operations an event of a profiled 250-job
              run.  queue_select must launch on every run, the walk on
              every backfill run.
@@ -106,9 +114,9 @@ Phases, each printing one JSON line with its wall time:
              of 12 members, each held to its digests
              (tests/data/torch_dag_sweep_golden.json); events/s against
              the twelve solo runs.  Then a seed axis with ragged edge
-             lists (a random layered DAG of 10,497 tasks, seeds 0-3, fcfs
-             and backfill, 128 nodes) in one bucket, each member equal to
-             its solo run.
+             lists (a random layered DAG of 10,497 tasks, seeds 0-1, 0-3
+             until the malleable phases came; backfill; 128 nodes) in one
+             bucket, each member equal to its solo run.
 6h. workflow - the standalone pool engine: Figs. 6 and 7's 24 runs
              (galactic_like tiles 2-64 on [64, 1 << 20], sipht_like widths
              10-60 on [8, 8192], fcfs, fcfs_fit, cpath), each held to the
@@ -143,6 +151,29 @@ Phases, each printing one JSON line with its wall time:
 6l. serving_sweep - the figure's 5 rates x fcfs/sjf x autoscaler on/off
              (20 members, one bucket), each held to its digests; batch
              events/s beside the solo rate of the members 6k ran.
+6m. malleable - malleable jobs solo, each run held to the JAX engine's
+             digests (tests/data/torch_mal_golden.json: start, finish,
+             ready and every mal_* column; with failures n_restarts,
+             lost_work, aborted; on a machine the fingerprints and
+             ev_lfb): des_throughput.py's moldable model (Amdahl 0.1,
+             widths 1-16) on 5,000 SDSC-SP2-like jobs (phase 4's trace
+             generator, seed 1) under backfill and on
+             sdsc_sp2_like(2000, seed=13) under backfill and fcfs;
+             fig_malleable.py's elastic model (interval
+             64, shrink 24, grow 4, step 4, 4,096 ticks) on that trace on
+             mesh2d(8, 16) under backfill/contiguous and sjf/spread, and in
+             scalar mode under backfill with phase 6i's requeue model
+             (failure shrinks).  Per run events/s, jobs/s, resizes, device
+             reads a resize tick, launches an event, and the card's busy
+             share of the run's first 150 events, profiled.  Every run
+             must launch queue_select, every elastic run resize.
+6n. malleable_sweep - fig_malleable.py's full run through sweep: the
+             400-job trace on 64 nodes, the rigid baselines (fcfs,
+             backfill) and the moldable and elastic grids (Amdahl 0.05,
+             0.2, 0.5 x fcfs, backfill), one sweep call and one bucket
+             each (cache_stats), every member held to its digests and to
+             its solo run on the card; batch events/s beside the solo
+             runs'.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
              128 and the serve shape, f32 (the CUDA-core kernel) and bf16
@@ -196,8 +227,9 @@ Phases, each printing one JSON line with its wall time:
              phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4, 5, 6d, 6f, 6h, 6i and 6k for queue_select and its walk, phases
-6b, 6c, 6e, 6g, 6j and 6l for their batched entries, the serve of phase 9 for flash_attention,
+(phases 4, 5, 6d, 6f, 6h, 6i, 6k and 6m for queue_select and its walk,
+phases 6b, 6c, 6e, 6g, 6j, 6l and 6n for their batched entries, the serve
+of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  TF32 is off for matrix products and
 convolutions throughout.  The script catches nothing: any failed check
@@ -231,6 +263,9 @@ DAG_SWEEP_GOLDEN = ROOT / "tests" / "data" / "torch_dag_sweep_golden.json"
 WORKFLOW_GOLDEN = ROOT / "tests" / "data" / "torch_workflow_golden.json"
 REL_GOLDEN = ROOT / "tests" / "data" / "torch_rel_golden.json"
 SERVING_GOLDEN = ROOT / "tests" / "data" / "torch_serving_golden.json"
+MAL_GOLDEN = ROOT / "tests" / "data" / "torch_mal_golden.json"
+MAL_PROFILE_EVENTS = 150         # each malleable run's profiled prefix
+PROFILE_PAD_S = 0.02             # host-only time at each end of a profile
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
@@ -240,7 +275,7 @@ TIMED_LAUNCHES = 200
 SELECT_SIZES = (7, 1000, 8191, 8192, 8193, 73_496)
 SELECT_STATES = 3                # random job tables per size
 ARCHIVE_JOBS = 73_496            # SDSC-SP2 log's job count
-ARCHIVE_RUN_JOBS = ARCHIVE_JOBS // 2   # phase 5's run, cut to fit the alloc phases
+ARCHIVE_RUN_JOBS = ARCHIVE_JOBS // 4   # phase 5's run, cut to fit later ones
 ARCHIVE_NODES = 128
 PROFILE_JOBS = 250
 # batched queue_select: launch times at B members of the golden runs' size
@@ -264,7 +299,7 @@ ALLOC_DIGESTS = ("start", "finish", "alloc_first", "alloc_span", "alloc_sum")
 # edge count is fixed by tiles and width, so its seeds are not ragged)
 DAG_POLICIES = ("fcfs", "sjf", "backfill", "bestfit")
 DAG_ALLOCS = ("simple", "contiguous", "topo")
-DAG_SEEDS = (0, 1, 2, 3)
+DAG_SEEDS = (0, 1)
 DAG_SEED_PARAMS = (("n_tasks", 10_497), ("n_layers", 64), ("p_edge", 0.0002))
 DAG_SEED_POLICIES = ("backfill",)
 # workflow phase: Fig. 6's largest DAG, checked by invariants only
@@ -386,13 +421,23 @@ def device_events(prof) -> dict:
 
 
 def profiled(torch, fn):
+    """``(device events, wall microseconds)`` of one call of ``fn`` under
+    the profiler.  The profiler keeps a device event only inside its
+    capture window, whose ends are read on the host's clock, while device
+    events carry the card's timestamps converted to that clock; work right
+    at either end can fall outside and be lost (scripts/profiler_window.py
+    measures it).  PROFILE_PAD_S of host-only time at each end, outside
+    the timed span, keeps every device event of ``fn`` inside."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
         t = time.time()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.time() - t) * 1e6
+        time.sleep(PROFILE_PAD_S)
     return device_events(prof), wall_us
 
 
@@ -400,10 +445,11 @@ def device_ops_per_call(torch, fn, calls: int, what: str, expect: int = 1):
     """``(device events, operations a call, profiles taken)`` of ``calls``
     calls of ``fn`` under the profiler; each call must be ``expect`` device
     operations.  More operations than that fail at once.  Fewer is what a
-    dropped profiler event looks like (49 for 50 calls in one run, a sound
-    kernel), so the calls are profiled again once (profiles taken: 2), and
-    only a second short count fails.  ``({}, None, 1)`` when the profiler
-    shows no device event."""
+    dropped profiler event looks like (49 for 50 calls in one run, 94 for
+    100 twice in another, before ``profiled`` padded its window), so the
+    calls are profiled again once (profiles taken: 2), and only a second
+    short count fails, naming the count of each operation.  ``({}, None,
+    1)`` when the profiler shows no device event."""
     want = expect * calls
     for attempt in (1, 2):
         dev, _ = profiled(torch, lambda: [fn() for _ in range(calls)])
@@ -415,7 +461,8 @@ def device_ops_per_call(torch, fn, calls: int, what: str, expect: int = 1):
         if n_ops == want:
             return dev, float(expect), attempt
     check(False, f"{what}: {n_ops} device operations for {calls} calls in "
-          f"two profiles, expected {want}")
+          f"two profiles, expected {want}: "
+          f"{ {k: n for k, (n, _) in dev.items()} }")
 
 
 def wall_ms(fn, n: int = TIMED_LAUNCHES, warm: int = 10) -> float:
@@ -470,6 +517,8 @@ MODE_BYTES = {"head_submit": 8, "head_estimate": 8, "head_neg_estimate": 8,
               "preempt_tier": 8, "preempt_head": 12}
 WALK_BYTES = 12
 WALK_STEPS = 4                   # the timed walk's releases
+# the modes whose mask reads the node column, held over a width column too
+WIDTH_MODES = ("bestfit", "any_fit", "backfill_cand")
 
 
 def phase_fused(torch, np, ops, ref):
@@ -478,6 +527,7 @@ def phase_fused(torch, np, ops, ref):
     t0 = time.time()
     rng = np.random.default_rng(1)
     n_checks, max_err, walk_err = 0, 0, 0
+    width_checks = width_differs = 0
 
     def err(got, want) -> int:
         return max(abs(a - b) for a, b in zip(got, want))
@@ -509,6 +559,35 @@ def phase_fused(torch, np, ops, ref):
                         check(got == want, f"fused {name} N={n} {q}: {got} "
                               f"!= plain {want}")
                         n_checks += 1
+            # a malleable run's width column, passed with the call in place
+            # of the bound node column (here narrower than it), once a table
+            width = torch.from_numpy(rng.integers(1, 17, n).astype(
+                np.int32)).to("cuda")
+            p = select_params(ref, table, jstate, rsv, clock, 5,
+                              run_nodes // 16 + 1)
+            walk_w = (clock, 5, run_nodes // 16 + 1)
+            got = ops.shadow_walk(table, jstate, rsv, *walk_w, nodes=width)
+            want = ref.shadow_walk_reference(width, jstate, rsv, *walk_w)
+            walk_err = max(walk_err, err(got, want))
+            check(got == want, f"shadow walk over the width column N={n}: "
+                  f"{got} != plain {want}")
+            width_differs += got != ref.shadow_walk_reference(
+                table.cols["nodes"], jstate, rsv, *walk_w)
+            for name in WIDTH_MODES:
+                mode = ref.MODES[name]
+                got = table.select(mode, jstate, **p, nodes=width)
+                want = ref.fused_select_reference(
+                    mode, {**table.cols, "nodes": width}, jstate, **p)
+                max_err = max(max_err, err(got, want))
+                check(got == want, f"fused {name} over the width column "
+                      f"N={n} {p}: {got} != plain {want}")
+                width_differs += got != ref.fused_select_reference(
+                    mode, table.cols, jstate, **p)
+            width_checks += 1 + len(WIDTH_MODES)
+    # the per-call column was read: over it some answers differ from the
+    # bound column's, and every one equals the plain version over it
+    check(width_differs > 0, "no answer over the width column differs from "
+          "the bound column's: the kernel may not read the per-call column")
 
     # times at the archive run's shape with the engine's running share
     n = ARCHIVE_JOBS
@@ -568,6 +647,8 @@ def phase_fused(torch, np, ops, ref):
                                    if dev else "not measured")
     ops.reset_launches()
     emit("fused", t0, checks=n_checks, sizes=list(SELECT_SIZES),
+         width_column_checks=width_checks,
+         width_column_answers_differing=width_differs,
          max_abs_err=max_err, n=n, modes=modes, walk=walk)
     return max_err, modes, walk
 
@@ -633,13 +714,22 @@ def phase_kernel(torch, np, ops, ref):
     return max_err, timing
 
 
+def rigid_backfill(scn) -> bool:
+    """Whether a run is a rigid backfill run, which must launch the walk.
+    Every waiting malleable job asks for the same ``min_width``: a head
+    that does not fit leaves no other job that fits, so the pass ends at
+    its ANY_FIT test and no malleable run walks (as in the reference)."""
+    return scn.policy == "backfill" and scn.malleable is None
+
+
 def one_walk(scn) -> bool:
     """Whether a backfill run takes the batched pass, one shadow walk an
     event besides its redos: in scalar mode and under the strategies
     whose cap is the free count (the engine's ``_COUNT_CAPPED``).  Under
-    ``contiguous`` and ``topo`` each blocked selection walks."""
-    return scn.policy == "backfill" and (scn.topology is None or scn.alloc
-                                         in (None, "simple", "spread"))
+    ``contiguous`` and ``topo``, and in every malleable run (the per-start
+    loop), each blocked selection walks."""
+    return rigid_backfill(scn) and (scn.topology is None or scn.alloc
+                                    in (None, "simple", "spread"))
 
 
 def run_counted(rt, ops, scn, selects: bool = True):
@@ -667,7 +757,7 @@ def run_counted(rt, ops, scn, selects: bool = True):
     else:
         check(counts["launches"] == 0, f"{scn.policy} prefix-pass run made "
               f"{counts['launches']} selections")
-    if scn.policy == "backfill":
+    if rigid_backfill(scn):
         check(counts["walk_launches"] > 0,
               "backfill run launched no shadow-walk kernel")
     if one_walk(scn):
@@ -700,7 +790,7 @@ def phase_golden(rt, ops):
     t0 = time.time()
     entries = json.loads(GOLDEN.read_text())["runs"]
     launches = walks = 0
-    runs = {}
+    runs, outs = {}, {}
     for e in entries:
         scn = rt.Scenario(
             trace=rt.SyntheticTrace(n_jobs=e["n_jobs"], seed=e["seed"],
@@ -711,12 +801,14 @@ def phase_golden(rt, ops):
         walks += counts["walk_launches"]
         check_golden(out, e)
         runs[(e["kind"], e["policy"])] = (out["n_events"], wall, counts)
+        outs[(e["kind"], e["policy"], e["seed"], e["n_jobs"],
+              e["total_nodes"])] = out
         emit("golden", t0, kind=e["kind"], policy=e["policy"],
              n_jobs=e["n_jobs"], total_nodes=e["total_nodes"],
              n_events=out["n_events"], run_seconds=wall,
              events_per_s=out["n_events"] / wall, **counts,
              matches_jax=True)
-    return launches, walks, runs
+    return launches, walks, runs, outs
 
 
 def phase_archive(rt, ops, np):
@@ -920,7 +1012,7 @@ def run_sweep(torch, rt, ops, scn, axes, what: str):
     counts = batch_counts(ops, engine)
     check(counts["batch_launches"] > 0,
           f"{what}: the sweep launched no batched queue_select kernel")
-    if any(r.scenario.policy == "backfill" for r in grid.results):
+    if any(rigid_backfill(r.scenario) for r in grid.results):
         check(counts["walk_batch_launches"] > 0,
               f"{what}: a backfill sweep launched no batched walk")
     if all(one_walk(r.scenario) for r in grid.results
@@ -991,12 +1083,13 @@ def phase_sweep(torch, rt, ops):
     return counts, counts2
 
 
-def phase_ensemble(torch, rt, ops):
+def phase_ensemble(torch, rt, ops, phase4=None):
     """Fig. 5(a)'s shape: das2 backfill on 400 nodes, 10,000 jobs, trace
     seeds 0-7 as one batch of 8 and as a serial loop of ``run``, member by
     member equal; seed 0 against its JAX digest; B = 1 through ``sweep``
     against the solo run; a profiled 250-job batch of 8 for the card's busy
-    share."""
+    share.  Seed 0's solo run is phase 4's das2 backfill run of this call
+    (``phase4``, phase 4's result), the same scenario, when it ran."""
     t0 = time.time()
     golden = {(e["kind"], e["policy"]): e
               for e in json.loads(GOLDEN.read_text())["runs"]}
@@ -1006,12 +1099,18 @@ def phase_ensemble(torch, rt, ops):
     seeds = list(range(ENSEMBLE_B))
     grid, outs, wall, counts = run_sweep(torch, rt, ops, base,
                                          {"trace.seed": seeds}, "ensemble")
-    serial = []
+    serial, reused = [], []
     for s, out in zip(seeds, outs):
-        t = time.time()
-        solo = rt.run(base.with_(**{"trace.seed": s})).to_np()
-        torch.cuda.synchronize()
-        serial.append(time.time() - t)
+        key = ("das2", "backfill", s, 10_000, 400)
+        if phase4 is not None and key in phase4[3]:
+            reused.append(s)
+            solo = phase4[3][key]
+            serial.append(phase4[2][key[:2]][1])
+        else:
+            t = time.time()
+            solo = rt.run(base.with_(**{"trace.seed": s})).to_np()
+            torch.cuda.synchronize()
+            serial.append(time.time() - t)
         check_same(out, solo, f"ensemble seed {s}")
     serial_s, solo0_s = sum(serial), serial[0]
     check_golden(outs[0], golden[("das2", "backfill")], "ensemble ")
@@ -1034,6 +1133,7 @@ def phase_ensemble(torch, rt, ops):
          b1_events_per_s=outs1[0]["n_events"] / wall1,
          solo_seed0_seconds=solo0_s,
          b1_over_solo=wall1 / solo0_s, matches_serial=True,
+         solo_runs_from_phase_4=reused,
          profile={"n_jobs": PROFILE_JOBS, "members": ENSEMBLE_B,
                   "wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
                   "device_busy_share": busy_us / wall_us if dev
@@ -1080,33 +1180,37 @@ def check_alloc_golden(out, e, what: str = "") -> None:
 
 def phase_alloc(torch, rt, ops, golden_runs=None):
     """Topology-aware allocation at full size, each run held to its JAX
-    digests: Fig. alloc's grid (SDSC-SP2-like seed 1, 10,000 jobs, on
+    digests: Fig. alloc's grid (SDSC-SP2-like seed 1, 5,000 jobs, on
     dragonfly(16, 8), backfill x the four strategies at
     ``ALLOC_SOLO_CONTENTION``; the rest of the grid meets its digests in
     phase alloc_sweep); the per-start loop on DAS-2's 400 nodes as mesh2d(20, 20)
     (fcfs/topo, sjf/spread, bestfit/contiguous); preempt/contiguous on the
-    SDSC-SP2 machine, which reaches contiguous's fallback.  First, phase
-    4's scalar-mode SDSC-SP2 backfill run of this call (``golden_runs``;
-    run here when phase 4 did not run), the paired reference for what
-    machine mode costs."""
+    SDSC-SP2 machine, which reaches contiguous's fallback.  First, the
+    scalar-mode SDSC-SP2 backfill run of the same jobs, the paired
+    reference for what machine mode costs: phase 4's run of this call
+    (``golden_runs``) when the job counts agree, else run here (held to
+    phase 4's digests only at its size)."""
     t0 = time.time()
     golden = {(e["kind"], e["policy"]): e
               for e in json.loads(GOLDEN.read_text())["runs"]}
     e = golden[("sdsc_sp2", "backfill")]
-    if golden_runs is not None:
+    n_jobs = json.loads(ALLOC_GOLDEN.read_text())["runs"][0]["n_jobs"]
+    held = {"matches_jax": True} if n_jobs == e["n_jobs"] else {}
+    if golden_runs is not None and held:
         n_events, wall, counts = golden_runs[("sdsc_sp2", "backfill")]
         source = "phase 4's run"
     else:
         scn = rt.Scenario(trace=rt.SyntheticTrace(
-            n_jobs=e["n_jobs"], seed=e["seed"], kind=e["kind"]),
+            n_jobs=n_jobs, seed=e["seed"], kind=e["kind"]),
             total_nodes=e["total_nodes"], policy="backfill")
         out, wall, counts = run_counted(rt, ops, scn)
-        check_golden(out, e, "alloc scalar reference ")
+        if held:
+            check_golden(out, e, "alloc scalar reference ")
         n_events, source = out["n_events"], "run here"
     emit("alloc", t0, run="scalar reference", source=source,
-         kind=e["kind"], policy="backfill", total_nodes=e["total_nodes"],
-         n_events=n_events, run_seconds=wall,
-         events_per_s=n_events / wall, **counts, matches_jax=True)
+         kind=e["kind"], policy="backfill", n_jobs=n_jobs,
+         total_nodes=e["total_nodes"], n_events=n_events, run_seconds=wall,
+         events_per_s=n_events / wall, **counts, **held)
     launches = walks = 0
     solo = {}
     for e in json.loads(ALLOC_GOLDEN.read_text())["runs"]:
@@ -1170,7 +1274,7 @@ def phase_alloc_sweep(torch, rt, ops, solo):
                                                      for k in timed)
                 if timed else "not measured")
     ops.reset_launches()
-    emit("alloc_sweep", t0, grid="sdsc_sp2 seed 1, 10,000 jobs, "
+    emit("alloc_sweep", t0, grid=f"sdsc_sp2 seed 1, {e['n_jobs']:,} jobs, "
          "dragonfly(16, 8), backfill: alloc x contention",
          n_compiles=grid.n_compiles, members=len(grid), run_seconds=wall,
          **counts, solo_runs=len(timed), solo_events_per_s=solo_eps,
@@ -1285,7 +1389,7 @@ def phase_dag_sweep(torch, rt, ops, solo=None):
     the solo events/s of the three grid members phase dag ran (``solo``,
     when it ran in this call).  Then a seed axis over a random layered DAG
     of the same task count (ragged edge lists), backfill in scalar mode,
-    one bucket of 4 members, each equal to its solo run."""
+    one bucket of 2 members, each equal to its solo run."""
     import numpy as np
     t0 = time.time()
     golden = json.loads(DAG_SWEEP_GOLDEN.read_text())["runs"]
@@ -1580,6 +1684,110 @@ def phase_stream_sweeps(torch, rt, ops, golden_path, phase: str,
              batch_over_solo_rate=(counts["events_per_s"] / solo_eps
                                    if timed else "not measured"),
              matches_jax=True)
+        all_counts.append(counts)
+    return all_counts
+
+
+# ---------------------------------------------------------------------------
+# malleable jobs
+# ---------------------------------------------------------------------------
+
+MAL_KEYS = ("resize_ticks", "resize_reads", "resizes")
+
+
+def mal_counts(engine, counts: dict) -> dict:
+    """The resize counters of the run just made, beside its stream and
+    launch counts: ticks consumed, reads a tick, resizes."""
+    c = {k: engine.counters[k] for k in MAL_KEYS}
+    c["resize_reads_per_tick"] = (c["resize_reads"] / c["resize_ticks"]
+                                  if c["resize_ticks"] else "no ticks")
+    return {**counts, **c}
+
+
+def busy_share(torch, rt, scn, n_events: int):
+    """The card's busy share of a profiled run of ``scn``'s first
+    ``n_events`` events (its event cap set to that): device time over the
+    run's wall time (which the profiler lengthens)."""
+    cut = scn.with_(max_events=n_events)
+    dev, wall_us = profiled(torch, lambda: rt.run(cut, device="cuda").to_np())
+    busy_us = sum(us for _, us in dev.values())
+    return busy_us / wall_us if dev else "not measured"
+
+
+def phase_malleable(torch, rt, ops):
+    """Malleable jobs solo on the card, each run held to its JAX digests
+    (tests/data/torch_mal_golden.json): (a) des_throughput's moldable model
+    on 5,000 SDSC-SP2-like jobs, backfill; (b) on its own 2,000-job
+    trace, backfill and fcfs; (c) fig_malleable's elastic model on
+    mesh2d(8, 16), backfill/contiguous and sjf/spread; (d) that model in
+    scalar mode with the requeue failure model.  Per run events/s, jobs/s,
+    resizes, device reads a tick, launches an event and the card's busy
+    share (of a profiled prefix of the run)."""
+    from repro_torch.core import engine
+    launches = walks = 0
+    solo = {}
+    for e in json.loads(MAL_GOLDEN.read_text())["runs"]:
+        t0 = time.time()
+        scn, out, wall, counts = stream_run(rt, ops, e)
+        counts = mal_counts(engine, counts)
+        check(counts["resizes"] == e["n_resizes"],
+              f"{e['name']}: {counts['resizes']} resizes counted, "
+              f"{e['n_resizes']} in the result")
+        if scn.malleable.mode == "elastic":
+            check(counts["resizes"] > 0, f"{e['name']}: no resize")
+        launches += counts["launches"]
+        walks += counts["walk_launches"]
+        solo[e["name"]] = (out["n_events"], wall)
+        emit("malleable", t0, run=e["name"], policy=scn.policy,
+             topology=None if scn.topology is None else
+             [scn.topology.kind, list(scn.topology.shape)],
+             alloc=scn.alloc, mode=scn.malleable.mode,
+             max_ticks=scn.malleable.max_ticks
+             if scn.malleable.mode == "elastic" else 0,
+             n_jobs=e["n_jobs"], n_failures=e.get("n_failures"),
+             n_events=out["n_events"], makespan=out["makespan"],
+             run_seconds=wall, **counts,
+             busy_share_of_prefix=busy_share(torch, rt, scn,
+                                             MAL_PROFILE_EVENTS),
+             profiled_events=MAL_PROFILE_EVENTS, matches_jax=True)
+    return {"launches": launches, "walk_launches": walks, "solo": solo}
+
+
+def phase_malleable_sweep(torch, rt, ops):
+    """fig_malleable.py's full run through sweep: the rigid baselines and
+    the moldable and elastic grids, one sweep and one bucket each, every
+    member held to its JAX digests and to its solo run on the card."""
+    from repro_torch.core import engine
+    g = json.loads(MAL_GOLDEN.read_text())
+    all_counts = []
+    for sw in g["sweeps"]:
+        t0 = time.time()
+        base = build_spec(rt, sw["base"])
+        axes = {k: [build_spec(rt, v) for v in vals]
+                for k, vals in sw["axes"].items()}
+        rt.reset_cache_stats()
+        grid, outs, wall, counts = run_sweep(torch, rt, ops, base, axes,
+                                             f"malleable_sweep {sw['name']}")
+        counts = mal_counts(engine, stream_counts(engine, counts))
+        stats = rt.cache_stats()
+        check(grid.n_compiles == 1 and stats.compiles + stats.hits == 1,
+              f"{grid.n_compiles} buckets, expected 1")
+        check(len(outs) == len(sw["members"]), "sweep member count")
+        solo_events = solo_wall = 0
+        for out, m, res in zip(outs, sw["members"], grid.results):
+            check_stream_golden(out, m, "malleable_sweep ")
+            solo, s_wall, _ = run_counted(rt, ops, res.scenario)
+            check_same(out, solo, f"malleable_sweep {m['name']}")
+            solo_events += solo["n_events"]
+            solo_wall += s_wall
+        ops.reset_launches()
+        emit("malleable_sweep", t0, sweep=sw["name"], axes=list(sw["axes"]),
+             n_compiles=grid.n_compiles, cache_compiles=stats.compiles,
+             cache_hits=stats.hits, members=len(grid), run_seconds=wall,
+             **counts, solo_events_per_s=solo_events / solo_wall,
+             batch_over_solo_rate=counts["events_per_s"]
+             / (solo_events / solo_wall), matches_jax=True,
+             members_equal_solo=True)
         all_counts.append(counts)
     return all_counts
 
@@ -2098,8 +2306,8 @@ def phase_rwkv_serve(torch, np):
 PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "sweep", "ensemble", "alloc", "alloc_sweep", "dag", "dag_sweep",
           "workflow", "reliability", "reliability_sweep", "serving",
-          "serving_sweep", "flash", "lm_golden", "serve", "linattn",
-          "rwkv_golden", "rwkv_serve")
+          "serving_sweep", "malleable", "malleable_sweep", "flash",
+          "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve")
 
 
 def main(argv=None) -> int:
@@ -2118,7 +2326,7 @@ def main(argv=None) -> int:
     if not ((ROOT / "src" / "repro_torch").is_dir() and all(
             g.exists() for g in (GOLDEN, LM_GOLDEN, ALLOC_GOLDEN, DAG_GOLDEN,
                                  DAG_SWEEP_GOLDEN, WORKFLOW_GOLDEN,
-                                 REL_GOLDEN, SERVING_GOLDEN))):
+                                 REL_GOLDEN, SERVING_GOLDEN, MAL_GOLDEN))):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 1
@@ -2160,7 +2368,8 @@ def main(argv=None) -> int:
         "archive": lambda: phase_archive(rt, ops, np),
         "profile": lambda: phase_profile(torch, rt),
         "sweep": lambda: phase_sweep(torch, rt, ops),
-        "ensemble": lambda: phase_ensemble(torch, rt, ops),
+        "ensemble": lambda: phase_ensemble(torch, rt, ops,
+                                           out.get("golden")),
         "alloc": lambda: phase_alloc(
             torch, rt, ops, out["golden"][2] if "golden" in out else None),
         "alloc_sweep": lambda: phase_alloc_sweep(
@@ -2179,6 +2388,8 @@ def main(argv=None) -> int:
         "serving_sweep": lambda: phase_stream_sweeps(
             torch, rt, ops, SERVING_GOLDEN, "serving_sweep",
             out["serving"]["solo"] if "serving" in out else None),
+        "malleable": lambda: phase_malleable(torch, rt, ops),
+        "malleable_sweep": lambda: phase_malleable_sweep(torch, rt, ops),
         "flash": lambda: phase_flash(torch, np),
         "lm_golden": lambda: phase_lm_golden(torch, np),
         "serve": lambda: phase_serve(torch, np),
@@ -2197,18 +2408,20 @@ def main(argv=None) -> int:
     max_err, timing = out["kernel"]
     fused_err, modes, walk = out["fused"]
     alloc, dag = out["alloc"], out["dag"]
-    rel, svc = out["reliability"], out["serving"]
+    rel, svc, mal = out["reliability"], out["serving"], out["malleable"]
     stream_sweeps = out["reliability_sweep"] + out["serving_sweep"]
+    mal_sweeps = out["malleable_sweep"]
     launches = (out["golden"][0] + out["archive"][0] + alloc["launches"]
                 + dag["launches"] + out["workflow"] + rel["launches"]
-                + svc["launches"])
+                + svc["launches"] + mal["launches"])
     walk_launches = (out["golden"][1] + out["archive"][1]
                      + alloc["walk_launches"] + dag["walk_launches"]
-                     + rel["walk_launches"] + svc["walk_launches"])
+                     + rel["walk_launches"] + svc["walk_launches"]
+                     + mal["walk_launches"])
     cand = modes["backfill_cand"]
     batch_err, batch_timing = out["batched"]
     batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"],
-                  *out["dag_sweep"], *stream_sweeps]
+                  *out["dag_sweep"], *stream_sweeps, *mal_sweeps]
     batch_launches = sum(c["batch_launches"] for c in batch_runs)
     batch_selections = sum(c["batch_selections"] for c in batch_runs)
     walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
@@ -2262,6 +2475,14 @@ def main(argv=None) -> int:
                                     for c in stream_sweeps),
             "walk_batch_launches": sum(c["walk_batch_launches"]
                                        for c in stream_sweeps)},
+        "malleable_mode": {
+            "launches": mal["launches"],
+            "walk_launches": mal["walk_launches"],
+            "batch_launches": sum(c["batch_launches"] for c in mal_sweeps),
+            "batch_selections": sum(c["batch_selections"]
+                                    for c in mal_sweeps),
+            "walk_batch_launches": sum(c["walk_batch_launches"]
+                                       for c in mal_sweeps)},
         "modes": modes,
         "generic": {"ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
                     "bound_ms": timing["bound_ms"], "bound_by": "bytes",

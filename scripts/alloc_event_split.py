@@ -11,7 +11,8 @@ round), one process a tree, each doing the same 10,000-job SDSC-SP2-like
 backfill runs on ``dragonfly(16, 8)`` under ``simple`` (the batched pass)
 and ``contiguous`` (the per-start loop), contention off, with the wall
 clock around ``run`` and ``to_np()``.  Each run's ``n_events`` and
-``makespan`` are held to ``tests/data/torch_alloc_golden.json``.  Prints
+``makespan`` are held to ``tests/data/torch_alloc_golden.json`` when
+``--n-jobs`` is the file's job count (5,000).  Prints
 one JSON line per (round, tree, run), then the card's name and power
 limit.
 

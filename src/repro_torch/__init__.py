@@ -5,8 +5,10 @@ it.  It carries the single-cluster engine with the six policies (fcfs, sjf,
 ljf, bestfit, backfill, preempt), in scalar-counter mode or on a machine
 (``Topology``: linear, mesh2d, dragonfly) under four placement strategies
 (simple, contiguous, spread, topo) with an optional contention model, on
-job tables with or without workflow dependencies (``WorkflowTrace``), whose
-every selection runs the ``queue_select`` CUDA kernel on a CUDA device; the
+job tables with or without workflow dependencies (``WorkflowTrace``), under
+node failures (``FailureModel``), open-arrival serving (``ServiceTrace``)
+and malleable jobs (``MalleableModel``), whose every selection runs the
+``queue_select`` CUDA kernel on a CUDA device; the
 standalone multi-resource workflow engine (``simulate_workflow``, paper
 §3), whose selections run the same kernel; and the dense-family LM serving
 path (``repro_torch.launch.serve``), whose prefill
@@ -34,6 +36,9 @@ runs the ``flash_attention`` CUDA kernel in every layer:
         horizon=2**16, rate=0.05, max_jobs=4096,
         autoscale=rt.AutoscalePolicy(48, 8)), total_nodes=64)
     rt.sweep(web, axes={"trace.rate": (0.01, 0.05)})   # one bucket
+    mal = scn.with_(malleable=rt.MalleableModel(
+        param=0.1, max_width=16, mode="elastic", interval=64))
+    rt.sweep(mal, axes={"malleable.param": (0.05, 0.5)})  # one bucket
 
 A sweep runs each static bucket of its grid as one ensemble
 (``simulate_ensemble``), whose members advance in lockstep and share each
@@ -41,7 +46,8 @@ batched launch of the ``queue_select`` kernel.
 """
 
 from repro_torch.api import (
-    WF_POLICY_IDS, ArrayTrace, AutoscalePolicy, FailureModel, Result,
+    WF_POLICY_IDS, ArrayTrace, AutoscalePolicy, FailureModel,
+    MalleableModel, Result,
     Scenario, ServiceClass, ServiceTrace, SwfTrace, SweepCacheStats,
     SweepResult, SyntheticTrace, Topology, WorkflowTrace, cache_stats,
     critical_path_length, make_taskset, reset_cache_stats, run,
@@ -50,7 +56,8 @@ from repro_torch.api import (
 )
 from repro_torch.core.engine import simulate
 
-__all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel", "Result",
+__all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
+           "MalleableModel", "Result",
            "Scenario", "ServiceClass", "ServiceTrace", "SwfTrace",
            "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
            "WF_POLICY_IDS",

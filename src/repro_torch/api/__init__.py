@@ -13,6 +13,7 @@ from repro_torch.api.sweep import (
 from repro_torch.core.parallel import (
     simulate_alloc_sweep, simulate_ensemble, stack_jobsets,
 )
+from repro_torch.malleable import MalleableModel
 from repro_torch.reliability import FailureModel
 from repro_torch.serving import AutoscalePolicy, ServiceClass, ServiceTrace
 from repro_torch.core.workflow import (
@@ -20,7 +21,8 @@ from repro_torch.core.workflow import (
     workflow_result_np,
 )
 
-__all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel", "Result",
+__all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
+           "MalleableModel", "Result",
            "Scenario", "ServiceClass", "ServiceTrace", "SwfTrace",
            "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
            "WF_POLICY_IDS",

@@ -7,8 +7,10 @@ canonical numpy dict (``submit``, ``nodes``, ``runtime``, ``start``,
 ``ev_*`` log cut to ``n_events`` when the scenario has a topology, the
 reliability columns ``n_restarts``/``lost_work``/``aborted`` with a failure
 model, and the serving columns ``slo_met``/``deadline``/``class_id`` and the
-capacity log ``cap_online``/``cap_time`` with a ``ServiceTrace``), so the
-two engines' results compare key by key, and ``summary()`` derives the same
+capacity log ``cap_online``/``cap_time`` with a ``ServiceTrace``, and the
+malleable columns ``mal_width``/``mal_nref``/``mal_nresize``/``mal_node_s``/
+``mal_dur`` with a ``MalleableModel``), so the two engines' results compare
+key by key, and ``summary()`` derives the same
 scalar metrics.  ``ready`` is ``max(submit, last dependency's finish)`` and
 ``wait`` is ``start - ready``, the paper's Fig. 7 workflow wait (``start -
 submit`` for a job without dependencies).
@@ -59,8 +61,8 @@ class Result:
         """n_jobs, wait statistics, bounded slowdown, makespan,
         utilization and throughput, plus the job-span and fragmentation
         scalars when the scenario has a topology, the reliability scalars
-        with a failure model and the SLO scalars with a
-        ``ServiceTrace``."""
+        with a failure model, the SLO scalars with a ``ServiceTrace`` and
+        the malleable scalars with a ``MalleableModel``."""
         out = self.to_np()
         total = int(self.scenario.total_nodes)
         s = metrics.summary(out, total)
@@ -73,6 +75,8 @@ class Result:
             s.update(metrics.slo_summary(
                 out, class_names=None if plan is None else plan.class_names,
                 total_nodes=total))
+        if "mal_width" in out:
+            s.update(metrics.malleable_summary(out))
         return s
 
     @property
@@ -119,6 +123,13 @@ def simresult_to_np(res: SimResult, jobs: JobSet, *,
     if res.rel is not None:
         for k in ("n_restarts", "lost_work", "aborted"):
             out[k] = getattr(res.rel, k).cpu().numpy()
+    if res.mal is not None:
+        # final width, reference width, resizes, node-second ledger and
+        # the dilated duration chosen at dispatch, row-aligned
+        for k, f in (("mal_width", "width"), ("mal_nref", "nref"),
+                     ("mal_nresize", "n_resizes"), ("mal_node_s", "node_s"),
+                     ("mal_dur", "disp_dur")):
+            out[k] = getattr(res.mal, f).cpu().numpy().astype(np.int64)
     if res.svc is not None:
         out["slo_met"] = res.svc.slo_met.cpu().numpy()
         out["deadline"] = res.svc.deadline.cpu().numpy()

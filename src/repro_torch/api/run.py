@@ -54,6 +54,22 @@ def _service_plan(scenario: Scenario):
     return spec.plan() if hasattr(spec, "plan") else None
 
 
+def _mal_plan(scenario: Scenario):
+    """The scenario's malleable plan, materialized once against its trace
+    at the table's padded capacity (so the plan's rows align with the job
+    table's), or ``None`` without a malleable model."""
+    if scenario.malleable is None:
+        return None
+    from repro_torch.malleable import materialize_plan
+
+    capacity = scenario.capacity
+    if capacity is None:
+        capacity = getattr(scenario.trace, "pad_capacity", None)
+    return materialize_plan(scenario.malleable, scenario.trace.materialize(),
+                            total_nodes=int(scenario.total_nodes),
+                            capacity=capacity)
+
+
 def run(scenario: Scenario, device=None) -> Result:
     """Run one scenario on the PyTorch engine.  ``device=None`` runs on
     ``cuda`` and raises when there is none; pass ``device="cpu"`` for the
@@ -66,5 +82,6 @@ def run(scenario: Scenario, device=None) -> Result:
                           contention=scenario.contention,
                           failures=_failure_trace(scenario),
                           service=_service_plan(scenario),
+                          malleable=_mal_plan(scenario),
                           max_events=scenario.max_events, device=device)
     return Result(scenario=scenario, raw=res, jobs=jobs)

@@ -5,9 +5,9 @@ Counterpart of ``repro.api.scenario`` for the ported slices: a
 :class:`WorkflowTrace`, :class:`ArrayTrace` or an open-arrival
 ``ServiceTrace``), the cluster size, the policy, optionally a machine shape
 (:class:`Topology`) with its placement strategy and contention model, a
-node-failure model (``FailureModel``), the padded table capacity and an
-event cap.  The same field values describe
-the same run as the reference's ``Scenario``.  Features of the reference
+node-failure model (``FailureModel``), a malleable-jobs model
+(``MalleableModel``), the padded table capacity and an event cap.  The
+same field values describe the same run as the reference's ``Scenario``.  Features of the reference
 that the port does not carry yet raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 """
@@ -22,6 +22,7 @@ import numpy as np
 
 from repro_torch import alloc as _alloc
 from repro_torch.core.jobs import INF_TIME
+from repro_torch.malleable import MalleableModel
 from repro_torch.reliability import FailureModel
 from repro_torch.serving import ServiceTrace
 from repro_torch.traces.swf import load_swf
@@ -280,8 +281,6 @@ class Topology:
 
 # fields of the reference's Scenario that later slices of the port bring
 _NOT_PORTED = {
-    "malleable": "ROADMAP Queue 1 item 5 (extra event sources: malleable "
-                 "jobs, its remaining half)",
     "multicluster": "ROADMAP Queue 1 item 6 (multicluster windows)",
 }
 
@@ -298,8 +297,10 @@ class Scenario:
     ``(num, den)`` or a ``Contention``), both of which need a topology;
     ``capacity`` pads the job table (a ``ServiceTrace`` pads it to its
     ``max_jobs``); ``max_events`` caps the event loop.  ``failures`` (a
-    frozen ``FailureModel``) switches on node failures (DESIGN.md §15).
-    Passing any of the reference's other fields raises
+    frozen ``FailureModel``) switches on node failures (DESIGN.md §15),
+    ``malleable`` (a frozen ``MalleableModel``) malleable jobs (§17), which
+    refuse contention, preempt and multicluster as the reference's do.
+    Passing the reference's ``multicluster`` raises
     ``NotImplementedError``.
     """
 
@@ -312,10 +313,33 @@ class Scenario:
     capacity: Optional[int] = None
     max_events: Optional[int] = None
     failures: Optional[FailureModel] = None
-    malleable: Any = None
+    malleable: Optional[MalleableModel] = None
     multicluster: Any = None
 
     def __post_init__(self):
+        if self.malleable is not None:
+            if not isinstance(self.malleable, MalleableModel):
+                raise TypeError(
+                    "Scenario.malleable must be a repro_torch.malleable."
+                    f"MalleableModel, got {type(self.malleable).__name__} "
+                    "(specs stay frozen/hashable; materialized "
+                    "MalleablePlans belong to the engine call, not the "
+                    "scenario)")
+            if self.multicluster is not None:
+                raise ValueError(
+                    "malleable jobs are not supported in multicluster "
+                    "scenarios yet; simulate the clusters individually")
+            if self.contention is not None:
+                raise ValueError(
+                    "malleable jobs cannot be combined with contention "
+                    "dilation: the speedup curve already rescales runtime "
+                    "per width, and composing the two dilations is "
+                    "undefined (DESIGN.md §17)")
+            if self.policy == "preempt":
+                raise ValueError(
+                    "malleable jobs cannot be combined with the preempt "
+                    "policy (width-aware preemption is an open item, "
+                    "DESIGN.md §17)")
         for name, item in _NOT_PORTED.items():
             if getattr(self, name) is not None:
                 raise NotImplementedError(

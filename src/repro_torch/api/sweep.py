@@ -9,16 +9,18 @@ axes over a base :class:`Scenario`:
    stacked table's shape: the trace's static key (everything but its
    seed; for a ``ServiceTrace`` its ``max_jobs`` and the autoscaler's
    ``max_ticks``), the topology (and ``total_nodes`` with it),
-   ``capacity``, ``max_events`` and the failure model's ``max_failures``,
-   as the reference keys them (a workflow DAG's seed axis stays in one
+   ``capacity``, ``max_events``, the failure model's ``max_failures`` and
+   the malleable model's width range, mode and tick capacity, as the
+   reference keys them (a workflow DAG's seed axis stays in one
    bucket even where its edge counts differ: ``stack_jobsets`` pads the
    edge lists);
 3. within a bucket the remaining axes (``policy``, ``alloc``,
    ``contention``, ``total_nodes`` without a topology, ``trace.seed``, the
    failure model's other fields, the service's rate, classes and
-   autoscaler) are data: the members' job tables are stacked, each member
-   gets its own failure stream and service plan, and ONE batched
-   ``simulate_ensemble`` call runs the whole bucket;
+   autoscaler, the malleable model's curve, parameters, interval, step and
+   thresholds) are data: the members' job tables are stacked, each member
+   gets its own failure stream, service plan and malleable plan, and ONE
+   batched ``simulate_ensemble`` call runs the whole bucket;
 4. the batched result is sliced into per-point :class:`Result`\\ s in grid
    order.
 
@@ -48,7 +50,8 @@ import numpy as np
 from repro_torch import alloc as _alloc
 from repro_torch.api.result import Result
 from repro_torch.api.run import (
-    _failure_trace, _service_plan, build_jobset, build_machine, run,
+    _failure_trace, _mal_plan, _service_plan, build_jobset, build_machine,
+    run,
 )
 from repro_torch.api.scenario import Scenario
 from repro_torch.core import engine
@@ -60,13 +63,16 @@ def _static_key(scenario: Scenario) -> tuple:
     """Hashable bucket key: everything that fixes the stacked shapes.
     ``total_nodes`` is data in scalar-counter mode, and static with a
     topology, which pins the machine.  A failure model adds only its
-    padded capacity."""
+    padded capacity, a malleable model its width range, mode and tick
+    capacity."""
     return (tuple(t.static_key() for t in scenario.trace_specs()),
             scenario.topology,
             None if scenario.topology is None else scenario.total_nodes,
             scenario.capacity, scenario.max_events,
             None if scenario.failures is None
-            else scenario.failures.static_key())
+            else scenario.failures.static_key(),
+            None if scenario.malleable is None
+            else scenario.malleable.static_key())
 
 
 @dataclasses.dataclass
@@ -240,6 +246,8 @@ def _run_bucket(key: tuple, bucket: List[Scenario], device) -> List[Result]:
         kw["failures_b"] = [_failure_trace(s) for s in bucket]
     if _service_plan(bucket[0]) is not None:
         kw["service_b"] = [_service_plan(s) for s in bucket]
+    if bucket[0].malleable is not None:
+        kw["malleable_b"] = [_mal_plan(s) for s in bucket]
     batched = simulate_ensemble(
         jobs_b, [s.policy for s in bucket],
         [int(s.total_nodes) for s in bucket],

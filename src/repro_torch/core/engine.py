@@ -1,16 +1,16 @@
 """The discrete-event engine of the PyTorch port.
 
-Counterpart of ``repro.core.engine`` with ``malleable=None``, in
-scalar-counter mode or with a machine (topology-aware allocation), on
-tables with or without dependency edges, with or without a failure stream
-(``failures``) and a service plan (``service``).  Event semantics are the
-reference's:
+Counterpart of ``repro.core.engine``, in scalar-counter mode or with a
+machine (topology-aware allocation), on tables with or without dependency
+edges, with or without a failure stream (``failures``), a service plan
+(``service``) and a malleable plan (``malleable``).  Event semantics are
+the reference's:
 
   1. advance the clock to min(next arrival, next completion, next stream
      entry),
   2. process every completion with finish <= clock (reclaim nodes),
-  3. consume the failure/repair entries, then the autoscaler ticks, with
-     time <= clock (while some job is not DONE),
+  3. consume the failure/repair entries, then the autoscaler ticks, then
+     the resize ticks, with time <= clock (while some job is not DONE),
   4. process every arrival with submit <= clock (enqueue),
   5. run the scheduling pass: start jobs until the policy blocks.
 
@@ -34,6 +34,19 @@ are painted busy, owned by nobody (the out-of-range id ``J``), in every
 placement, cap and log (:func:`_owner_eff`); releases read the true map.
 Arrivals come after the event's one read and after the stream entries,
 with or without a stream.
+
+Malleable jobs (DESIGN.md §17): a job's node footprint is its current
+width (``SimState.mal``), on the device for the kernel and the reductions
+and mirrored on the host for the passes.  A dispatch picks, among the
+widths up to the placeable size, the first with the least dilated runtime
+from the plan's host table, so the choice costs no read; completions free
+the width and close the node-second segment.  In elastic mode the resize
+ticks are a third stream: each tick reads the queued demand and the
+widest and narrowest running jobs with their finishes in one read, and
+shrinks or grows one of them; a failure that hits a job wider than
+``min_width`` sheds the failed node instead of killing it.  A resize
+re-dilates the remaining wall time in float32 on the host
+(:func:`_ratio_ceil`).  Malleable runs keep the per-start selector loop.
 
 PyTorch has no device-side while loop, so the host drives both loops.  The
 per-job state stays on the device and is updated in place; the host keeps
@@ -59,6 +72,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import alloc as _alloc
@@ -73,6 +87,7 @@ from repro_torch.core.policies import (
     NO_PARAMS, PREFIX, RECLAIM, SELECT, START, SUSPEND, WALK,
 )
 from repro_torch.kernels.queue_select import ref as select_ref
+from repro_torch.malleable.model import make_mal_ctx
 from repro_torch.reliability.model import FAIL, REQUEUE, make_fail_ctx
 from repro_torch.serving.model import make_svc_ctx
 
@@ -85,9 +100,14 @@ from repro_torch.serving.model import make_svc_ctx
 # ``repairs``, ``ticks``), the kills by kind (``requeues``, ``aborts``) and
 # the device reads the streams cost (``stream_reads``: one a failure, one
 # an event with ticks, and one refresh of the largest free run after the
-# entries of an event that moved the map under ``contiguous``).
+# entries of an event that moved the map under ``contiguous``).  Malleable
+# runs count the resize ticks consumed (``resize_ticks``), their device
+# reads (``resize_reads``: one a tick that may resize; a tick after one
+# that did nothing in the same event costs none) and the resizes made
+# (``resizes``: grows and shrinks at ticks, and failure shrinks).
 COUNTER_KEYS = ("redo", "max_walks_per_event", "cap_reads", "failures",
-                "repairs", "ticks", "requeues", "aborts", "stream_reads")
+                "repairs", "ticks", "requeues", "aborts", "stream_reads",
+                "resize_ticks", "resize_reads", "resizes")
 counters = dict.fromkeys(COUNTER_KEYS, 0)
 
 
@@ -206,6 +226,45 @@ class _MapLog:
         self.n = 0
 
 
+def _ratio_ceil(r: int, dur_new: int, dur_old: int) -> int:
+    """``max(1, ceil(r * dur_new / dur_old))``, the re-dilation of a
+    remaining wall time to a new width: float32, in the reference's order
+    ``(r * dur_new) / dur_old`` (numpy float32 scalars on the host)."""
+    v = (np.float32(r) * np.float32(dur_new)) / np.float32(dur_old)
+    return max(int(np.ceil(v)), 1)
+
+
+def _redilate(c, idx: int, rem: int, w_old: int, w_new: int) -> int:
+    """Job ``idx``'s remaining wall time ``rem`` at ``w_old`` nodes,
+    re-dilated to ``w_new`` by :func:`_ratio_ceil` over the plan's
+    runtime table, each width clamped into the plan's range."""
+    dur, lo, top = c.dur[idx], c.min_width, c.n_widths - 1
+    return _ratio_ceil(rem, int(dur[min(max(w_new - lo, 0), top)]),
+                       int(dur[min(max(w_old - lo, 0), top)]))
+
+
+def _mal_dispatch(m, k: int, row, idx: int, cap: int) -> tuple:
+    """Member ``k``'s moldable width choice for job ``idx`` with ``cap``
+    nodes placeable: among the widths ``<= cap`` the first with the least
+    dilated runtime (ties to the narrowest).  A fresh job runs ``dur[idx,
+    k]``; a job requeued by a failure re-dilates the remaining time its
+    kill charged from its width then.  Host arithmetic only; writes the
+    host columns and returns ``(width, wall time)``."""
+    c = m.ctx[k]
+    dur = c.dur[idx]
+    W, wlo = dur.shape[0], c.min_width
+    fits = np.arange(wlo, wlo + W) <= cap
+    kk = int(np.argmin(np.where(fits, dur, INF_TIME)))
+    prev, w = int(row(m.prev_w)[idx]), wlo + kk
+    if prev == 0:
+        wall = int(dur[kk])
+    else:
+        wall = _redilate(c, idx, int(row(m.requeued)[idx]), prev, w)
+    row(m.width_host)[idx] = row(m.prev_w)[idx] = w
+    row(m.disp_dur)[idx] = dur[kk]
+    return w, wall
+
+
 def _start_job(jobs: JobSet, state: SimState, idx: int,
                ctx: Optional[AllocCtx] = None) -> SimState:
     """Start job ``idx`` now: schedule its completion from its remaining
@@ -213,15 +272,28 @@ def _start_job(jobs: JobSet, state: SimState, idx: int,
     stream, this start as its checkpoint base).  With an allocation
     context the strategy places its nodes on the painted map
     (:func:`_owner_eff`), the fingerprint is recorded and contention
-    dilates the remaining runtime by the span."""
+    dilates the remaining runtime by the span.  A malleable job first
+    chooses its width (:func:`_mal_dispatch`) and runs the wall time that
+    width gives."""
     clock = state.clock
-    need = int(jobs.host["nodes"][idx])
+    m = state.mal
+    if m is None:
+        need = int(jobs.host["nodes"][idx])
+    else:
+        need, wall = _mal_dispatch(m, 0, _solo_row, idx,
+                                   policies.placeable(state))
+        m.width[idx] = need
+        m.seg_start[idx] = clock
     state.jstate[idx] = RUNNING
     state.start[idx : idx + 1].clamp_(max=clock)
     if state.rel is not None:
         state.rel.last_start[idx] = clock
     if ctx is None:
-        state.finish[idx : idx + 1] = state.remaining[idx : idx + 1] + clock
+        if m is None:
+            state.finish[idx : idx + 1] = (state.remaining[idx : idx + 1]
+                                           + clock)
+        else:
+            state.finish[idx] = clock + wall
     else:
         mask = _alloc.place(ctx.strategy, ctx.machine, _owner_eff(state),
                             need)
@@ -229,8 +301,11 @@ def _start_job(jobs: JobSet, state: SimState, idx: int,
         first, asum = _alloc.alloc_fingerprint(mask)
         state.node_owner.masked_fill_(mask, idx)
         state.alloc[:, idx] = torch.stack([first, span, asum])
-        state.finish[idx] = _alloc.dilate(
-            ctx.contention, state.remaining[idx], span) + clock
+        if m is None:
+            state.finish[idx] = _alloc.dilate(
+                ctx.contention, state.remaining[idx], span) + clock
+        else:
+            state.finish[idx] = clock + wall
         if state.lfb is not None:
             state.lfb = int(_alloc.largest_free_run(_owner_eff(state)))
             counters["cap_reads"] += 1
@@ -282,16 +357,19 @@ def blocking_order(jobs: JobSet, policy: int) -> torch.Tensor:
     return torch.sort(key, stable=True)[1]
 
 
-def _batches(policy: int, strategy: Optional[int], has_edges: bool) -> bool:
+def _batches(policy: int, strategy: Optional[int], has_edges: bool,
+             malleable: bool = False) -> bool:
     """Whether a member's pass is a batched one: under the free counter's
     cap (scalar mode, ``simple``, ``spread``), backfill always, and FCFS,
-    SJF and LJF on a table with edges."""
-    return (strategy is None or strategy in _COUNT_CAPPED) and (
+    SJF and LJF on a table with edges; a malleable run never (the batched
+    passes assume rigid node requests)."""
+    return not malleable and (strategy is None
+                              or strategy in _COUNT_CAPPED) and (
         policy == BACKFILL or (has_edges and policy in _BLOCKING))
 
 
-def _fast_order(jobs: JobSet, policy: int,
-                strategy: Optional[int] = None) -> Optional[torch.Tensor]:
+def _fast_order(jobs: JobSet, policy: int, strategy: Optional[int] = None,
+                malleable: bool = False) -> Optional[torch.Tensor]:
     """The batched pass's permutation, or ``None`` for the per-start loop.
 
     As in the reference: backfill takes the batched pass (one shadow walk
@@ -299,9 +377,9 @@ def _fast_order(jobs: JobSet, policy: int,
     count-capped strategies; FCFS, SJF and LJF take the blocking prefix
     pass there on tables with edges, whose events start whole release
     waves (the per-start loop elsewhere, where an event starts 0-1 jobs);
-    BestFit and preempt never batch."""
+    BestFit, preempt and every malleable run never batch."""
     return (blocking_order(jobs, policy)
-            if _batches(policy, strategy, jobs.dep_dst is not None)
+            if _batches(policy, strategy, jobs.dep_dst is not None, malleable)
             else None)
 
 
@@ -450,7 +528,8 @@ def _batched_backfill_pass(jobs: JobSet, state: SimState,
                            order: torch.Tensor,
                            ctx: Optional[AllocCtx] = None) -> SimState:
     """The batched backfill pass (:func:`_backfill_pass`) on one table."""
-    _drive_solo(_backfill_pass(jobs.host, state), jobs, state, order, ctx)
+    _drive_solo(_backfill_pass(policies.host_columns(jobs, state), state),
+                jobs, state, order, ctx)
     return state
 
 
@@ -460,7 +539,8 @@ def _schedule_pass(policy: int, jobs: JobSet, state: SimState,
     """Start jobs until the policy blocks (Algorithm 1 lines 16-21): a
     batched pass when ``_fast_order`` gave a permutation, else the
     per-start selector loop."""
-    walks = _drive_solo(_pass(policy, jobs.host, state, order is not None),
+    walks = _drive_solo(_pass(policy, policies.host_columns(jobs, state),
+                              state, order is not None),
                         jobs, state, order, ctx)
     counters["max_walks_per_event"] = max(counters["max_walks_per_event"],
                                           walks)
@@ -476,9 +556,10 @@ def dep_csr(jobs: JobSet) -> Optional[DepCsr]:
 
 
 def _stream_time(state, k: int) -> int:
-    """The time of member ``k``'s next stream entry (the earlier of its
-    next failure/repair and its next autoscaler tick), ``INF_TIME`` when
-    both are drained: a host scalar that bounds the event's clock."""
+    """The time of member ``k``'s next stream entry (the earliest of its
+    next failure/repair, its next autoscaler tick and its next resize
+    tick), ``INF_TIME`` when all are drained: a host scalar that bounds
+    the event's clock."""
     t = INF_TIME
     if state.rel is not None:
         f, p = state.rel.ctx[k], state.rel.ptr[k]
@@ -486,6 +567,10 @@ def _stream_time(state, k: int) -> int:
             t = min(t, int(f.time[p]))
     if state.svc is not None:
         c, p = state.svc.ctx[k], state.svc.ptr[k]
+        if p < c.tick_time.shape[0]:
+            t = min(t, int(c.tick_time[p]))
+    if state.mal is not None:
+        c, p = state.mal.ctx[k], state.mal.ptr[k]
         if p < c.tick_time.shape[0]:
             t = min(t, int(c.tick_time[p]))
     return t
@@ -502,18 +587,30 @@ def _kill(jobs: JobSet, state, st, k: int, row, host, victim: int,
     plus the restart overhead.  Abort: DONE at the kill time, the elapsed
     work lost, and its dependents decremented along ``dep_src == victim``
     through a ``J + 1`` buffer whose last slot takes the pad edges.  Either
-    way the victim's nodes are freed (on a machine, in the true map)."""
+    way the victim's nodes are freed (on a machine, in the true map): in a
+    malleable run its width (``host["nodes"]``), whose node-second segment
+    closes, and a requeued victim waits at ``min_width`` again, its
+    remaining time kept on the host for its redispatch."""
     rel, f, clock = state.rel, state.rel.ctx[k], st.clock
+    m, w_v = state.mal, int(host["nodes"][victim])
     el = clock - last_v
     ckpt = f.checkpoint_interval
     lost = el - ((el // ckpt) * ckpt if ckpt > 0 else 0)
     v = slice(victim, victim + 1)
     row(state.rsv_finish)[v] = INF_TIME
+    if m is not None:
+        node_s = row(m.node_s)
+        node_s[v] += w_v * (clock - row(m.seg_start)[v])
     if f.requeue == REQUEUE:
+        rem = max(fin_v - clock + lost + f.restart_overhead, 1)
         row(state.jstate)[v] = WAITING
         row(state.finish)[v] = INF_TIME
-        row(state.remaining)[v] = max(fin_v - clock + lost
-                                      + f.restart_overhead, 1)
+        row(state.remaining)[v] = rem
+        if m is not None:
+            wlo = m.ctx[k].min_width
+            row(m.requeued)[victim] = rem
+            row(m.width_host)[victim] = wlo
+            row(m.width)[v] = wlo
         row(rel.n_restarts)[v] += 1
         row(rel.lost_work)[v] += lost + f.restart_overhead
         counters["requeues"] += 1
@@ -531,15 +628,56 @@ def _kill(jobs: JobSet, state, st, k: int, row, host, victim: int,
             row(state.n_unmet).sub_(dec[:J])
         counters["aborts"] += 1
         aborted = 1
-    st.free += int(host["nodes"][victim])
+    st.free += w_v
     if machine:
         own = row(state.node_owner)
         own.masked_fill_(own == victim, -1)
     return aborted
 
 
+def _refingerprint(state, row, machine, victim: int) -> None:
+    """Recompute job ``victim``'s allocation fingerprint from the nodes it
+    owns now (after a resize)."""
+    mask = row(state.node_owner) == victim
+    first, asum = _alloc.alloc_fingerprint(mask)
+    row(state.alloc)[:, victim] = torch.stack(
+        [first, _alloc.group_span(machine, mask), asum])
+
+
+def _mal_resize(m, row, victim: int, w_old: int, w_new: int,
+                clock: int) -> None:
+    """The ledger of a resize of ``victim`` from ``w_old`` to ``w_new``
+    nodes at ``clock``: close its width segment, open the next, and write
+    the width on the device and the host."""
+    v = slice(victim, victim + 1)
+    node_s = row(m.node_s)
+    node_s[v] += w_old * (clock - row(m.seg_start)[v])
+    row(m.seg_start)[v] = clock
+    row(m.width)[v] = w_new
+    row(m.width_host)[victim] = row(m.prev_w)[victim] = w_new
+    row(m.n_resizes)[victim] += 1
+    counters["resizes"] += 1
+
+
+def _fail_shrink(state, st, k: int, row, victim: int, fin_v: int,
+                 node: int, place) -> None:
+    """An elastic job hit by a failure sheds the failed node instead of
+    dying: its remaining wall time re-dilates to one node fewer and its
+    finish moves; the shed node is down, so the free counter nets zero.
+    On a machine the failed node itself leaves the job's allocation."""
+    m, clock = state.mal, st.clock
+    w_v = int(row(m.width_host)[victim])
+    row(state.finish)[victim] = clock + _redilate(
+        m.ctx[k], victim, fin_v - clock, w_v, w_v - 1)
+    st.free += 1
+    if place is not None:
+        row(state.node_owner)[node] = -1
+        _refingerprint(state, row, place[0], victim)
+    _mal_resize(m, row, victim, w_v, w_v - 1, clock)
+
+
 def _rel_entries(jobs: JobSet, state, st, k: int, row, host,
-                 machine: bool) -> tuple:
+                 place) -> tuple:
     """Consume member ``k``'s failure/repair entries with time <= clock,
     one at a time (a kill changes the running set the next victim rule
     reads): ``(aborts, whether the map's painted mask moved)``.
@@ -553,12 +691,19 @@ def _rel_entries(jobs: JobSet, state, st, k: int, row, host,
     rows whose cumsum does not, the cumsum being nondecreasing); slot,
     victim, finish and latest start come back in one read.  ``row`` maps a
     ``[B, ...]`` tensor to member ``k``'s row (the identity in a solo
-    run)."""
+    run); ``place`` is ``(machine, strategy)`` on a machine, else
+    ``None``.  Under an elastic malleable plan a victim wider than
+    ``min_width`` sheds the node (:func:`_fail_shrink`) instead of
+    dying."""
     rel = state.rel
     f = rel.ctx[k]
     K, p = f.time.shape[0], rel.ptr[k]
     aborts, moved = 0, False
     J = jobs.capacity
+    machine = place is not None
+    m = state.mal
+    shrink_above = (m.ctx[k].min_width if m is not None and m.ctx[k].elastic
+                    else None)
     jst, fin, last = row(state.jstate), row(state.finish), row(
         rel.last_start)
     while p < K and int(f.time[p]) <= st.clock:
@@ -584,8 +729,9 @@ def _rel_entries(jobs: JobSet, state, st, k: int, row, host,
             if not fail:
                 st.free += 1
                 continue
-            cum = torch.cumsum(torch.where(jst == RUNNING, row(jobs.nodes), 0),
-                               0, dtype=torch.int32)
+            cum = torch.cumsum(torch.where(
+                jst == RUNNING, row(policies.node_column(jobs, state)), 0),
+                0, dtype=torch.int32)
             busy = cum[-1]
             slot = node % torch.clamp(busy + st.free, min=1)
             vc = torch.sum(cum <= slot).clamp(max=J - 1)
@@ -594,7 +740,11 @@ def _rel_entries(jobs: JobSet, state, st, k: int, row, host,
             got = got if hit > 0 else None
             st.free -= 1
         counters["stream_reads"] += 1
-        if got is not None and got[0] >= 0:
+        if got is None or got[0] < 0:
+            continue
+        if shrink_above is not None and host["nodes"][got[0]] > shrink_above:
+            _fail_shrink(state, st, k, row, got[0], got[1], node, place)
+        else:
             aborts += _kill(jobs, state, st, k, row, host, *got, machine)
     rel.ptr[k] = p
     return aborts, moved
@@ -618,8 +768,9 @@ def _tick_entries(jobs: JobSet, state, st, k: int, row,
     T, p = c.tick_time.shape[0], svc.ptr[k]
     if p >= T or int(c.tick_time[p]) > st.clock:
         return False
-    demand = int(torch.sum(torch.where(row(state.jstate) == WAITING,
-                                       row(jobs.nodes), 0)))
+    demand = int(torch.sum(torch.where(
+        row(state.jstate) == WAITING,
+        row(policies.node_column(jobs, state)), 0)))
     counters["stream_reads"] += 1
     moved = False
     while p < T and int(c.tick_time[p]) <= st.clock:
@@ -648,18 +799,104 @@ def _tick_entries(jobs: JobSet, state, st, k: int, row,
     return moved
 
 
+def _resize_entries(jobs: JobSet, state, st, k: int, row, place) -> bool:
+    """Consume member ``k``'s elastic resize ticks with time <= clock, one
+    at a time (a resize changes the widths the next tick reads); returns
+    whether the map moved.
+
+    One read a tick: the queued demand (the widths of the WAITING jobs,
+    before this event's arrivals), the widest running job above
+    ``min_width`` and the narrowest below ``max_width`` (ties to the lowest
+    row) with their finishes, and, where it is the cap, the largest free
+    run.  At ``demand >= shrink_threshold`` the widest sheds ``min(step,
+    width - min_width)`` nodes (on a machine its highest-index ones), else
+    at ``demand <= grow_threshold`` the narrowest grows by ``min(step,
+    max_width - width, cap)`` (on a machine placed by the strategy over
+    the painted map).  A resize re-dilates the job's remaining wall time
+    and moves its finish.  A tick that resizes nothing leaves the state as
+    it was, so the event's later ticks do nothing either and cost no
+    read."""
+    m = state.mal
+    c = m.ctx[k]
+    T, p = c.tick_time.shape[0], m.ptr[k]
+    wlo, whi, J = c.min_width, c.max_width, jobs.capacity
+    moved = False
+    while p < T and int(c.tick_time[p]) <= st.clock:
+        p += 1
+        counters["resize_ticks"] += 1
+        width, jst = row(m.width), row(state.jstate)
+        running = jst == RUNNING
+        s_key = torch.where(running & (width > wlo), width, -1)
+        g_key = torch.where(running & (width < whi), width, INF_TIME)
+        rows = torch.arange(J, dtype=torch.int32, device=width.device)
+        s_max, g_min = s_key.max(), g_key.min()
+        s_vic = torch.where(s_key == s_max, rows, J).min()
+        g_vic = torch.where(g_key == g_min, rows, J).min()
+        fin = row(state.finish)
+        reads = [torch.sum(torch.where(jst == WAITING, width, 0)), s_max,
+                 g_min, s_vic, g_vic, fin[s_vic], fin[g_vic]]
+        if st.lfb is not None:
+            reads.append(_alloc.largest_free_run(
+                _owner_eff(state, None if row is _solo_row else k)))
+        demand, s_max, g_min, s_vic, g_vic, fin_s, fin_g, *lfb = torch.stack(
+            [x.long() for x in reads]).tolist()
+        counters["resize_reads"] += 1
+        if lfb:
+            st.lfb = lfb[0]
+        do_shrink = demand >= c.shrink_threshold and s_max >= 0
+        vic, fin_v = (s_vic, fin_s) if do_shrink else (g_vic, fin_g)
+        w_v = int(row(m.width_host)[vic])
+        cap = max(st.free, 0) if place is None else policies.placeable(st)
+        d = min(c.step, whi - w_v, cap)
+        do_grow = (demand < c.shrink_threshold
+                   and demand <= c.grow_threshold and g_min < INF_TIME
+                   and d > 0)
+        if not (do_shrink or do_grow):
+            while p < T and int(c.tick_time[p]) <= st.clock:
+                p += 1
+                counters["resize_ticks"] += 1
+            break
+        if do_shrink:
+            d = min(c.step, w_v - wlo)
+        new_w = w_v - d if do_shrink else w_v + d
+        row(state.finish)[vic] = st.clock + _redilate(
+            c, vic, fin_v - st.clock, w_v, new_w)
+        st.free += d if do_shrink else -d
+        if place is not None:
+            own = row(state.node_owner)
+            if do_shrink:
+                mine = own == vic
+                rank = torch.cumsum(mine.flip(0), 0,
+                                    dtype=torch.int32).flip(0)
+                own.masked_fill_(mine & (rank <= d), -1)
+            else:
+                own.masked_fill_(_alloc.place(
+                    place[1], place[0],
+                    _owner_eff(state, None if row is _solo_row else k), d),
+                    vic)
+            _refingerprint(state, row, place[0], vic)
+            moved = True
+        _mal_resize(m, row, vic, w_v, new_w, st.clock)
+    m.ptr[k] = p
+    return moved
+
+
 def _streams_step(jobs: JobSet, state, st, k: int, row, host,
-                  machine: bool, unfinished: int) -> tuple:
+                  place, unfinished: int) -> tuple:
     """Member ``k``'s stream entries of this event, after its completions
     (``unfinished``: its jobs not DONE after them): the failure/repair
-    entries, then the ticks, each only while some job is not DONE (a
-    finished member never drains its streams' tails).  Returns ``(aborts,
-    whether the painted mask moved)``."""
+    entries, then the autoscaler ticks, then the resize ticks, each only
+    while some job is not DONE (a finished member never drains its
+    streams' tails).  ``host`` is the member's host columns, ``place``
+    ``(machine, strategy)`` on a machine, else ``None``.  Returns
+    ``(aborts, whether the map or its painted mask moved)``."""
     aborts, moved = 0, False
     if state.rel is not None and unfinished > 0:
-        aborts, moved = _rel_entries(jobs, state, st, k, row, host, machine)
+        aborts, moved = _rel_entries(jobs, state, st, k, row, host, place)
     if state.svc is not None and unfinished - aborts > 0:
-        moved |= _tick_entries(jobs, state, st, k, row, machine)
+        moved |= _tick_entries(jobs, state, st, k, row, place is not None)
+    if state.mal is not None and unfinished - aborts > 0:
+        moved |= _resize_entries(jobs, state, st, k, row, place)
     return aborts, moved
 
 
@@ -684,8 +921,12 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
     painted map) row goes to the log after the pass.  With a stream the
     next entry's time bounds the clock.  The arrivals come after the one
     read and after the stream entries (:func:`_streams_step`), so that a
-    released dependent or a requeued victim arrives in the same event."""
-    streams = state.rel is not None or state.svc is not None
+    released dependent or a requeued victim arrives in the same event.  In
+    a malleable run completions free their widths and close their
+    node-second segments on the device."""
+    m = state.mal
+    streams = (state.rel is not None or state.svc is not None
+               or (m is not None and m.ctx[0].elastic))
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
     if csr is not None:   # an unreleased job is no arrival event
@@ -697,7 +938,10 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
     if streams:
         clock = torch.clamp(clock, max=_stream_time(state, 0))
     completed = running & (state.finish <= clock)
-    freed = torch.sum(torch.where(completed, jobs.nodes, 0))
+    freed = torch.sum(torch.where(completed, policies.node_column(jobs, state),
+                                  0))
+    if m is not None:
+        m.node_s += torch.where(completed, m.width * (clock - m.seg_start), 0)
     state.jstate = torch.where(completed, DONE, state.jstate).to(torch.int32)
     if csr is not None:
         state.n_unmet -= count_deps(csr, completed)
@@ -714,9 +958,11 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
     if lfb:
         state.lfb = lfb[0]
     if streams:
-        aborts, moved = _streams_step(jobs, state, state, 0, _solo_row,
-                                      jobs.host, ctx is not None,
-                                      unfinished - n_completed)
+        aborts, moved = _streams_step(
+            jobs, state, state, 0, _solo_row,
+            policies.host_columns(jobs, state),
+            None if ctx is None else (ctx.machine, ctx.strategy),
+            unfinished - n_completed)
         n_completed += aborts
         if moved and state.lfb is not None:
             state.lfb = int(_alloc.largest_free_run(_owner_eff(state)))
@@ -740,16 +986,47 @@ def policies_id(policy) -> int:
     return int(policy)
 
 
-def _event_cap(J: int, fctx, sctx) -> int:
+def _event_cap(J: int, fctx, sctx, mctx=None) -> int:
     """The default event cap, as in the reference: ``6 J + 8``, plus ``6
     F`` with a failure stream of capacity ``F`` (a kill adds at most a
-    start and a completion, and two entries), plus the ``T`` ticks."""
+    start and a completion, and two entries), plus the ``T`` autoscaler
+    ticks and the resize ticks."""
     cap = 6 * J + 8
     if fctx is not None:
         cap += 6 * fctx.capacity
     if sctx is not None:
         cap += sctx.tick_time.shape[-1]
+    if mctx is not None:
+        cap += mctx.tick_time.shape[-1]
     return cap
+
+
+def _check_malleable(mctxs, J: int, contention: bool, pols) -> None:
+    """Refuse what the reference refuses with a malleable plan: contention
+    (the speedup curve already maps width to runtime), preempt (a
+    suspended job's width bookkeeping is undefined), a plan whose rows are
+    not the table's capacity; and an ensemble's plans of different tick
+    counts."""
+    if mctxs is None:
+        return
+    if contention:
+        raise ValueError(
+            "malleable jobs cannot be combined with contention "
+            "dilation; the speedup curve owns the width->runtime map")
+    if PREEMPT in pols:
+        raise ValueError(
+            "malleable jobs cannot be combined with the preempt "
+            "policy; a suspended job's width bookkeeping is undefined")
+    for c in mctxs:
+        if c.dur.shape[0] != J:
+            raise ValueError(
+                f"malleable plan rows ({c.dur.shape[0]}) do not match "
+                f"the job-table capacity ({J}); materialize "
+                "the plan with capacity == the padded job capacity")
+    ticks = {c.tick_time.shape[-1] for c in mctxs}
+    if len(ticks) > 1:
+        raise ValueError(f"an ensemble's members need one shape of stream; "
+                         f"got resize tick counts {sorted(ticks)}")
 
 
 def _check_streams(machine, fctxs, sctxs, J: int) -> None:
@@ -781,7 +1058,8 @@ def _check_streams(machine, fctxs, sctxs, J: int) -> None:
 
 def simulate(jobs: JobSet, policy, total_nodes: int, *, machine=None,
              alloc=None, contention=None, failures=None, service=None,
-             max_events: Optional[int] = None, device=None) -> SimResult:
+             malleable=None, max_events: Optional[int] = None,
+             device=None) -> SimResult:
     """Run the whole simulation of one cluster.
 
     Without ``machine`` the engine runs in scalar-counter mode.  With a
@@ -793,31 +1071,38 @@ def simulate(jobs: JobSet, policy, total_nodes: int, *, machine=None,
     fragmentation log.  ``failures`` (``None``, a ``FailureModel``, a
     ``FailureTrace`` or a ``FailCtx``) switches on node failures (DESIGN.md
     §15), ``service`` (``None``, a ``ServiceTrace``, a ``ServicePlan`` or
-    a ``SvcCtx``) the serving plan's deadlines and autoscaler (§16).
+    a ``SvcCtx``) the serving plan's deadlines and autoscaler (§16), and
+    ``malleable`` (``None``, a ``MalleablePlan`` or a ``MalCtx``) malleable
+    jobs (§17): moldable width choice at dispatch and, in elastic mode,
+    resize ticks and failure shrinks; it refuses contention and preempt.
     ``device=None`` runs on ``cuda`` (and raises without one); the job
     table and the machine move there if they lie elsewhere.
     ``max_events`` caps the event count (default ``6 * capacity + 8``,
-    plus ``6 * max_failures`` and the tick count, as in the reference).
+    plus ``6 * max_failures`` and the tick counts, as in the reference).
     """
     ctx = make_alloc_ctx(machine, alloc, contention, total_nodes)
     fctx = make_fail_ctx(failures, n_nodes=int(total_nodes))
     sctx = make_svc_ctx(service, n_nodes=int(total_nodes))
+    mctx = make_mal_ctx(malleable)
     _check_streams(machine, None if fctx is None else [fctx],
                    None if sctx is None else [sctx], jobs.capacity)
+    policy = min(max(policies_id(policy), 0), len(policies.SELECTORS) - 1)
+    _check_malleable(None if mctx is None else [mctx], jobs.capacity,
+                     contention is not None, [policy])
     device = resolve_device(device)
     if jobs.device != device:
         jobs = jobs.to(device)
     if ctx is not None and ctx.machine.device != device:
         ctx = ctx._replace(machine=ctx.machine.to(device))
-    policy = min(max(policies_id(policy), 0), len(policies.SELECTORS) - 1)
     cap = (max_events if max_events is not None
-           else _event_cap(jobs.capacity, fctx, sctx))
+           else _event_cap(jobs.capacity, fctx, sctx, mctx))
     state = SimState.init(jobs, total_nodes,
                           None if ctx is None else ctx.machine, cap,
-                          fctx, sctx)
+                          fctx, sctx, mctx)
     if ctx is not None and ctx.strategy == _alloc.CONTIGUOUS:
         state.lfb = ctx.machine.n_nodes
-    order = _fast_order(jobs, policy, None if ctx is None else ctx.strategy)
+    order = _fast_order(jobs, policy, None if ctx is None else ctx.strategy,
+                        mctx is not None)
     log = None if ctx is None else _MapLog(state.node_owner, state.ev_lfb)
     csr = dep_csr(jobs)
     jobs.selector.bind_stream()
@@ -898,7 +1183,9 @@ def _event_step_batch(jobs: JobSet, state: EnsembleState,
     member (a done member's row means nothing), with the largest free run
     after the completions as a fourth column when some member's cap is
     that run.  With streams, ``t_stream`` (i32[B] on the device) bounds
-    each member's clock.  The arrivals are left to the caller
+    each member's clock.  In a malleable run completions free their
+    widths and close their node-second segments.  The arrivals are left
+    to the caller
     (:func:`_arrive_batch`, after the stream entries).  Returns the read
     rows and the clocks on the device."""
     pending = state.jstate == PENDING
@@ -913,7 +1200,12 @@ def _event_step_batch(jobs: JobSet, state: EnsembleState,
     completed = running & (state.finish <= clock[:, None])
     if active is not None:
         completed &= active[:, None]
-    freed = torch.sum(torch.where(completed, jobs.nodes, 0), dim=1)
+    freed = torch.sum(torch.where(completed, policies.node_column(jobs, state),
+                                  0), dim=1)
+    m = state.mal
+    if m is not None:
+        m.node_s += torch.where(completed,
+                                m.width * (clock[:, None] - m.seg_start), 0)
     state.jstate.copy_(torch.where(completed, DONE, state.jstate))
     if csr is not None:   # a done member completes nothing: no decrement
         state.n_unmet -= count_deps(csr, completed)
@@ -937,31 +1229,46 @@ def _start_batch(jobs: JobSet, state: EnsembleState, hosts, reqs,
     member and row): one indexed write a column for all of them.  With a
     machine, one placement over the members' rows (one call a strategy
     among them), and one read of the new largest free runs where they are
-    the cap."""
+    the cap.  In a malleable run each member chooses its job's width on
+    the host first (:func:`_mal_dispatch`)."""
     ms = [b for b, _ in reqs]
     ix = [i for _, i in reqs]
     clk = [state.members[b].clock for b in ms]
     rsv = [c + int(hosts[b]["estimate"][i]) for b, i, c in zip(ms, ix, clk)]
-    m, i, c, r = _to_device([ms, ix, clk, rsv], jobs.device).unbind(0)
+    mal = state.mal
+    cols = [ms, ix, clk, rsv]
+    if mal is not None:
+        cols += [list(x) for x in zip(*(
+            _mal_dispatch(mal, b, lambda t, b=b: t[b], i,
+                          policies.placeable(state.members[b]))
+            for b, i in reqs))]
+    m, i, c, r, *wall = _to_device(cols, jobs.device).unbind(0)
     c = c.to(torch.int32)
+    if mal is not None:
+        need, wall = (x.to(torch.int32) for x in wall)
+        mal.width[m, i] = need
+        mal.seg_start[m, i] = c
+    else:
+        need = jobs.nodes[m, i]
     state.jstate[m, i] = RUNNING
     state.start[m, i] = torch.minimum(state.start[m, i], c)
     if state.rel is not None:
         state.rel.last_start[m, i] = c
     if actx is None:
-        state.finish[m, i] = state.remaining[m, i] + c
+        state.finish[m, i] = (state.remaining[m, i] if mal is None
+                              else wall) + c
     else:
         own = state.node_owner[m]
         mask = _alloc.place_batch([actx.strategies[b] for b in ms],
-                                  actx.machine, _owner_eff(state, m),
-                                  jobs.nodes[m, i])
+                                  actx.machine, _owner_eff(state, m), need)
         span = _alloc.group_span(actx.machine, mask)
         first, asum = _alloc.alloc_fingerprint(mask)
         state.node_owner[m] = torch.where(mask, i[:, None].to(torch.int32),
                                           own)
         state.alloc[m, :, i] = torch.stack([first, span, asum], dim=1)
-        state.finish[m, i] = _alloc.dilate(actx.contention_of(m, ms),
-                                           state.remaining[m, i], span) + c
+        state.finish[m, i] = (_alloc.dilate(actx.contention_of(m, ms),
+                                            state.remaining[m, i], span)
+                              if mal is None else wall) + c
     state.rsv_finish[m, i] = r.to(torch.int32)
     for b, idx in reqs:
         state.members[b].free -= int(hosts[b]["nodes"][idx])
@@ -1075,6 +1382,7 @@ def _schedule_batch(jobs: JobSet, state: EnsembleState, pols, hosts,
     answers = dict.fromkeys(gens)
     walks = dict.fromkeys(gens, 0)
     sel = jobs.selector
+    nodes = None if state.mal is None else state.mal.width
     while gens:
         reqs = {SELECT: [], WALK: [], RECLAIM: [], START: [], SUSPEND: [],
                 PREFIX: []}
@@ -1088,12 +1396,12 @@ def _schedule_batch(jobs: JobSet, state: EnsembleState, pols, hosts,
             answers[b] = None
         if reqs[SELECT]:
             got = sel.select_batch([(b, r[1], r[2]) for b, r in reqs[SELECT]],
-                                   state.jstate)
+                                   state.jstate, nodes=nodes)
             for (b, _), a in zip(reqs[SELECT], got):
                 answers[b] = a
         if reqs[WALK]:
             got = sel.walk_batch([(b, r[1]) for b, r in reqs[WALK]],
-                                 state.jstate, state.rsv_finish)
+                                 state.jstate, state.rsv_finish, nodes=nodes)
             for (b, r), a in zip(reqs[WALK], got):
                 answers[b] = a
                 if r[2]:
@@ -1143,7 +1451,7 @@ def _batch_order(jobs: JobSet, pols, batched) -> Optional[torch.Tensor]:
 
 def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
                    machine=None, alloc_b=None, contention_b=None,
-                   failures_b=None, service_b=None,
+                   failures_b=None, service_b=None, malleable_b=None,
                    max_events: Optional[int] = None) -> SimResult:
     """Run B members of a stacked table (``[B, J]`` columns) in lockstep.
 
@@ -1160,11 +1468,13 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
     or ``None``); each member keeps its own stream pointers and consumes
     its entries inside the lockstep event step, and its next entry's time
     bounds its clock through one device row ``t_stream`` written only when
-    a pointer moves.  A member is done once it has no unfinished job or
-    has reached its event cap; from then on its state is never written
-    again ("max iterations across members, finished carries preserved",
-    DESIGN.md §18.1), nor are its streams drained.  Runs on the table's
-    device."""
+    a pointer moves.  ``malleable_b`` gives each member its ``MalCtx``: its
+    own ``[J]`` row of widths, host copy and tick pointer (no member may
+    dilate by contention or preempt).  A member is done once it has no
+    unfinished job or has reached its event cap; from then on its state is
+    never written again ("max iterations across members, finished carries
+    preserved", DESIGN.md §18.1), nor are its streams drained.  Runs on
+    the table's device."""
     B = jobs.batch
     if B is None:
         raise ValueError("simulate_batch needs a stacked [B, J] table")
@@ -1173,31 +1483,39 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
     if len(pols) != B or len(total_nodes_b) != B:
         raise ValueError(f"{len(pols)} policies and {len(total_nodes_b)} "
                          f"node counts for {B} members")
-    for name, ctxs in (("failures_b", failures_b), ("service_b", service_b)):
+    for name, ctxs in (("failures_b", failures_b), ("service_b", service_b),
+                       ("malleable_b", malleable_b)):
         if ctxs is not None and len(ctxs) != B:
             raise ValueError(f"{len(ctxs)} {name} contexts for {B} members")
     _check_streams(machine, failures_b, service_b, jobs.capacity)
+    _check_malleable(malleable_b, jobs.capacity,
+                     any(c.enabled for c in contention_b or ()), pols)
     cap = max_events if max_events is not None else _event_cap(
         jobs.capacity, None if failures_b is None else failures_b[0],
-        None if service_b is None else service_b[0])
+        None if service_b is None else service_b[0],
+        None if malleable_b is None else malleable_b[0])
     actx = None
     if machine is not None:
         actx = BatchAlloc.make(machine, list(alloc_b), list(contention_b),
                                jobs.device)
     state = EnsembleState.init(jobs, total_nodes_b, machine, cap,
-                               failures_b, service_b)
+                               failures_b, service_b, malleable_b)
     if actx is not None:
         for b, s in enumerate(actx.strategies):
             if s == _alloc.CONTIGUOUS:
                 state.members[b].lfb = machine.n_nodes
     host = jobs.host
     hosts = [{f: a[b] for f, a in host.items()} for b in range(B)]
+    if state.mal is not None:   # each member's passes read its widths
+        for b in range(B):
+            hosts[b]["nodes"] = state.mal.width_host[b]
     # a member batches as its solo run would: by its own table's edges
     edged = [jobs.dep_dst is not None and bool((h["dep_dst"]
                                                 < jobs.capacity).any())
              for h in hosts]
     batched = [_batches(p, None if actx is None else actx.strategies[b],
-                        edged[b]) for b, p in enumerate(pols)]
+                        edged[b], malleable_b is not None)
+               for b, p in enumerate(pols)]
     order = _batch_order(jobs, pols, batched)
     csr = dep_csr(jobs)
     jobs.selector.bind_stream()
@@ -1205,7 +1523,8 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
     members = [b for b in range(B) if unfinished[b] > 0 and cap > 0]
     active, n_masked = None, B
     log = None if actx is None else _MapLog(state.node_owner, state.ev_lfb)
-    streams = state.rel is not None or state.svc is not None
+    streams = (state.rel is not None or state.svc is not None
+               or any(c.elastic for c in malleable_b or ()))
     t_host = t_stream = None
     if streams:
         t_host = [_stream_time(state, b) for b in range(B)]
@@ -1233,7 +1552,9 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
             for b in members:
                 aborts, mv = _streams_step(
                     jobs, state, state.members[b], b,
-                    lambda t, b=b: t[b], hosts[b], actx is not None,
+                    lambda t, b=b: t[b], hosts[b],
+                    None if actx is None else (actx.machine,
+                                               actx.strategies[b]),
                     unfinished[b])
                 unfinished[b] -= aborts
                 if mv:

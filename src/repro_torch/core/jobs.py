@@ -36,7 +36,11 @@ flag, and the down-node mask), with a service plan (§16) ``svc``
 capacity log); each is ``None`` when its source is off, and the result
 carries their columns (:class:`FailureInfo`, :class:`SvcInfo`).
 
-Not carried yet: malleable plans.
+With a malleable plan (DESIGN.md §17) the state carries ``mal``
+(:class:`MalState`): each job's current width (its node footprint, which
+every fit check, release and demand reads in place of ``nodes``), on the
+device and mirrored on the host, and the node-second ledger; the result
+carries its columns (:class:`MalInfo`).
 """
 
 from __future__ import annotations
@@ -514,6 +518,51 @@ class SvcState:
 
 
 @dataclasses.dataclass
+class MalState:
+    """Malleability state (DESIGN.md §17) of a run with a malleable plan.
+
+    The host keeps each member's plan (``ctx``: a ``MalCtx``) and its
+    pointer to the next resize tick (``ptr``).  ``width`` is each job's
+    current width on the device (``min_width`` while it waits, the width
+    chosen at dispatch and changed by resizes after), which the kernel
+    reads as its node column; ``width_host`` is its copy on the host,
+    written beside every device write, which the pass generators read as
+    ``host["nodes"]``.  ``seg_start`` (the clock that opened the job's
+    current width segment) and ``node_s`` (the closed segments' width x
+    wall seconds) are on the device, closed at completions on the device.
+    The host alone writes ``prev_w`` (the width at the latest dispatch or
+    resize, 0 before the first dispatch), ``n_resizes``, ``disp_dur`` (the
+    dilated duration chosen at the latest dispatch, -1 before it) and
+    ``requeued`` (the remaining time a requeue kill charged, the basis of
+    the redispatch's re-dilation).  A solo run's lists have one entry."""
+
+    ctx: list
+    ptr: list
+    width: torch.Tensor        # i32[..., J]
+    seg_start: torch.Tensor    # i32[..., J]
+    node_s: torch.Tensor       # i32[..., J]
+    width_host: np.ndarray     # i32[..., J]
+    prev_w: np.ndarray         # i32[..., J]
+    n_resizes: np.ndarray      # i32[..., J]
+    disp_dur: np.ndarray       # i32[..., J]
+    requeued: np.ndarray       # i32[..., J]
+
+    @classmethod
+    def init(cls, ctxs, J: int, device, batch=()) -> "MalState":
+        wlo = np.array([c.min_width for c in ctxs], dtype=np.int32)
+        width = np.broadcast_to((wlo if batch else wlo[0])[..., None],
+                                (*batch, J)).copy()
+        zeros = np.zeros((*batch, J), dtype=np.int32)
+        dev = torch.zeros((*batch, J), dtype=torch.int32, device=device)
+        return cls(ctx=list(ctxs), ptr=[0] * len(ctxs),
+                   width=torch.tensor(width, device=device),
+                   seg_start=dev, node_s=dev.clone(), width_host=width,
+                   prev_w=zeros, n_resizes=zeros.copy(),
+                   disp_dur=np.full((*batch, J), -1, dtype=np.int32),
+                   requeued=zeros.copy())
+
+
+@dataclasses.dataclass
 class SimState(_AllocViews):
     """Simulation state of one cluster, updated in place by the engine.
 
@@ -546,13 +595,14 @@ class SimState(_AllocViews):
     n_unmet: Optional[torch.Tensor] = None   # i32[J] unmet dependencies
     rel: Optional[RelState] = None
     svc: Optional[SvcState] = None
+    mal: Optional[MalState] = None
 
     @classmethod
     def init(cls, jobs: JobSet, total_nodes: int, machine=None,
-             event_log: int = 0, failures=None,
-             service=None) -> "SimState":
-        """``failures``/``service``: the run's ``FailCtx``/``SvcCtx`` (or
-        ``None``)."""
+             event_log: int = 0, failures=None, service=None,
+             malleable=None) -> "SimState":
+        """``failures``/``service``/``malleable``: the run's
+        ``FailCtx``/``SvcCtx``/``MalCtx`` (or ``None``)."""
         J, dev = jobs.capacity, jobs.device
         N = machine.n_nodes if machine is not None else 0
         L = int(event_log) if machine is not None else 0
@@ -572,6 +622,8 @@ class SimState(_AllocViews):
                 [failures], J, N, dev),
             svc=None if service is None else SvcState.init(
                 [service], [total_nodes], N, dev),
+            mal=None if malleable is None else MalState.init(
+                [malleable], J, dev),
         )
 
 
@@ -613,13 +665,14 @@ class EnsembleState(_AllocViews):
     n_unmet: Optional[torch.Tensor] = None   # i32[B, J] unmet dependencies
     rel: Optional[RelState] = None
     svc: Optional[SvcState] = None
+    mal: Optional[MalState] = None
 
     @classmethod
     def init(cls, jobs: JobSet, total_nodes, machine=None,
-             event_log: int = 0, failures_b=None,
-             service_b=None) -> "EnsembleState":
-        """``failures_b``/``service_b``: one ``FailCtx``/``SvcCtx`` a
-        member (or ``None``)."""
+             event_log: int = 0, failures_b=None, service_b=None,
+             malleable_b=None) -> "EnsembleState":
+        """``failures_b``/``service_b``/``malleable_b``: one
+        ``FailCtx``/``SvcCtx``/``MalCtx`` a member (or ``None``)."""
         B, dev = jobs.batch, jobs.device
         N = machine.n_nodes if machine is not None else 0
         L = int(event_log) if machine is not None else 0
@@ -638,6 +691,8 @@ class EnsembleState(_AllocViews):
                 failures_b, jobs.capacity, N, dev, (B,)),
             svc=None if service_b is None else SvcState.init(
                 service_b, total_nodes, N, dev, (B,)),
+            mal=None if malleable_b is None else MalState.init(
+                malleable_b, jobs.capacity, dev, (B,)),
         )
 
     @property
@@ -674,11 +729,23 @@ class SvcInfo:
 
 
 @dataclasses.dataclass(frozen=True)
+class MalInfo:
+    """Per-job malleability columns of a result (``SimResult.mal``)."""
+
+    width: torch.Tensor       # i32[J] final width (min_width if never run)
+    nref: torch.Tensor        # i32[J] reference (requested) width
+    n_resizes: torch.Tensor   # i32[J] grows, shrinks and failure shrinks
+    node_s: torch.Tensor      # i32[J] width x wall seconds, every segment
+    disp_dur: torch.Tensor    # i32[J] dilated duration at the latest
+                              #        dispatch (-1: never dispatched)
+
+
+@dataclasses.dataclass(frozen=True)
 class SimResult:
     """Per-job outcome of a run.  The allocation fingerprints and the
     ``ev_*`` log are those of the state (``-1``/0 and length 0 without a
-    machine); ``rel`` and ``svc`` carry the reliability and serving
-    columns (``None`` when the source was off)."""
+    machine); ``rel``, ``svc`` and ``mal`` carry the reliability, serving
+    and malleability columns (``None`` when the source was off)."""
 
     start: torch.Tensor   # i32[J]
     finish: torch.Tensor  # i32[J]
@@ -695,6 +762,7 @@ class SimResult:
     ev_lfb: torch.Tensor       # i32[L] per-event largest free run
     rel: Optional[FailureInfo] = None
     svc: Optional[SvcInfo] = None
+    mal: Optional[MalInfo] = None
 
     def member(self, b: int) -> "SimResult":
         """Row ``b`` of an ensemble's result (``[B, ...]`` fields)."""
@@ -710,7 +778,7 @@ def result_from_state(jobs: JobSet, state) -> SimResult:
         jobs.submit, dependency_finish(jobs, state.finish)))
     wait = torch.where(jobs.valid, state.start - ready, 0).to(torch.int32)
     done = (state.jstate == DONE) & jobs.valid
-    rel = svc = None
+    rel = svc = mal = None
     if state.rel is not None:
         done &= ~state.rel.aborted
         rel = FailureInfo(n_restarts=state.rel.n_restarts,
@@ -723,6 +791,15 @@ def result_from_state(jobs: JobSet, state) -> SimResult:
                       deadline=state.svc.deadline,
                       cap_online=torch.from_numpy(
                           state.svc.cap_online).to(dev))
+    if state.mal is not None:
+        m = state.mal
+        nref = np.stack([c.nref for c in m.ctx])
+        mal = MalInfo(
+            width=m.width,
+            nref=torch.from_numpy(nref if jobs.batch else nref[0]).to(dev),
+            n_resizes=torch.from_numpy(m.n_resizes).to(dev),
+            node_s=m.node_s,
+            disp_dur=torch.from_numpy(m.disp_dur).to(dev))
     return SimResult(
         start=state.start,
         finish=state.finish,
@@ -739,4 +816,5 @@ def result_from_state(jobs: JobSet, state) -> SimResult:
         ev_lfb=state.ev_lfb,
         rel=rel,
         svc=svc,
+        mal=mal,
     )

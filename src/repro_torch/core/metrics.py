@@ -3,7 +3,8 @@
 The PyTorch port's own copy of ``percentiles``, ``summary`` and the step
 series (occupancy, active jobs, queue length, sampling onto a grid), and of
 the allocation series (fragmentation, largest free block, job span),
-``alloc_summary``, ``reliability_summary`` and ``slo_summary``, from
+``alloc_summary``, ``reliability_summary``, ``slo_summary`` and
+``malleable_summary``, from
 ``repro.core.metrics``: pure numpy functions of the
 canonical result dict, identical to the reference's, so both engines'
 metrics agree bit for bit.
@@ -67,6 +68,13 @@ def summary(res, total_nodes: int) -> Dict[str, float]:
     bsld = np.maximum((wait + run) / np.maximum(run, 10.0), 1.0)
     makespan = float(finish.max() - submit.min())
     node_seconds = float((nodes.astype(np.float64) * run).sum())
+    if "mal_node_s" in res:
+        # malleable runs occupy width x wall seconds a segment (the
+        # engine's ledger), not the requested rigid footprint
+        mask = (np.asarray(res["valid"], dtype=bool)
+                & np.asarray(res["done"], dtype=bool))
+        node_seconds = float(
+            np.asarray(res["mal_node_s"], np.float64)[mask].sum())
     util = node_seconds / (total_nodes * makespan) if makespan > 0 else 0.0
     return {
         "n_jobs": float(len(submit)),
@@ -274,3 +282,32 @@ def slo_summary(res, class_names=None, total_nodes=None) -> Dict[str, float]:
         if cap_int > 0:
             out["slo_goodput"] = useful / cap_int
     return out
+
+
+def malleable_summary(res) -> Dict[str, float]:
+    """Scalar malleability metrics of a result with ``mal_*`` columns
+    (DESIGN.md §17): the mean and largest final width of the completed
+    jobs, the resizes (grows, shrinks and failure shrinks) of all jobs,
+    the mean dispatch-time dilation over the nominal runtime, and the
+    parallel efficiency ``sum(runtime * nref) / sum(node_s)`` over the
+    completed jobs (above 1 when the malleable run used fewer node-seconds
+    than every job at its requested width)."""
+    valid = np.asarray(res["valid"], dtype=bool)
+    done = valid & np.asarray(res["done"], dtype=bool)
+    width = np.asarray(res["mal_width"], dtype=np.float64)
+    nref = np.asarray(res["mal_nref"], dtype=np.float64)
+    runtime = np.asarray(res["runtime"], dtype=np.float64)
+    dil = np.asarray(res["mal_dur"], dtype=np.float64)
+    node_s = np.asarray(res["mal_node_s"], dtype=np.float64)
+    n_done = int(done.sum())
+    ideal = float((runtime * nref)[done].sum())
+    consumed = float(node_s[done].sum())
+    return {
+        "mean_width": float(width[done].mean()) if n_done else 0.0,
+        "max_width": float(width[done].max()) if n_done else 0.0,
+        "total_resizes": float(
+            np.asarray(res["mal_nresize"])[valid].sum()),
+        "mean_dilation": (float((dil / runtime)[done].mean())
+                          if n_done else 1.0),
+        "parallel_efficiency": ideal / consumed if consumed > 0 else 1.0,
+    }

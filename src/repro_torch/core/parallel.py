@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.core.parallel``'s ensemble mode: many independent
 simulations (policy sweeps, machine sizes, trace seeds, placement
-strategies, contention models, failure streams and service plans) advanced
-together.  The reference ``vmap``s its device
+strategies, contention models, failure streams, service plans and
+malleable plans) advanced together.  The reference ``vmap``s its device
 ``while_loop``; here the members are the rows of a stacked ``[B, J]`` job
 table, and ``core.engine.simulate_batch`` drives them in lockstep from the
 host: one event step for every member, and one launch of the batched
@@ -29,6 +29,7 @@ from repro_torch.core import engine
 from repro_torch.core.jobs import (
     EDGE_FIELDS, JOB_COLUMNS, JobSet, SimResult, resolve_device,
 )
+from repro_torch.malleable.model import make_mal_ctx
 from repro_torch.reliability.model import make_fail_ctx
 from repro_torch.serving.model import make_svc_ctx
 
@@ -73,8 +74,8 @@ def stack_jobsets(jobsets: list[JobSet]) -> JobSet:
 
 def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
                       machine=None, alloc_b=None, contention=None,
-                      failures_b=None, service_b=None, mesh=None,
-                      max_events: Optional[int] = None,
+                      failures_b=None, service_b=None, malleable_b=None,
+                      mesh=None, max_events: Optional[int] = None,
                       device=None) -> SimResult:
     """Run the members of a stacked table together, each with its own
     policy (a name or id) and its own node count.
@@ -87,7 +88,10 @@ def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
     ``failures_b`` (what ``simulate``'s ``failures`` takes) and
     ``service_b`` (what its ``service`` takes) are likewise one spec for
     every member or a list of one a member; each member consumes its own
-    streams.
+    streams.  ``malleable_b`` (what ``simulate``'s ``malleable`` takes,
+    one plan for every member or a list of one a member) gives each member
+    its malleable jobs; it refuses contention and preempt, as ``simulate``
+    does.
 
     Returns a ``SimResult`` with ``[B, ...]`` fields and per-member
     ``makespan`` and ``n_events`` lists; ``SimResult.member(b)`` equals
@@ -134,10 +138,13 @@ def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
                              "members")
     fails = _per_member(failures_b, B, make_fail_ctx, total_nodes_b)
     svcs = _per_member(service_b, B, make_svc_ctx, total_nodes_b)
+    mals = _per_member(malleable_b, B,
+                       lambda s, n_nodes: make_mal_ctx(s), total_nodes_b)
     return engine.simulate_batch(jobs_b, list(policies_b), total_nodes_b,
                                  machine=machine, alloc_b=strategies,
                                  contention_b=contentions, failures_b=fails,
-                                 service_b=svcs, max_events=max_events)
+                                 service_b=svcs, malleable_b=mals,
+                                 max_events=max_events)
 
 
 def _per_member(spec, B: int, make, total_nodes_b) -> Optional[list]:

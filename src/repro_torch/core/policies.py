@@ -40,6 +40,14 @@ ensemble gathers one request from every member still in its pass and
 answers each kind with one launch for all of them
 (``core.engine.simulate_batch``).  So every member makes exactly the
 sequence of calls its solo run makes.
+
+With malleable jobs (DESIGN.md §17) a job's node footprint is its current
+width: ``min_width`` while it waits (a width its dispatch can always
+choose), the running width after.  The generators read it as
+``host["nodes"]`` from the run's own host columns
+(:func:`host_columns`, never the table's cached ``host``), and every
+selection and walk reads the width column on the device, passed with the
+call (:func:`node_column`).
 """
 
 from __future__ import annotations
@@ -56,6 +64,20 @@ START, SUSPEND, PREFIX = "start", "suspend", "prefix"
 NO_PARAMS = ref.params()
 
 
+def host_columns(jobs: JobSet, state) -> dict:
+    """The host columns a run's passes read: the table's, with the
+    current widths (the host copy) as ``nodes`` in a malleable run."""
+    if state.mal is None:
+        return jobs.host
+    return {**jobs.host, "nodes": state.mal.width_host}
+
+
+def node_column(jobs: JobSet, state):
+    """The node footprints on the device: the table's requests, or the
+    current widths in a malleable run."""
+    return jobs.nodes if state.mal is None else state.mal.width
+
+
 def backfill_shadow(jobs: JobSet, state: SimState,
                     head_need: int) -> tuple[int, int, int]:
     """EASY shadow reservation for a blocked head needing ``head_need``
@@ -69,7 +91,8 @@ def backfill_shadow(jobs: JobSet, state: SimState,
     in the reference, at least one release is always counted.
     """
     return shadow_walk(jobs.selector, state.jstate, state.rsv_finish,
-                       state.clock, state.free, head_need)
+                       state.clock, state.free, head_need,
+                       nodes=None if state.mal is None else state.mal.width)
 
 
 def placeable(st) -> int:
@@ -148,14 +171,17 @@ SELECTORS = (select_fcfs, select_sjf, select_ljf, select_bestfit,
 
 
 def answer(jobs: JobSet, state: SimState, req: tuple):
-    """The solo answer to a SELECT, WALK or RECLAIM request."""
+    """The solo answer to a SELECT, WALK or RECLAIM request (RECLAIM only
+    in rigid runs: preempt refuses malleable jobs)."""
     kind = req[0]
+    nodes = None if state.mal is None else state.mal.width
     if kind is SELECT:
-        return jobs.selector.select(req[1], state.jstate, *req[2][:-1])
+        return jobs.selector.select(req[1], state.jstate, *req[2][:-1],
+                                    nodes=nodes)
     if kind is WALK:
         p = req[1]
         return shadow_walk(jobs.selector, state.jstate, state.rsv_finish,
-                           p[0], p[1], p[-1])
+                           p[0], p[1], p[-1], nodes=nodes)
     if kind is RECLAIM:
         lower = (state.jstate == RUNNING) & (jobs.priority > req[1])
         return int(torch.sum(torch.where(lower, jobs.nodes, 0)))
@@ -180,5 +206,5 @@ def select(policy: int, jobs: JobSet, state: SimState,
     ``cap`` defaults to the state's placeable size (:func:`placeable`)."""
     cap = placeable(state) if cap is None else cap
     gen = SELECTORS[min(max(int(policy), 0), len(SELECTORS) - 1)](
-        jobs.host, state, cap)
+        host_columns(jobs, state), state, cap)
     return drive(gen, lambda req: answer(jobs, state, req))

@@ -20,6 +20,12 @@ back.  Two ways in:
 On CUDA all but the generic op wait for their stream once and read the
 answer from mapped host memory.
 
+The table's ``nodes`` column is the rigid node requests.  A run whose jobs
+change width under the selector (malleable jobs) passes its width column
+with each call (``nodes=``, a tensor like the bound column): the call reads
+it in place of the bound one, and a call without it reads the bound column
+again.
+
 ``queue_select.launches`` counts the launches of the solo select kernels
 (any mode, and the generic op); ``shadow_walk.launches`` those of the walk,
 and ``shadow_walk.steps`` the releases its launches counted.  The batched
@@ -131,14 +137,17 @@ def queue_select(scores: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
 
 def shadow_walk(table: "TableSelect", jstate: torch.Tensor,
                 rsv_finish: torch.Tensor, clock: int, free: int,
-                head_need: int) -> tuple[int, int, int]:
+                head_need: int,
+                nodes: torch.Tensor | None = None) -> tuple[int, int, int]:
     """EASY shadow reservation ``(shadow, extra, k_row)`` over ``table``'s
     running rows, for a head needing ``head_need`` nodes
-    (``ref.shadow_walk_reference``): one launch and one wait on CUDA."""
+    (``ref.shadow_walk_reference``): one launch and one wait on CUDA.
+    ``nodes`` replaces the table's node column for this call."""
     if not table.on_cuda:
-        return shadow_walk_reference(table.cols["nodes"], jstate, rsv_finish,
-                                     clock, free, head_need)
-    a = table._state(jstate, rsv_finish)
+        return shadow_walk_reference(
+            table.cols["nodes"] if nodes is None else nodes, jstate,
+            rsv_finish, clock, free, head_need)
+    a = table._state(jstate, rsv_finish, nodes)
     a.clock, a.free, a.head_need = clock, free, head_need
     err = table._lib.queue_select_walk(table._args_p, table._stream,
                                        table._result)
@@ -195,6 +204,7 @@ class TableSelect:
             self._lib = _lib()
             self._args = _SelectArgs(*(t.data_ptr() for t in cols.values()),
                                      0, 0, self.n)
+            self._nodes_ptr = self._args.nodes
             self._args_p = ctypes.pointer(self._args)
             self._result = (ctypes.c_int32 * 4)()
             self.bind_stream()
@@ -204,10 +214,14 @@ class TableSelect:
         if self.on_cuda:
             self._stream = torch.cuda.current_stream(self.device).cuda_stream
 
-    def _state(self, jstate: torch.Tensor, rsv_finish: torch.Tensor | None):
+    def _state(self, jstate: torch.Tensor, rsv_finish: torch.Tensor | None,
+               nodes: torch.Tensor | None = None):
+        """The call's arguments: the state columns' pointers, and the node
+        column's (the per-call ``nodes``, else the bound one)."""
         a = self._args
-        for t in (jstate,) if rsv_finish is None else (jstate, rsv_finish):
-            if (t.device != self.device or t.dtype != torch.int32
+        for t in (jstate, rsv_finish, nodes):
+            if t is not None and (
+                    t.device != self.device or t.dtype != torch.int32
                     or t.numel() != self.n or not t.is_contiguous()):
                 raise ValueError(
                     f"state columns must be contiguous int32[{self.n}] on "
@@ -215,18 +229,23 @@ class TableSelect:
         a.jstate = jstate.data_ptr()
         a.rsv_finish = (a.jstate if rsv_finish is None
                         else rsv_finish.data_ptr())
+        a.nodes = (self._nodes_ptr if nodes is None else nodes.data_ptr())
         return a
 
     def select(self, mode: int, jstate: torch.Tensor, clock: int = 0,
                free: int = 0, cap: int = 0, shadow: int = 0, extra: int = 0,
-               exclude: int = -1, tier: int = 0) -> tuple[int, int]:
+               exclude: int = -1, tier: int = 0,
+               nodes: torch.Tensor | None = None) -> tuple[int, int]:
         """``(index, score)`` of the masked lexicographic argmin of
         ``mode``'s key and mask (``ref.fused_key_mask``); ``(-1, BIG)``
-        when no row is feasible."""
+        when no row is feasible.  ``nodes`` replaces the table's node
+        column for this call."""
         if not self.on_cuda:
-            return fused_select_reference(mode, self.cols, jstate, clock, free,
+            cols = self.cols if nodes is None else {**self.cols,
+                                                    "nodes": nodes}
+            return fused_select_reference(mode, cols, jstate, clock, free,
                                           cap, shadow, extra, exclude, tier)
-        a = self._state(jstate, None)
+        a = self._state(jstate, None, nodes)
         a.mode, a.clock, a.free, a.cap = mode, clock, free, cap
         a.shadow, a.extra, a.exclude, a.tier = shadow, extra, exclude, tier
         err = self._lib.queue_select_fused(self._args_p, self._stream,
@@ -311,22 +330,27 @@ class BatchedTableSelect:
             raise ValueError("at most one request a member in one call")
         return members
 
-    def _pack(self, members, jstate, rsv_finish, words) -> ctypes.Array:
+    def _pack(self, members, jstate, rsv_finish, words,
+              nodes=None) -> ctypes.Array:
         """The ``SelectArgs`` of each request, packed into a host buffer:
-        member ``b``'s columns and state rows, then ``words`` (the mode and
-        the PARAMS)."""
+        member ``b``'s columns (its row of ``nodes`` for the node column,
+        when given) and state rows, then ``words`` (the mode and the
+        PARAMS)."""
         js, rsv, row = jstate.data_ptr(), rsv_finish.data_ptr(), 4 * self.n
         for r, (b, w) in enumerate(zip(members, words)):
+            cols = self._cols_of[b]
+            if nodes is not None:
+                cols = (*cols[:2], nodes.data_ptr() + b * row, cols[3])
             _ARGS_PACK.pack_into(self._args, r * _ARGS_PACK.size,
-                                 *self._cols_of[b], js + b * row,
-                                 rsv + b * row, self.n, *w)
+                                 *cols, js + b * row, rsv + b * row, self.n,
+                                 *w)
         return self._args
 
-    def _launch(self, fn, members, jstate, rsv_finish, words) -> list:
+    def _launch(self, fn, members, jstate, rsv_finish, nodes, words) -> list:
         """Launch ``fn`` once for the requests of ``members`` and return
         its answers, 4 ints a request, in request order."""
         n = len(members)
-        args = self._pack(members, jstate, rsv_finish, words)
+        args = self._pack(members, jstate, rsv_finish, words, nodes)
         err = fn(ctypes.addressof(args), n, self._stream,
                  ctypes.addressof(self._answers))
         if err != 0:
@@ -334,47 +358,57 @@ class BatchedTableSelect:
                                f"requests: CUDA error {err}")
         return self._answers[:4 * n]
 
-    def select_batch(self, requests, jstate: torch.Tensor) -> list:
+    def select_batch(self, requests, jstate: torch.Tensor,
+                     nodes: torch.Tensor | None = None) -> list:
         """``(index, score)`` for each ``(member, mode, params)`` request:
         the masked lexicographic argmin of the mode's key and mask over the
         member's rows (``ref.fused_key_mask``), ``(-1, BIG)`` when none is
-        feasible."""
+        feasible.  ``nodes`` (``[B, J]``) replaces the table's node column
+        for this call."""
         if not requests:
             return []
-        members = self._check(requests, jstate)
+        members = self._check(requests, jstate,
+                              *(() if nodes is None else (nodes,)))
         if not self.on_cuda:
             modes, params, active = ([0] * self.batch, [None] * self.batch,
                                      [False] * self.batch)
             for b, mode, p in requests:
                 modes[b], active[b] = mode, True
                 params[b] = dict(zip(PARAMS[:-1], p[:-1]))
-            got = fused_select_batched_reference(modes, self.cols, jstate,
+            cols = self.cols if nodes is None else {**self.cols,
+                                                    "nodes": nodes}
+            got = fused_select_batched_reference(modes, cols, jstate,
                                                  params, active)
             return [got[b] for b in members]
         out = self._launch(self._lib.queue_select_fused_batch, members,
-                           jstate, jstate,
+                           jstate, jstate, nodes,
                            [(mode, *p) for _, mode, p in requests])
         queue_select.batch_launches += 1
         queue_select.batch_selections += len(members)
         return [(out[i], out[i + 1]) for i in range(0, len(out), 4)]
 
     def walk_batch(self, requests, jstate: torch.Tensor,
-                   rsv_finish: torch.Tensor) -> list:
+                   rsv_finish: torch.Tensor,
+                   nodes: torch.Tensor | None = None) -> list:
         """``(shadow, extra, k_row)`` for each ``(member, params)`` request:
         the EASY shadow walk over the member's running rows with its
-        ``clock``, ``free`` and ``head_need`` (``ref.shadow_walk_reference``)."""
+        ``clock``, ``free`` and ``head_need`` (``ref.shadow_walk_reference``).
+        ``nodes`` (``[B, J]``) replaces the table's node column for this
+        call."""
         if not requests:
             return []
-        members = self._check(requests, jstate, rsv_finish)
+        members = self._check(requests, jstate, rsv_finish,
+                              *(() if nodes is None else (nodes,)))
         if not self.on_cuda:
             params, active = [None] * self.batch, [False] * self.batch
             for b, p in requests:
                 params[b], active[b] = dict(zip(PARAMS, p)), True
             got = shadow_walk_batched_reference(
-                self.cols["nodes"], jstate, rsv_finish, params, active)
+                self.cols["nodes"] if nodes is None else nodes, jstate,
+                rsv_finish, params, active)
             return [got[b] for b in members]
         out = self._launch(self._lib.queue_select_walk_batch, members, jstate,
-                           rsv_finish, [(0, *p) for _, p in requests])
+                           rsv_finish, nodes, [(0, *p) for _, p in requests])
         shadow_walk.batch_launches += 1
         shadow_walk.batch_walks += len(members)
         shadow_walk.batch_steps += sum(out[3::4])

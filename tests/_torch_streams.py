@@ -1,6 +1,7 @@
-"""Shared helpers of the port's stream tests (node failures and serving):
-a port scenario as the reference's, and the bit-for-bit comparison of a
-port result with ``repro.api.run`` and ``repro.api.run_ref``."""
+"""Shared helpers of the port's stream tests (node failures, serving and
+malleable jobs): a port scenario as the reference's, and the bit-for-bit
+comparison of a port result with ``repro.api.run`` and
+``repro.api.run_ref``."""
 
 import dataclasses
 
@@ -21,8 +22,8 @@ def _fields(x) -> dict:
 
 def jax_spec(x):
     """A port spec (scenario, trace, topology, failure model, service
-    trace, class, autoscaler) as the reference's; other values as they
-    are."""
+    trace, class, autoscaler, malleable model) as the reference's; other
+    values as they are."""
     if isinstance(x, rt.Scenario):
         return api.Scenario(**{k: jax_spec(v) for k, v in _fields(x).items()
                                if v is not None})
@@ -36,7 +37,7 @@ def jax_spec(x):
     if isinstance(x, rt.ArrayTrace):
         return api.ArrayTrace(**_fields(x))
     for name in ("FailureModel", "ServiceClass", "AutoscalePolicy",
-                 "SyntheticTrace", "WorkflowTrace"):
+                 "SyntheticTrace", "WorkflowTrace", "MalleableModel"):
         if isinstance(x, getattr(rt, name)):
             return getattr(api, name)(**_fields(x))
     return x
@@ -59,6 +60,13 @@ def diff(port: dict, other: dict, keys=None) -> list:
     return bad
 
 
+def same_summary(a: dict, b: dict) -> bool:
+    """Two summaries with the same keys and every value equal, a NaN (the
+    percentile of a class with no finished job) equal to a NaN."""
+    return set(a) == set(b) and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in a)
+
+
 def assert_matches_jax(res, scn=None, *, ref: bool = True, summary=True):
     """A port ``Result`` against ``repro.api.run`` of the same scenario,
     every column and the summary bit for bit, and (``ref``) against
@@ -69,7 +77,7 @@ def assert_matches_jax(res, scn=None, *, ref: bool = True, summary=True):
     assert diff(got, want.to_np()) == [], scn
     assert set(got) == set(want.to_np())
     if summary:
-        assert res.summary() == want.summary()
+        assert same_summary(res.summary(), want.summary()), scn
     if ref:
         r = api.run_ref(scn)
         keys = [k for k in r.to_np() if k in got and k not in (

@@ -177,11 +177,38 @@ def test_run_defaults_to_cuda():
 @pytest.mark.parametrize("field,value", [
     ("malleable", object()), ("multicluster", object())])
 def test_unported_features_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+    """``multicluster`` is not ported and raises naming its ROADMAP item.
+    ``malleable``, refused before the malleable slice, is ported now: a
+    value that is no ``MalleableModel`` raises as the reference's does
+    (``test_malleable_field_runs`` runs a model)."""
+    if field == "malleable":
+        for mod in (rt, api):
+            with pytest.raises(TypeError, match="MalleableModel"):
+                mod.Scenario(trace=mod.SyntheticTrace(n_jobs=5),
+                             total_nodes=8, malleable=value)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         rt.Scenario(trace=rt.SyntheticTrace(n_jobs=5), total_nodes=8,
                     **{field: value})
-    if field == "malleable":       # item 5's remaining half
-        assert "item 5" in str(err.value) and "malleable" in str(err.value)
+
+
+def test_malleable_field_runs():
+    """``malleable``, refused before the malleable slice, now runs and
+    equals the JAX engine column by column, the ``mal_*`` ones included."""
+    mal = dict(curve="power", param=0.6, max_width=8, mode="elastic",
+               interval=40, max_ticks=32, shrink_threshold=6,
+               grow_threshold=1, step=2)
+    port = rt.run(rt.Scenario(trace=rt.SyntheticTrace(n_jobs=30, seed=2),
+                              total_nodes=8, policy="backfill",
+                              malleable=rt.MalleableModel(**mal)),
+                  device="cpu")
+    ref = api.run(api.Scenario(trace=api.SyntheticTrace(n_jobs=30, seed=2),
+                               total_nodes=8, policy="backfill",
+                               malleable=api.MalleableModel(**mal)))
+    a, b = port.to_np(), ref.to_np()
+    assert set(a) == set(b) and "mal_width" in a
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 @pytest.mark.parametrize("field", ("failures", "failures_on_a_machine"))

@@ -270,6 +270,21 @@ def test_slo_summary_as_the_reference():
         assert f"{name}_p99_wait" in s and f"{name}_miss_rate" in s
 
 
+def test_class_with_no_finished_job_matches_jax():
+    """At a low rate no job of the big class finishes: its wait
+    percentiles are NaN in both summaries, and still compare equal."""
+    auto = rt.AutoscalePolicy(up_threshold=2, down_threshold=0,
+                              min_nodes=4, max_nodes=16, step=2,
+                              interval=10, max_ticks=64)
+    scn = rt.Scenario(trace=_spec(rate=0.01, seed=44078, autoscale=auto),
+                      policy="fcfs", total_nodes=16)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res = _run(scn)
+        assert np.isnan(res.summary()["big_p99_wait"])
+        assert_matches_jax(res)
+
+
 @settings(max_examples=10, deadline=None)
 @given(seed=st.integers(0, 2**16), rate=st.floats(0.01, 0.15),
        up=st.integers(2, 10), down=st.integers(0, 1),
