@@ -39,7 +39,14 @@ Phases, each printing one JSON line with its wall time:
              (backfill_cand for every member, or a 4-release walk) beside
              the batched plain version and the bound (B x J x the mode's
              bytes a row), and its device operations (two: the requests'
-             upload and the kernel).
+             upload and the kernel).  Then the batched generic entry
+             (queue_select_batch: the batched pool engine's selections)
+             against its plain version and the solo generic op on each
+             row, at B = 8, 24 and 32 members of T = 165 and 2,625
+             entries; at B x T = 24 x 2,625 and 32 x 165 a launch's time by
+             the host clock beside the plain version, the two-call PyTorch
+             form and the bound (B x T x 5 bytes), and its device
+             operations (two).
 4. golden  - the engine on cuda, 10,000-job SDSC-SP2-like (six policies)
              and DAS-2-like (fcfs, backfill) traces, each held to the JAX
              engine's n_events, makespan and start/finish digests in
@@ -47,10 +54,10 @@ Phases, each printing one JSON line with its wall time:
              queue_select and walk launches, launches per event, and the
              batched backfill pass's redo walks; a backfill run must
              launch the walk, at most once an event besides its redos.
-5. archive - backfill over 18,374 SDSC-SP2-like jobs on 128 nodes (a
-             quarter of the SDSC-SP2 log's job count on its machine: the
+5. archive - backfill over 9,187 SDSC-SP2-like jobs on 128 nodes (an
+             eighth of the SDSC-SP2 log's job count on its machine: the
              whole log's 73,496 until the alloc phases came, half until
-             the malleable ones), checked for
+             the malleable ones, a quarter until the oracle), checked for
              completion, start >= submit, finish == start + runtime and a
              busy-node count that never exceeds the machine; the counts of
              phase 4.
@@ -58,21 +65,23 @@ Phases, each printing one JSON line with its wall time:
 6b. sweep  - Fig. 4(b)'s grid through sweep: 10,000 SDSC-SP2-like jobs,
              the six policies on 128 and 256 nodes, one bucket of 12
              members in lockstep; the 128-node members held to the golden
-             digests, the 256-node backfill and preempt members to solo
-             runs on the card (all six until the alloc phases came); then
+             digests, the 256-node backfill member to its solo run on the
+             card (all six until the alloc phases came, preempt too until
+             the oracle came); then
              DAS-2-like seed 0 on 400 nodes over fcfs and backfill, held to
              its digests.  n_compiles, wall seconds, aggregate events/s,
              batched launches and the member-selections a launch served.
 6c. ensemble - Fig. 5(a)'s shape: DAS-2-like backfill on 400 nodes,
-             10,000 jobs, trace seeds 0-7 as one batch of 8 and as a serial
-             loop of run (seed 0's is phase 4's run), member by member
-             equal (seed 0 also to its digest); events/s both ways and
-             their ratio; B = 1 through
+             5,000 jobs (10,000 until the oracle came; phase 4 and phase
+             6b's das2 members hold the 10,000-job seed 0 to its digest),
+             trace seeds 0-7 as one batch of 8 and as a serial loop of
+             run, member by member equal; events/s both ways and their
+             ratio; B = 1 through
              sweep against the solo run (the lockstep driver's own cost);
              the card's busy share of a profiled 250-job batch of 8.
-6d. alloc  - topology-aware allocation at 5,000 jobs (5x fig_alloc.py's
-             1,000; 10,000 until the malleable phases came, PERF.md
-             section 4), each run held to
+6d. alloc  - topology-aware allocation at 2,500 jobs (2.5x fig_alloc.py's
+             1,000; 10,000 until the malleable phases came, 5,000 until
+             the oracle, PERF.md section 4), each run held to
              the JAX engine's n_events, makespan and digests of start,
              finish, alloc_first, alloc_span, alloc_sum and the ev_lfb log
              (tests/data/torch_alloc_golden.json): Fig. alloc's grid
@@ -86,7 +95,7 @@ Phases, each printing one JSON line with its wall time:
              fallback to simple.  Per run events/s, selections, walks,
              launches an event and the largest-free-run reads an event;
              beside them the scalar-mode SDSC-SP2 backfill run of the
-             same 5,000 jobs (phase 4's run when the sizes agree), and the
+             same 2,500 jobs (phase 4's run when the sizes agree), and the
              busy
              share and device operations an event of a profiled 250-job
              run.  queue_select must launch on every run, the walk on
@@ -114,8 +123,9 @@ Phases, each printing one JSON line with its wall time:
              of 12 members, each held to its digests
              (tests/data/torch_dag_sweep_golden.json); events/s against
              the twelve solo runs.  Then a seed axis with ragged edge
-             lists (a random layered DAG of 10,497 tasks, seeds 0-1, 0-3
-             until the malleable phases came; backfill; 128 nodes) in one
+             lists (a random layered DAG of 5,000 tasks, 10,497 until the
+             oracle came; seeds 0-1, 0-3 until the malleable phases came;
+             backfill; 128 nodes) in one
              bucket, each member equal to its solo run.
 6h. workflow - the standalone pool engine: Figs. 6 and 7's 24 runs
              (galactic_like tiles 2-64 on [64, 1 << 20], sipht_like widths
@@ -125,6 +135,17 @@ Phases, each printing one JSON line with its wall time:
              under fcfs_fit, checked by invariants (every task done, no
              start before a dependency's finish, no pool exceeded); tasks/s
              and queue_select launches a task, which must be > 0.
+6h'. workflow_batch - the batched pool engine (simulate_workflow_ensemble,
+             members in lockstep, one batched generic queue_select launch
+             a selection sub-round): (a) phase 6h's 24 runs as one ragged
+             batch padded to 2,625 tasks, every member held to its JAX
+             digests, tasks/s beside the 24 solo runs; (b) Fig. 6's
+             ensemble rows, W = 1, 8 and 32 copies of galactic_like(4,
+             12, seed=9) under fcfs_fit on [64, 1 << 20], tasks/s beside a
+             serial loop of W solo runs, every member equal to the solo
+             card run and to the host oracle.  Batched launches,
+             member-selections a launch, and the card's busy share (of
+             (a)'s first 60 events, and of the W = 32 batch).
 6i. reliability - node failures at fig_reliability.py's size, each run
              held to the JAX engine's digests (tests/data/
              torch_rel_golden.json: start, finish, ready, n_restarts,
@@ -174,6 +195,16 @@ Phases, each printing one JSON line with its wall time:
              each (cache_stats), every member held to its digests and to
              its solo run on the card; batch events/s beside the solo
              runs'.
+6o. oracle - card runs of rt.run held to the host oracle rt.run_ref,
+             key by key (every per-job column it returns, n_events,
+             makespan), on twelve runs of about 2,000 jobs without a
+             digest, seeds 101-106: sdsc_sp2_like on 128 nodes under the
+             six policies; DAS-2-like on mesh2d(20, 20), spread,
+             contention (1, 5), backfill; a Galactic Plane DAG of 1,969
+             tasks on 128 nodes under backfill and fcfs (the prefix pass,
+             no selection); requeue failures at MTBF 50,000 s; a serving
+             trace with the autoscaler; moldable jobs (Amdahl 0.1, widths
+             1-16).  The oracle's host seconds beside each card run's.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
              128 and the serve shape, f32 (the CUDA-core kernel) and bf16
@@ -227,8 +258,9 @@ Phases, each printing one JSON line with its wall time:
              phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4, 5, 6d, 6f, 6h, 6i, 6k and 6m for queue_select and its walk,
-phases 6b, 6c, 6e, 6g, 6j, 6l and 6n for their batched entries, the serve
+(phases 4, 5, 6d, 6f, 6h, 6i, 6k, 6m and 6o for queue_select and its walk,
+phases 6b, 6c, 6e, 6g, 6j, 6l and 6n for their batched entries, each batch
+of phase 6h' for the batched generic entry, the serve
 of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  TF32 is off for matrix products and
@@ -275,7 +307,7 @@ TIMED_LAUNCHES = 200
 SELECT_SIZES = (7, 1000, 8191, 8192, 8193, 73_496)
 SELECT_STATES = 3                # random job tables per size
 ARCHIVE_JOBS = 73_496            # SDSC-SP2 log's job count
-ARCHIVE_RUN_JOBS = ARCHIVE_JOBS // 4   # phase 5's run, cut to fit later ones
+ARCHIVE_RUN_JOBS = ARCHIVE_JOBS // 8   # phase 5's run, cut to fit later ones
 ARCHIVE_NODES = 128
 PROFILE_JOBS = 250
 # batched queue_select: launch times at B members of the golden runs' size
@@ -285,8 +317,9 @@ BATCH_J = 10_000
 # of these policies (all six; trim here if the run nears its time limit)
 SWEEP_POLICIES = ("fcfs", "sjf", "ljf", "bestfit", "backfill", "preempt")
 SWEEP_NODES = (128, 256)
-SWEEP_SOLO_POLICIES = ("backfill", "preempt")   # cut to fit the alloc phases
+SWEEP_SOLO_POLICIES = ("backfill",)   # cut to fit the alloc phases, the oracle
 ENSEMBLE_B = 8                   # ensemble phase: das2 trace seeds 0-7
+ENSEMBLE_JOBS = 5_000            # each seed's jobs (cut to fit the oracle)
 ALLOCS = ("simple", "contiguous", "spread", "topo")
 CONTENTIONS = (None, (1, 5))     # fig_alloc's two contention settings
 # phase 6d runs Fig. alloc's grid solo at this contention only; the runs
@@ -300,10 +333,21 @@ ALLOC_DIGESTS = ("start", "finish", "alloc_first", "alloc_span", "alloc_sum")
 DAG_POLICIES = ("fcfs", "sjf", "backfill", "bestfit")
 DAG_ALLOCS = ("simple", "contiguous", "topo")
 DAG_SEEDS = (0, 1)
-DAG_SEED_PARAMS = (("n_tasks", 10_497), ("n_layers", 64), ("p_edge", 0.0002))
+DAG_SEED_PARAMS = (("n_tasks", 5_000), ("n_layers", 64), ("p_edge", 0.0002))
 DAG_SEED_POLICIES = ("backfill",)
 # workflow phase: Fig. 6's largest DAG, checked by invariants only
 WORKFLOW_BIG = (256, "fcfs_fit")
+# the batched generic queue_select entry: members and row lengths (Fig. 6's
+# 165-task DAG, the workflow golden runs' padded 2,625), and the two shapes
+# timed (workflow_batch's ragged batch, Fig. 6's widest row)
+GENERIC_BATCH_SIZES = (8, 24, 32)
+GENERIC_BATCH_T = (165, 2625)
+GENERIC_BATCH_TIMED = ((24, 2625), (32, 165))
+# workflow_batch phase: Fig. 6's ensemble rows (fig6_workflow_scaling.py)
+FIG6_WIDTHS = (1, 8, 32)
+FIG6_DAG = (4, 12, 9)            # galactic_like(tiles, width, seed)
+FIG6_POOLS = (64, 1 << 20)
+WORKFLOW_BATCH_PROFILE_EVENTS = 60    # the ragged batch's profiled prefix
 # flash_attention grid: (B, Sq, Sk, H, KV, hd), the CPU sweep's shapes
 # plus the models' head dims and the serve shape
 FLASH_SHAPES = [
@@ -790,7 +834,7 @@ def phase_golden(rt, ops):
     t0 = time.time()
     entries = json.loads(GOLDEN.read_text())["runs"]
     launches = walks = 0
-    runs, outs = {}, {}
+    runs = {}
     for e in entries:
         scn = rt.Scenario(
             trace=rt.SyntheticTrace(n_jobs=e["n_jobs"], seed=e["seed"],
@@ -801,14 +845,12 @@ def phase_golden(rt, ops):
         walks += counts["walk_launches"]
         check_golden(out, e)
         runs[(e["kind"], e["policy"])] = (out["n_events"], wall, counts)
-        outs[(e["kind"], e["policy"], e["seed"], e["n_jobs"],
-              e["total_nodes"])] = out
         emit("golden", t0, kind=e["kind"], policy=e["policy"],
              n_jobs=e["n_jobs"], total_nodes=e["total_nodes"],
              n_events=out["n_events"], run_seconds=wall,
              events_per_s=out["n_events"] / wall, **counts,
              matches_jax=True)
-    return launches, walks, runs, outs
+    return launches, walks, runs
 
 
 def phase_archive(rt, ops, np):
@@ -977,10 +1019,85 @@ def phase_batched(torch, np, ops, ref):
                 "device_us_per_call": (sum(us for _, us in dev.values()) / 50
                                        if dev else "not measured")}
         timing[B] = entry
+    generic_checks, generic_err, generic = generic_batch_checks(
+        torch, np, ops, ref, rng)
+    n_checks += generic_checks
+    max_err = max(max_err, generic_err)
     ops.reset_launches()
     emit("batched", t0, checks=n_checks, sizes=list(SELECT_SIZES),
-         max_abs_err=max_err, n=BATCH_J, timing=timing)
-    return max_err, timing
+         max_abs_err=max_err, n=BATCH_J, timing=timing,
+         generic_batch=generic)
+    return max_err, timing, generic
+
+
+def generic_batch_checks(torch, np, ops, ref, rng):
+    """The batched generic entry (queue_select_batch: one upload of the
+    requested rows, one launch of one cluster a row) against its plain
+    version and the solo generic op on each row, bit for bit, at B members
+    of T entries (GENERIC_BATCH_SIZES x GENERIC_BATCH_T): random scores
+    with ties, rows all infeasible and rows scoring BIG, bool and int32
+    masks, every member or a shuffled part of them.  Then, at the
+    GENERIC_BATCH_TIMED shapes with every member requested, a launch's time
+    by the host clock (the call returns once the answers are in host
+    memory) beside the plain version, the two-call PyTorch form over [B, T]
+    and the bound (B x T x 5 B), and its device operations (two: the
+    members' upload and the kernel).  Returns (checks, max error, timing
+    by "BxT")."""
+    n_checks, max_err = 0, 0
+    for B in GENERIC_BATCH_SIZES:
+        for T in GENERIC_BATCH_T:
+            scores = rng.integers(-1000, 1001, (B, T)).astype(np.int32)
+            feas = rng.random((B, T)) < rng.choice([0.0, 0.02, 0.5, 1.0],
+                                                   (B, 1))
+            scores[0] = BIG
+            s = torch.from_numpy(scores).to("cuda")
+            for mask in (torch.from_numpy(feas).to("cuda"),
+                         torch.from_numpy(feas.astype(np.int32)).to("cuda")):
+                for members in (list(range(B)),
+                                [int(b) for b in rng.permutation(B)[:B // 3]]):
+                    got = ops.queue_select_batch(s, mask, members)
+                    want = ref.queue_select_batched_reference(s, mask,
+                                                              members)
+                    for b, g, w in zip(members, got, want):
+                        solo = tuple(ops.queue_select(s[b], mask[b]).tolist())
+                        max_err = max(max_err, *(abs(x - y) for x, y in
+                                                 zip(g, w)))
+                        check(g == w == solo, f"batched generic B={B} T={T} "
+                              f"row {b}: {g}, plain {w}, solo kernel {solo}")
+                        n_checks += 1
+    timing = {}
+    for B, T in GENERIC_BATCH_TIMED:
+        s = torch.from_numpy(rng.integers(0, 10**6, (B, T)).astype(
+            np.int32)).to("cuda")
+        m = torch.from_numpy(rng.random((B, T)) < 0.5).to("cuda")
+        members = list(range(B))
+        fn = lambda: ops.queue_select_batch(s, m, members)  # noqa: E731
+        plain = lambda: ref.queue_select_batched_reference(  # noqa: E731
+            s, m, members)
+        check(fn() == plain(), f"batched generic B={B} T={T}: kernel != "
+              "plain")
+        # (score, index) packed so that int64 order is lexicographic order
+        key = (s.to(torch.int64) << 32) | torch.arange(T, device="cuda")
+        sentinel = torch.iinfo(torch.int64).max
+        library = lambda: torch.min(  # noqa: E731
+            torch.where(m, key, sentinel), dim=1).values.tolist()
+        dev, per_call, profiles = device_ops_per_call(
+            torch, fn, 50, f"batched generic B={B} T={T}", 2)
+        total = B * T * 5 + B * 2 * 4   # scores and mask read, answers out
+        timing[f"{B}x{T}"] = {
+            "ms": wall_ms(fn), "plain_ms": wall_ms(plain, 20),
+            "library_ms": wall_ms(library),
+            "library_call": "torch.min(torch.where(feasible, packed_key, "
+                            "INT64_MAX), dim=1) and the read of the [B] "
+                            "answers: two calls and a copy, packed key "
+                            "built outside the timing",
+            "members_per_launch": B, "bytes": total,
+            "bound_ms": total / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "device_ops_per_call": per_call or "not measured",
+            "profiles": profiles,
+            "device_us_per_call": (sum(us for _, us in dev.values()) / 50
+                                   if dev else "not measured")}
+    return n_checks, max_err, timing
 
 
 def batch_counts(ops, engine) -> dict:
@@ -1083,37 +1200,26 @@ def phase_sweep(torch, rt, ops):
     return counts, counts2
 
 
-def phase_ensemble(torch, rt, ops, phase4=None):
-    """Fig. 5(a)'s shape: das2 backfill on 400 nodes, 10,000 jobs, trace
-    seeds 0-7 as one batch of 8 and as a serial loop of ``run``, member by
-    member equal; seed 0 against its JAX digest; B = 1 through ``sweep``
-    against the solo run; a profiled 250-job batch of 8 for the card's busy
-    share.  Seed 0's solo run is phase 4's das2 backfill run of this call
-    (``phase4``, phase 4's result), the same scenario, when it ran."""
+def phase_ensemble(torch, rt, ops):
+    """Fig. 5(a)'s shape: das2 backfill on 400 nodes, ENSEMBLE_JOBS jobs,
+    trace seeds 0-7 as one batch of 8 and as a serial loop of ``run``,
+    member by member equal; B = 1 through ``sweep`` against the solo run;
+    a profiled 250-job batch of 8 for the card's busy share."""
     t0 = time.time()
-    golden = {(e["kind"], e["policy"]): e
-              for e in json.loads(GOLDEN.read_text())["runs"]}
-    base = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10_000, seed=0,
+    base = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=ENSEMBLE_JOBS, seed=0,
                                                kind="das2"),
                        total_nodes=400, policy="backfill")
     seeds = list(range(ENSEMBLE_B))
     grid, outs, wall, counts = run_sweep(torch, rt, ops, base,
                                          {"trace.seed": seeds}, "ensemble")
-    serial, reused = [], []
+    serial = []
     for s, out in zip(seeds, outs):
-        key = ("das2", "backfill", s, 10_000, 400)
-        if phase4 is not None and key in phase4[3]:
-            reused.append(s)
-            solo = phase4[3][key]
-            serial.append(phase4[2][key[:2]][1])
-        else:
-            t = time.time()
-            solo = rt.run(base.with_(**{"trace.seed": s})).to_np()
-            torch.cuda.synchronize()
-            serial.append(time.time() - t)
+        t = time.time()
+        solo = rt.run(base.with_(**{"trace.seed": s})).to_np()
+        torch.cuda.synchronize()
+        serial.append(time.time() - t)
         check_same(out, solo, f"ensemble seed {s}")
     serial_s, solo0_s = sum(serial), serial[0]
-    check_golden(outs[0], golden[("das2", "backfill")], "ensemble ")
     # B = 1 through sweep: the lockstep driver's own cost
     _, outs1, wall1, _ = run_sweep(torch, rt, ops, base, {"trace.seed": [0]},
                                    "ensemble B=1")
@@ -1133,7 +1239,7 @@ def phase_ensemble(torch, rt, ops, phase4=None):
          b1_events_per_s=outs1[0]["n_events"] / wall1,
          solo_seed0_seconds=solo0_s,
          b1_over_solo=wall1 / solo0_s, matches_serial=True,
-         solo_runs_from_phase_4=reused,
+         n_jobs=ENSEMBLE_JOBS,
          profile={"n_jobs": PROFILE_JOBS, "members": ENSEMBLE_B,
                   "wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
                   "device_busy_share": busy_us / wall_us if dev
@@ -1180,7 +1286,7 @@ def check_alloc_golden(out, e, what: str = "") -> None:
 
 def phase_alloc(torch, rt, ops, golden_runs=None):
     """Topology-aware allocation at full size, each run held to its JAX
-    digests: Fig. alloc's grid (SDSC-SP2-like seed 1, 5,000 jobs, on
+    digests: Fig. alloc's grid (SDSC-SP2-like seed 1, 2,500 jobs, on
     dragonfly(16, 8), backfill x the four strategies at
     ``ALLOC_SOLO_CONTENTION``; the rest of the grid meets its digests in
     phase alloc_sweep); the per-start loop on DAS-2's 400 nodes as mesh2d(20, 20)
@@ -1438,7 +1544,7 @@ def phase_dag_sweep(torch, rt, ops, solo=None):
         check(bool(np.array_equal(out["ready"], one["ready"])),
               "dag seed sweep: ready differs from the solo run")
     ops.reset_launches()
-    emit("dag_sweep", t1, grid="random_layered(10,497 tasks, 64 layers, "
+    emit("dag_sweep", t1, grid="random_layered(5,000 tasks, 64 layers, "
          "p_edge 2e-4), 128 nodes: trace.seed x policy",
          n_edges=edges, edge_capacity=sorted({-(-n // 64) * 64
                                               for n in edges}),
@@ -1476,7 +1582,8 @@ def phase_workflow(torch, np, rt, ops):
     tiles 2-64 on [64, 1 << 20], sipht_like widths 10-60 on [8, 8192],
     fcfs, fcfs_fit and cpath), each held to the JAX pool engine's digests,
     then galactic_like(256, 12, seed=256) under fcfs_fit, checked by
-    invariants.  Every run must launch queue_select."""
+    invariants.  Every run must launch queue_select.  Returns the launches
+    and the 24 runs' summed wall seconds."""
     from repro_torch.traces import workflows as W
     t0 = time.time()
     launches = 0
@@ -1496,11 +1603,11 @@ def phase_workflow(torch, np, rt, ops):
         check(n > 0, f"workflow {policy}: no queue_select launch")
         return out, wall, n
 
+    golden_wall = 0.0
     for e in json.loads(WORKFLOW_GOLDEN.read_text())["runs"]:
-        wf = (W.galactic_like(e["size"], 12, seed=e["size"])
-              if e["kind"] == "galactic"
-              else W.sipht_like(e["size"], seed=e["size"]))
+        wf = workflow_golden_dag(W, e)
         out, wall, n = one(wf, e["pools"], e["policy"])
+        golden_wall += wall
         launches += n
         v = out["valid"]
         got = {"n_events": out["n_events"], "makespan": out["makespan"],
@@ -1529,7 +1636,232 @@ def phase_workflow(torch, np, rt, ops):
          run_seconds=wall, tasks_per_s=n_tasks / wall, launches=n,
          launches_per_task=n / n_tasks, instants_checked=checked,
          invariants_hold=True)
-    return launches
+    return launches, golden_wall
+
+
+def workflow_golden_dag(W, e):
+    """The DAG of an entry of tests/data/torch_workflow_golden.json
+    (``W``: the port's workflow generators)."""
+    if e["kind"] == "galactic":
+        return W.galactic_like(e["size"], 12, seed=e["size"])
+    return W.sipht_like(e["size"], seed=e["size"])
+
+
+def workflow_taskset(rt, wf, policy):
+    prio = (rt.critical_path_length(wf["exec_time"], wf["dep_pairs"])
+            if policy == "cpath" else None)
+    return rt.make_taskset(wf["exec_time"], wf["resources"], wf["dep_pairs"],
+                           priority=prio, device="cuda")
+
+
+def run_workflow_batch(torch, rt, ops, stack, pools, policies, what: str):
+    """One batched pool-engine run on cuda with the batched generic entry's
+    counts set to 0 before and read after: ``(state, wall seconds,
+    counts)``.  It must launch the batched entry, and no solo selection."""
+    ops.reset_launches()
+    t = time.time()
+    state = rt.simulate_workflow_ensemble(stack, pools, policies,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = {"batch_launches": ops.queue_select_batch.launches,
+              "batch_selections": ops.queue_select_batch.selections,
+              "solo_launches": ops.queue_select.launches}
+    check(counts["batch_launches"] > 0,
+          f"{what}: no queue_select_batch launch")
+    check(counts["solo_launches"] == 0,
+          f"{what}: {counts['solo_launches']} solo selections")
+    counts["selections_per_launch"] = (counts["batch_selections"]
+                                       / counts["batch_launches"])
+    return state, wall, counts
+
+
+def phase_workflow_batch(torch, np, rt, ops, solo=None):
+    """The batched pool engine (simulate_workflow_ensemble), members in
+    lockstep, one batched generic queue_select launch a selection
+    sub-round.  (a) Figs. 6 and 7's 24 runs of phase workflow as one
+    ragged batch (padded to the largest DAG's 2,625 tasks, each member on
+    its own pools and policy), every member held to its JAX digests;
+    tasks/s beside the 24 solo runs of phase workflow (``solo``, their
+    summed wall seconds, when it ran in this call), and the card's busy
+    share of the batch's first WORKFLOW_BATCH_PROFILE_EVENTS events.  (b)
+    Fig. 6's ensemble rows: W = 1, 8 and 32 copies of galactic_like(4, 12,
+    seed=9) under fcfs_fit on [64, 1 << 20], tasks/s beside a serial loop
+    of W solo runs in this process; every member equal to the solo card
+    run and to the host oracle (refsim.simulate_workflow_reference), and
+    the busy share of the W = 32 batch."""
+    from repro_torch.refsim import simulate_workflow_reference
+    from repro_torch.traces import workflows as W
+    t0 = time.time()
+    runs = json.loads(WORKFLOW_GOLDEN.read_text())["runs"]
+    dags = [workflow_golden_dag(W, e) for e in runs]
+    stack = rt.stack_tasksets([workflow_taskset(rt, wf, e["policy"])
+                               for wf, e in zip(dags, runs)])
+    pools = np.array([e["pools"] for e in runs])
+    policies = [e["policy"] for e in runs]
+    state, wall, counts = run_workflow_batch(torch, rt, ops, stack, pools,
+                                             policies, "workflow_batch (a)")
+    launches, selections = counts["batch_launches"], counts["batch_selections"]
+    for b, e in enumerate(runs):
+        out = rt.workflow_result_np(stack.member(b), state.member(b))
+        v = out["valid"]
+        got = {"n_events": out["n_events"], "makespan": out["makespan"],
+               "done": bool(out["done"][v].all())}
+        got.update({f"{k}_sha256": digest(out[k][v])
+                    for k in ("start", "finish", "ready")})
+        for k, want in got.items():
+            check(want == e[k], f"workflow_batch member {b} {e['kind']}/"
+                  f"{e['size']}/{e['policy']}: {k} {want} != golden {e[k]}")
+    n_tasks = sum(e["n_tasks"] for e in runs)
+    dev, wall_us = profiled(torch, lambda: rt.simulate_workflow_ensemble(
+        stack, pools, policies, max_events=WORKFLOW_BATCH_PROFILE_EVENTS,
+        device="cuda"))
+    busy = sum(us for _, us in dev.values()) / wall_us if dev else \
+        "not measured"
+    emit("workflow_batch", t0, run="figs 6-7 golden runs as one batch",
+         members=stack.batch, capacity=stack.capacity, n_tasks=n_tasks,
+         max_member_events=max(state.n_events), run_seconds=wall,
+         tasks_per_s=n_tasks / wall, **counts,
+         solo_seconds=solo if solo is not None else "not run",
+         batch_over_solo=solo / wall if solo is not None else "not run",
+         busy_share_of_prefix=busy,
+         profiled_events=WORKFLOW_BATCH_PROFILE_EVENTS, matches_jax=True)
+
+    tiles, width, seed = FIG6_DAG
+    wf = W.galactic_like(tiles, width, seed=seed)
+    n = len(wf["exec_time"])
+    oracle = simulate_workflow_reference(
+        wf["exec_time"], wf["resources"], wf["dep_pairs"],
+        np.asarray(FIG6_POOLS), "fcfs_fit")
+    # the serial loop: solo card runs, each held to the oracle
+    ts = workflow_taskset(rt, wf, "fcfs_fit")
+    serial, solo_out = [], None
+    for _ in range(max(FIG6_WIDTHS)):
+        t = time.time()
+        one = rt.workflow_result_np(ts, rt.simulate_workflow(
+            ts, np.asarray(FIG6_POOLS), "fcfs_fit", device="cuda"))
+        torch.cuda.synchronize()
+        serial.append(time.time() - t)
+        solo_out = one if solo_out is None else solo_out
+        for k in ("start", "finish"):
+            check(np.array_equal(one[k][:n], oracle[k]),
+                  f"fig6 solo run: {k} differs from the host oracle")
+    rows = {}
+    for width in FIG6_WIDTHS:
+        stack = rt.stack_tasksets([ts] * width)
+        pools = np.broadcast_to(np.asarray(FIG6_POOLS), (width, 2))
+        state, wall, counts = run_workflow_batch(
+            torch, rt, ops, stack, pools, "fcfs_fit", f"fig6 W={width}")
+        launches += counts["batch_launches"]
+        selections += counts["batch_selections"]
+        for b in range(width):
+            out = rt.workflow_result_np(stack.member(b), state.member(b))
+            for k, want in solo_out.items():
+                check(np.array_equal(out[k], want), f"fig6 W={width} member "
+                      f"{b}: {k} differs from the solo card run")
+            for k in ("start", "finish"):
+                check(np.array_equal(out[k][:n], oracle[k]), f"fig6 "
+                      f"W={width} member {b}: {k} differs from the oracle")
+        loop = sum(serial[:width])
+        rows[width] = {"run_seconds": wall, "tasks_per_s": n * width / wall,
+                       "serial_seconds": loop,
+                       "serial_tasks_per_s": n * width / loop,
+                       "batch_over_serial": loop / wall, **counts}
+        if width == max(FIG6_WIDTHS):
+            dev, wall_us = profiled(
+                torch, lambda: rt.simulate_workflow_ensemble(
+                    stack, pools, "fcfs_fit", device="cuda"))
+            rows[width]["busy_share"] = (
+                sum(us for _, us in dev.values()) / wall_us if dev
+                else "not measured")
+    emit("workflow_batch", t0, run="fig6 ensemble rows", dag=list(FIG6_DAG),
+         n_tasks=n, n_edges=len(wf["dep_pairs"]), pools=list(FIG6_POOLS),
+         policy="fcfs_fit", widths=rows, matches_solo=True,
+         matches_oracle=True)
+    return {"launches": launches, "selections": selections}
+
+
+def oracle_scenarios(rt) -> dict:
+    """About twelve runs of about 2,000 jobs, one or more from each family
+    the port runs, with seeds that appear in no golden file."""
+    def sdsc(seed):
+        return rt.SyntheticTrace(n_jobs=2000, seed=seed, kind="sdsc_sp2",
+                                 congest=4)
+    runs = {f"sdsc_{p}": rt.Scenario(trace=sdsc(101), total_nodes=128,
+                                     policy=p)
+            for p in ("fcfs", "sjf", "ljf", "bestfit", "backfill", "preempt")}
+    runs["das2_mesh2d_spread"] = rt.Scenario(
+        trace=rt.SyntheticTrace(n_jobs=2000, seed=102, kind="das2"),
+        topology=rt.Topology.mesh2d(20, 20), alloc="spread",
+        contention=(1, 5), policy="backfill")
+    galactic = rt.WorkflowTrace(kind="galactic", seed=103,
+                                params=(("tiles", 48), ("width", 12)))
+    runs["galactic_backfill"] = rt.Scenario(trace=galactic, total_nodes=128,
+                                            policy="backfill")
+    runs["galactic_fcfs"] = rt.Scenario(trace=galactic, total_nodes=128,
+                                        policy="fcfs")
+    runs["requeue"] = rt.Scenario(
+        trace=sdsc(104), total_nodes=128, policy="backfill",
+        failures=rt.FailureModel(mtbf=50e3, seed=104, mean_repair=600,
+                                 horizon=2**19, max_failures=2048,
+                                 checkpoint_interval=3600))
+    runs["serving_autoscaler"] = rt.Scenario(trace=rt.ServiceTrace(
+        horizon=2**16, rate=0.03, seed=105, max_jobs=4096,
+        classes=(rt.ServiceClass("interactive", nodes=1, mean_runtime=30,
+                                 slo_wait=60),
+                 rt.ServiceClass("batch", nodes=8, mean_runtime=600,
+                                 dist="exponential", slo_wait=1800,
+                                 weight=0.3)),
+        autoscale=rt.AutoscalePolicy(up_threshold=48, down_threshold=8,
+                                     min_nodes=16, max_nodes=64, step=8,
+                                     interval=256, max_ticks=256)),
+        total_nodes=64, policy="fcfs")
+    runs["moldable"] = rt.Scenario(
+        trace=sdsc(106), total_nodes=128, policy="backfill",
+        malleable=rt.MalleableModel(curve="amdahl", param=0.1, min_width=1,
+                                    max_width=16, mode="moldable"))
+    return runs
+
+
+# the oracle's columns that are not per-job, or not the engine's
+ORACLE_SKIP = ("valid", "ev_time", "ev_free", "ev_lfb", "kill_log")
+
+
+def phase_oracle(rt, ops, np):
+    """Card runs of rt.run held to the host oracle rt.run_ref, key by key,
+    on scenarios without a digest (oracle_scenarios): every per-job column
+    the oracle returns (over its rows), n_events and makespan; the
+    oracle's host seconds beside each card run's."""
+    t0 = time.time()
+    launches = walks = 0
+    for name, scn in oracle_scenarios(rt).items():
+        edges = scn.trace.static_key()[0] == "workflow"
+        out, wall, counts = run_counted(
+            rt, ops, scn, selects=not (edges and prefix_pass(scn)))
+        launches += counts["launches"]
+        walks += counts["walk_launches"]
+        t = time.time()
+        ref = rt.run_ref(scn).to_np()
+        ref_s = time.time() - t
+        bad = []
+        for k, want in ref.items():
+            if k in ORACLE_SKIP:
+                continue
+            got, want = np.asarray(out[k]), np.asarray(want)
+            if got.ndim == 1 and got.shape != want.shape:
+                got = got[:len(want)]
+            if got.shape != want.shape or not np.array_equal(got, want):
+                bad.append(k)
+        check(not bad, f"oracle {name}: the card run differs from run_ref "
+              f"on {bad}")
+        emit("oracle", t0, run=name, policy=scn.policy,
+             n_jobs=len(ref["start"]), n_events=out["n_events"],
+             makespan=out["makespan"], card_seconds=wall,
+             oracle_host_seconds=ref_s, keys_compared=len(ref) - sum(
+                 k in ref for k in ORACLE_SKIP),
+             kills=len(ref.get("kill_log", ())), **counts,
+             matches_run_ref=True)
+    return {"launches": launches, "walk_launches": walks}
 
 
 # ---------------------------------------------------------------------------
@@ -2305,9 +2637,10 @@ def phase_rwkv_serve(torch, np):
 
 PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "sweep", "ensemble", "alloc", "alloc_sweep", "dag", "dag_sweep",
-          "workflow", "reliability", "reliability_sweep", "serving",
-          "serving_sweep", "malleable", "malleable_sweep", "flash",
-          "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve")
+          "workflow", "workflow_batch", "reliability", "reliability_sweep",
+          "serving", "serving_sweep", "malleable", "malleable_sweep",
+          "oracle", "flash", "lm_golden", "serve", "linattn", "rwkv_golden",
+          "rwkv_serve")
 
 
 def main(argv=None) -> int:
@@ -2368,8 +2701,7 @@ def main(argv=None) -> int:
         "archive": lambda: phase_archive(rt, ops, np),
         "profile": lambda: phase_profile(torch, rt),
         "sweep": lambda: phase_sweep(torch, rt, ops),
-        "ensemble": lambda: phase_ensemble(torch, rt, ops,
-                                           out.get("golden")),
+        "ensemble": lambda: phase_ensemble(torch, rt, ops),
         "alloc": lambda: phase_alloc(
             torch, rt, ops, out["golden"][2] if "golden" in out else None),
         "alloc_sweep": lambda: phase_alloc_sweep(
@@ -2379,6 +2711,9 @@ def main(argv=None) -> int:
         "dag_sweep": lambda: phase_dag_sweep(
             torch, rt, ops, out["dag"]["solo"] if "dag" in out else None),
         "workflow": lambda: phase_workflow(torch, np, rt, ops),
+        "workflow_batch": lambda: phase_workflow_batch(
+            torch, np, rt, ops,
+            out["workflow"][1] if "workflow" in out else None),
         "reliability": lambda: phase_streams(rt, ops, REL_GOLDEN,
                                              "reliability"),
         "reliability_sweep": lambda: phase_stream_sweeps(
@@ -2390,6 +2725,7 @@ def main(argv=None) -> int:
             out["serving"]["solo"] if "serving" in out else None),
         "malleable": lambda: phase_malleable(torch, rt, ops),
         "malleable_sweep": lambda: phase_malleable_sweep(torch, rt, ops),
+        "oracle": lambda: phase_oracle(rt, ops, np),
         "flash": lambda: phase_flash(torch, np),
         "lm_golden": lambda: phase_lm_golden(torch, np),
         "serve": lambda: phase_serve(torch, np),
@@ -2411,15 +2747,16 @@ def main(argv=None) -> int:
     rel, svc, mal = out["reliability"], out["serving"], out["malleable"]
     stream_sweeps = out["reliability_sweep"] + out["serving_sweep"]
     mal_sweeps = out["malleable_sweep"]
+    oracle, wf_batch = out["oracle"], out["workflow_batch"]
     launches = (out["golden"][0] + out["archive"][0] + alloc["launches"]
-                + dag["launches"] + out["workflow"] + rel["launches"]
-                + svc["launches"] + mal["launches"])
+                + dag["launches"] + out["workflow"][0] + rel["launches"]
+                + svc["launches"] + mal["launches"] + oracle["launches"])
     walk_launches = (out["golden"][1] + out["archive"][1]
                      + alloc["walk_launches"] + dag["walk_launches"]
                      + rel["walk_launches"] + svc["walk_launches"]
-                     + mal["walk_launches"])
+                     + mal["walk_launches"] + oracle["walk_launches"])
     cand = modes["backfill_cand"]
-    batch_err, batch_timing = out["batched"]
+    batch_err, batch_timing, generic_batch = out["batched"]
     batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"],
                   *out["dag_sweep"], *stream_sweeps, *mal_sweeps]
     batch_launches = sum(c["batch_launches"] for c in batch_runs)
@@ -2457,7 +2794,7 @@ def main(argv=None) -> int:
         "dag_mode": {
             "launches": dag["launches"],
             "walk_launches": dag["walk_launches"],
-            "workflow_launches": out["workflow"],
+            "workflow_launches": out["workflow"][0],
             "batch_launches": sum(c["batch_launches"]
                                   for c in out["dag_sweep"]),
             "batch_selections": sum(c["batch_selections"]
@@ -2475,6 +2812,8 @@ def main(argv=None) -> int:
                                     for c in stream_sweeps),
             "walk_batch_launches": sum(c["walk_batch_launches"]
                                        for c in stream_sweeps)},
+        "oracle_mode": {"launches": oracle["launches"],
+                        "walk_launches": oracle["walk_launches"]},
         "malleable_mode": {
             "launches": mal["launches"],
             "walk_launches": mal["walk_launches"],
@@ -2510,6 +2849,21 @@ def main(argv=None) -> int:
                                            "library_ms": None}
                 for w in ("select", "walk")}
                 for B, t in batch_timing.items()}},
+        "batched_generic": {
+            "name": "queue_select_batch",
+            "entry": "queue_select_batch (the batched pool engine's "
+                     "selections: one upload of the members, one launch of "
+                     "one cluster a member)",
+            "launches": wf_batch["launches"],
+            "member_selections": wf_batch["selections"],
+            "max_abs_err": batch_err,
+            "shape": "B members x T tasks, bool mask, every member "
+                     "requested, host clock around the call",
+            "by_shape": {shape: {k: t[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "members_per_launch", "device_us_per_call",
+                "device_ops_per_call")}
+                for shape, t in generic_batch.items()}},
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -10,7 +10,9 @@ node failures (``FailureModel``), open-arrival serving (``ServiceTrace``)
 and malleable jobs (``MalleableModel``), whose every selection runs the
 ``queue_select`` CUDA kernel on a CUDA device; the
 standalone multi-resource workflow engine (``simulate_workflow``, paper
-§3), whose selections run the same kernel; and the dense-family LM serving
+§3, and ``simulate_workflow_ensemble``, a stack of workflows in lockstep),
+whose selections run the same kernel; the host oracle (``run_ref``,
+``repro_torch.refsim``) that validates any run; and the dense-family LM serving
 path (``repro_torch.launch.serve``), whose prefill
 runs the ``flash_attention`` CUDA kernel in every layer:
 
@@ -20,6 +22,7 @@ runs the ``flash_attention`` CUDA kernel in every layer:
                       total_nodes=128, policy="backfill")
     res = rt.run(scn)            # on cuda; device="cpu" for the plain path
     res.to_np(), res.summary()
+    assert res.matches(rt.run_ref(scn))   # the host oracle, bit-exact
     grid = rt.sweep(scn, axes={"policy": ("fcfs", "backfill"),
                                "total_nodes": (128, 256)})
     topo = scn.with_(total_nodes=None, topology=rt.Topology.dragonfly(16, 8))
@@ -50,9 +53,10 @@ from repro_torch.api import (
     MalleableModel, Result,
     Scenario, ServiceClass, ServiceTrace, SwfTrace, SweepCacheStats,
     SweepResult, SyntheticTrace, Topology, WorkflowTrace, cache_stats,
-    critical_path_length, make_taskset, reset_cache_stats, run,
+    critical_path_length, make_taskset, reset_cache_stats, run, run_ref,
     simulate_alloc_sweep, simulate_ensemble, simulate_workflow,
-    stack_jobsets, sweep, workflow_result_np,
+    simulate_workflow_ensemble, stack_jobsets, stack_tasksets, sweep,
+    workflow_result_np,
 )
 from repro_torch.core.engine import simulate
 
@@ -62,6 +66,8 @@ __all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
            "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
            "WF_POLICY_IDS",
            "WorkflowTrace", "cache_stats", "critical_path_length",
-           "make_taskset", "reset_cache_stats", "run", "simulate",
+           "make_taskset", "reset_cache_stats", "run", "run_ref",
+           "simulate",
            "simulate_alloc_sweep", "simulate_ensemble", "simulate_workflow",
-           "stack_jobsets", "sweep", "workflow_result_np"]
+           "simulate_workflow_ensemble", "stack_jobsets", "stack_tasksets",
+           "sweep", "workflow_result_np"]

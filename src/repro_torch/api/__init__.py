@@ -1,8 +1,8 @@
-"""Scenario specs, ``run()``, ``sweep()`` and ``Result`` of the PyTorch port,
-and the standalone workflow engine's entry points."""
+"""Scenario specs, ``run()``, ``run_ref()``, ``sweep()`` and ``Result`` of
+the PyTorch port, and the standalone workflow engine's entry points."""
 
 from repro_torch.api.result import Result, simresult_to_np
-from repro_torch.api.run import build_jobset, build_machine, run
+from repro_torch.api.run import build_jobset, build_machine, run, run_ref
 from repro_torch.api.scenario import (
     ArrayTrace, Scenario, SwfTrace, SyntheticTrace, Topology, WorkflowTrace,
     as_trace_spec,
@@ -18,7 +18,7 @@ from repro_torch.reliability import FailureModel
 from repro_torch.serving import AutoscalePolicy, ServiceClass, ServiceTrace
 from repro_torch.core.workflow import (
     WF_POLICY_IDS, critical_path_length, make_taskset, simulate_workflow,
-    workflow_result_np,
+    simulate_workflow_ensemble, stack_tasksets, workflow_result_np,
 )
 
 __all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
@@ -28,6 +28,7 @@ __all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
            "WF_POLICY_IDS",
            "WorkflowTrace", "as_trace_spec", "build_jobset", "build_machine",
            "cache_stats", "critical_path_length", "make_taskset",
-           "reset_cache_stats", "run", "simresult_to_np",
+           "reset_cache_stats", "run", "run_ref", "simresult_to_np",
            "simulate_alloc_sweep", "simulate_ensemble", "simulate_workflow",
-           "stack_jobsets", "sweep", "workflow_result_np"]
+           "simulate_workflow_ensemble", "stack_jobsets", "stack_tasksets",
+           "sweep", "workflow_result_np"]

@@ -1,6 +1,7 @@
 """Result wrapper of the PyTorch port.
 
-Counterpart of ``repro.api.result``: ``to_np()`` gives the reference's
+Counterpart of ``repro.api.result``, for the port's engine (``run``) and its
+host oracle (``run_ref``) alike: ``to_np()`` gives the reference's
 canonical numpy dict (``submit``, ``nodes``, ``runtime``, ``start``,
 ``finish``, ``ready``, ``wait``, ``makespan``, ``n_events``, ``done``,
 ``valid``, plus ``alloc_first``/``alloc_span``/``alloc_sum`` and the
@@ -19,7 +20,7 @@ submit`` for a job without dependencies).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 
@@ -30,24 +31,32 @@ from repro_torch.core.jobs import ALLOC_FIELDS, EV_FIELDS, JobSet, SimResult
 
 @dataclasses.dataclass
 class Result:
-    """One simulation outcome: the scenario, the engine's ``SimResult``
-    (``raw``, tensors on the run's device) and its job table.  A member of
-    an ensemble or a sweep holds its row of the batched result
-    (``SimResult.member``) and its member table (``JobSet.member``)."""
+    """One simulation outcome, of either backend.
+
+    ``backend`` is ``"torch"`` (the port's engine: ``raw`` its
+    ``SimResult``, tensors on the run's device, and ``jobs`` its job table)
+    or ``"ref"`` (the host oracle, ``run_ref``: ``raw`` its numpy dict,
+    ``jobs`` ``None``).  A member of an ensemble or a sweep holds its row of
+    the batched result (``SimResult.member``) and its member table
+    (``JobSet.member``)."""
 
     scenario: Scenario
-    raw: SimResult
-    jobs: JobSet
+    raw: Union[SimResult, Dict[str, Any]]
+    jobs: Optional[JobSet] = None
+    backend: str = "torch"
     _np: Optional[Dict[str, np.ndarray]] = dataclasses.field(
         default=None, repr=False)
 
     def to_np(self) -> Dict[str, np.ndarray]:
         """Canonical host-side result dict (cached)."""
         if self._np is None:
-            self._np = simresult_to_np(
-                self.raw, self.jobs,
-                with_alloc=self.scenario.topology is not None,
-                service=self._service_plan())
+            if self.backend == "ref":
+                self._np = dict(self.raw)
+            else:
+                self._np = simresult_to_np(
+                    self.raw, self.jobs,
+                    with_alloc=self.scenario.topology is not None,
+                    service=self._service_plan())
         return self._np
 
     def _service_plan(self):

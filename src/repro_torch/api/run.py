@@ -1,13 +1,22 @@
-"""The entry point of the PyTorch port: ``run(scenario) -> Result``."""
+"""The entry points of the PyTorch port: ``run(scenario) -> Result`` on the
+engine, and ``run_ref(scenario) -> Result`` on the host oracle
+(``repro_torch.refsim``) from the *same* spec, so that
+
+    run(s).matches(run_ref(s))
+
+validates a run in one line, on any scenario and without JAX."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch import alloc as _alloc
 from repro_torch.api.result import Result
 from repro_torch.api.scenario import Scenario
 from repro_torch.core import engine
-from repro_torch.core.jobs import JobSet, make_jobset, resolve_device
+from repro_torch.core.jobs import (
+    POLICY_NAMES, JobSet, make_jobset, resolve_device,
+)
 
 
 def build_jobset(scenario: Scenario, *, capacity: Optional[int] = None,
@@ -85,3 +94,32 @@ def run(scenario: Scenario, device=None) -> Result:
                           malleable=_mal_plan(scenario),
                           max_events=scenario.max_events, device=device)
     return Result(scenario=scenario, raw=res, jobs=jobs)
+
+
+def run_ref(scenario: Scenario) -> Result:
+    """Run the same spec on the host reference simulator, the engine's
+    bit-exact twin, fed the same materialized failure trace, service plan
+    and malleable plan as ``run``.  Host code by design: it never touches a
+    device, and no run of the engine falls back to it."""
+    from repro_torch.refsim import simulate_reference
+
+    if scenario.multicluster is not None:
+        raise ValueError(
+            "the reference simulator has no multicluster mode; validate the "
+            "single-cluster scenario per cluster instead")
+    policy = scenario.policy
+    policy = (policy.lower() if isinstance(policy, str)
+              else POLICY_NAMES[int(policy)])
+    alloc_name = ("simple" if scenario.alloc is None
+                  else _alloc.ALLOC_NAMES[_alloc.canonical_id(scenario.alloc)])
+    out = simulate_reference(
+        scenario.trace.materialize(), policy,
+        total_nodes=int(scenario.total_nodes),
+        machine=build_machine(scenario, "cpu"),
+        alloc=alloc_name,
+        contention=scenario.contention,
+        failures=_failure_trace(scenario),
+        service=_service_plan(scenario),
+        malleable=_mal_plan(scenario),
+    )
+    return Result(scenario=scenario, raw=out, backend="ref")

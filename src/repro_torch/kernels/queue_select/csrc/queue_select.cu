@@ -22,6 +22,13 @@
 //                         request r with its own columns (pointers offset
 //                         to its member's row), mode and scalars, and
 //                         writing its answer to words 4r.. of the host
+//                         buffer;
+//   queue_select_batch    the TPU kernel's function for n_req rows of a
+//                         stacked [B, n] score matrix and mask (the batched
+//                         pool engine's selections): the requested members
+//                         uploaded once, one launch of n_req clusters,
+//                         cluster r folding row members[r] and writing
+//                         (index, score) to words 2r, 2r + 1 of the host
 //                         buffer.
 //
 // Key: ((uint32)score ^ 0x80000000) << 32 | row.  Flipping the sign bit
@@ -56,6 +63,8 @@
 // launch and the host's wait, which is why there is one launch and one wait.
 // A batched call reads the same bytes for each of its requests, B x J x the
 // mode's bytes a row, and keeps one launch and one wait for all of them.
+// The generic batched call reads 5 B a row (score and bool mask) of each
+// requested row: B x n x 5 B, 0.3 us at B = 32 and n = 2,625.
 //
 // The batched entries' requests: B SelectArgs outgrow the 4 KB of kernel
 // parameters at a few dozen members, so the host writes the request array
@@ -217,14 +226,14 @@ __device__ __forceinline__ void write_pair(unsigned long long key,
 // thread cover 81,920 rows, the archive run's table, in one batch.
 constexpr int kUnroll = 10;
 
+// This thread's least key of the feasible scores over its rows of one row
+// of n entries; `rank` is its CTA's rank in the cluster.
 template <typename Mask>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-select_generic(const int32_t* __restrict__ scores,
-               const Mask* __restrict__ feasible, long long n,
-               int32_t* __restrict__ out) {
-  cluster_arrive_relaxed();
+__device__ __forceinline__ unsigned long long generic_scan(
+    const int32_t* __restrict__ scores, const Mask* __restrict__ feasible,
+    long long n, unsigned rank) {
   unsigned long long key = kNone;
-  for (long long base = (long long)blockIdx.x * kThreads + threadIdx.x;
+  for (long long base = (long long)rank * kThreads + threadIdx.x;
        base < n; base += (long long)kStride * kUnroll) {
     Mask f[kUnroll];
     int32_t sc[kUnroll];
@@ -238,7 +247,35 @@ select_generic(const int32_t* __restrict__ scores,
     for (int u = 0; u < kUnroll; ++u)
       if (f[u] != 0) key = umin(key, pack(sc[u], base + (long long)u * kStride));
   }
+  return key;
+}
+
+template <typename Mask>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+select_generic(const int32_t* __restrict__ scores,
+               const Mask* __restrict__ feasible, long long n,
+               int32_t* __restrict__ out) {
+  cluster_arrive_relaxed();
+  unsigned long long key = generic_scan(scores, feasible, n, blockIdx.x);
   if (cluster_fold_once(key, &key)) write_pair(key, out);
+}
+
+// One generic selection a cluster: cluster r = blockIdx.x / kCluster folds
+// row members[r] of the stacked [batch, n] scores and mask (the members
+// read from device memory, uploaded by the call) and writes its answer to
+// out[2 r], out[2 r + 1].
+template <typename Mask>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+select_generic_batch(const int32_t* __restrict__ scores,
+                     const Mask* __restrict__ feasible, long long n,
+                     const int32_t* __restrict__ members, int32_t* out) {
+  cluster_arrive_relaxed();
+  const int r = blockIdx.x / kCluster;
+  const unsigned rank = cg::this_cluster().block_rank();
+  const long long row = (long long)members[r] * n;
+  unsigned long long key =
+      generic_scan(scores + row, feasible + row, n, rank);
+  if (cluster_fold_once(key, &key)) write_pair(key, out + 2 * r);
 }
 
 // The columns mode M reads, besides jstate.
@@ -589,10 +626,26 @@ int run_sync(Launch launch, int words, int stride, cudaStream_t s,
   return 0;
 }
 
-// Write `n_req` requests into pinned memory, enqueue their upload into the
-// device buffer on `s`, and leave its address in `*reqs`.  Every request
-// must name a table (1 <= n <= INT32_MAX) and, with `modes`, a known mode.
-// Returns a CUDA error code.
+// Copy `bytes` of requests into pinned memory, enqueue their upload into
+// the device buffer on `s`, and leave its address in `*dev`.  Returns a
+// CUDA error code.
+int upload(const void* src, size_t bytes, cudaStream_t s, const void** dev) {
+  Mapped& m = request_words();
+  if (!ensure(m, bytes)) return (int)cudaErrorMemoryAllocation;
+  DeviceBuffer& d = request_buffer();
+  const int bad = ensure_device(d, bytes);
+  if (bad != 0) return bad;
+  memcpy(m.host, src, bytes);
+  const cudaError_t err =
+      cudaMemcpyAsync(d.ptr, m.host, bytes, cudaMemcpyHostToDevice, s);
+  if (err != cudaSuccess) return (int)err;
+  *dev = d.ptr;
+  return 0;
+}
+
+// Upload `n_req` SelectArgs requests (see upload) and leave their device
+// address in `*reqs`.  Every request must name a table (1 <= n <=
+// INT32_MAX) and, with `modes`, a known mode.  Returns a CUDA error code.
 int upload_requests(const SelectArgs* args, int n_req, bool modes,
                     cudaStream_t s, const SelectArgs** reqs) {
   if (n_req < 1 || n_req > kMaxRequests) return (int)cudaErrorInvalidValue;
@@ -602,17 +655,10 @@ int upload_requests(const SelectArgs* args, int n_req, bool modes,
     if (modes && (args[r].mode < HEAD_SUBMIT || args[r].mode > PREEMPT_HEAD))
       return (int)cudaErrorInvalidValue;
   }
-  const size_t bytes = (size_t)n_req * sizeof(SelectArgs);
-  Mapped& m = request_words();
-  if (!ensure(m, bytes)) return (int)cudaErrorMemoryAllocation;
-  DeviceBuffer& d = request_buffer();
-  const int bad = ensure_device(d, bytes);
+  const void* dev = nullptr;
+  const int bad = upload(args, (size_t)n_req * sizeof(SelectArgs), s, &dev);
   if (bad != 0) return bad;
-  memcpy(m.host, args, bytes);
-  const cudaError_t err =
-      cudaMemcpyAsync(d.ptr, m.host, bytes, cudaMemcpyHostToDevice, s);
-  if (err != cudaSuccess) return (int)err;
-  *reqs = static_cast<const SelectArgs*>(d.ptr);
+  *reqs = static_cast<const SelectArgs*>(dev);
   return 0;
 }
 
@@ -705,4 +751,38 @@ extern "C" int queue_select_walk_batch(const SelectArgs* args, int n_req,
     shadow_walk_batch<<<n_req * kCluster, kThreads, 0, s>>>(reqs, out);
   };
   return run_sync(launch, 4 * n_req, 4, s, result);
+}
+
+// The TPU kernel's function for n_req rows of a stacked [batch, n] score
+// matrix and mask (mask_bytes 1 = bool, 4 = int32), all on the device of
+// `stream`: members[r] (host memory) names request r's row.  The members are
+// uploaded once, one launch of n_req clusters folds one row each; the call
+// waits for `stream` and leaves (index, score) in result[2 r],
+// result[2 r + 1] on the host, the index local to the row.  Returns a CUDA
+// error code; cudaErrorInvalidValue for a bad size or member.
+extern "C" int queue_select_batch(const void* scores, const void* feasible,
+                                  int mask_bytes, long long n,
+                                  long long batch, const int32_t* members,
+                                  int n_req, void* stream, int32_t* result) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || n > INT32_MAX || batch < 1 || (mask_bytes != 1 &&
+      mask_bytes != 4) || n_req < 1 || n_req > kMaxRequests)
+    return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < n_req; ++r)
+    if (members[r] < 0 || members[r] >= batch)
+      return (int)cudaErrorInvalidValue;
+  const void* dev = nullptr;
+  const int bad = upload(members, (size_t)n_req * sizeof(int32_t), s, &dev);
+  if (bad != 0) return bad;
+  const int32_t* m = static_cast<const int32_t*>(dev);
+  const int32_t* sc = static_cast<const int32_t*>(scores);
+  auto launch = [&](int32_t* out) {
+    if (mask_bytes == 1)
+      select_generic_batch<uint8_t><<<n_req * kCluster, kThreads, 0, s>>>(
+          sc, static_cast<const uint8_t*>(feasible), n, m, out);
+    else
+      select_generic_batch<int32_t><<<n_req * kCluster, kThreads, 0, s>>>(
+          sc, static_cast<const int32_t*>(feasible), n, m, out);
+  };
+  return run_sync(launch, 2 * n_req, 2, s, result);
 }

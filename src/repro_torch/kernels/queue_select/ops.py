@@ -7,6 +7,8 @@ back.  Two ways in:
 
 - :func:`queue_select` (scores, mask) -> device i32[2], the TPU kernel's
   function;
+- :func:`queue_select_batch` (scores, mask ``[B, T]``, members) -> one
+  ``(index, score)`` a requested row, as Python ints, in one launch;
 - :class:`TableSelect`, bound to one job table: :meth:`TableSelect.select`
   builds the key and the mask of a mode (``ref.MODES``) in the kernel and
   returns ``(index, score)`` as Python ints;
@@ -27,7 +29,9 @@ it in place of the bound one, and a call without it reads the bound column
 again.
 
 ``queue_select.launches`` counts the launches of the solo select kernels
-(any mode, and the generic op); ``shadow_walk.launches`` those of the walk,
+(any mode, and the generic op); ``queue_select_batch.launches`` those of
+the batched generic entry and ``queue_select_batch.selections`` the rows
+they answered; ``shadow_walk.launches`` those of the walk,
 and ``shadow_walk.steps`` the releases its launches counted.  The batched
 launches count apart: ``queue_select.batch_launches`` and
 ``queue_select.batch_selections`` (the member-selections they served),
@@ -46,8 +50,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.queue_select.ref import (
     MODES, PARAMS, fused_select_batched_reference, fused_select_reference,
-    queue_select_reference, shadow_walk_batched_reference,
-    shadow_walk_reference,
+    queue_select_batched_reference, queue_select_reference,
+    shadow_walk_batched_reference, shadow_walk_reference,
 )
 
 SOURCE = "queue_select/csrc/queue_select.cu"
@@ -92,23 +96,37 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                        ctypes.c_int,        # n_req
                        ctypes.c_void_p,     # cudaStream_t
                        ctypes.c_void_p]     # result, int32[4 n_req] on the host
+    lib.queue_select_batch.argtypes = [
+        ctypes.c_void_p,    # scores, int32[B, n]
+        ctypes.c_void_p,    # feasible, bool or int32 [B, n]
+        ctypes.c_int,       # bytes per mask entry (1 or 4)
+        ctypes.c_longlong,  # n
+        ctypes.c_longlong,  # B
+        ctypes.c_void_p,    # members, int32[n_req] on the host
+        ctypes.c_int,       # n_req
+        ctypes.c_void_p,    # cudaStream_t
+        ctypes.c_void_p,    # result, int32[2 n_req] on the host
+    ]
     for fn in (lib.queue_select_launch, lib.queue_select_fused,
                lib.queue_select_walk, lib.queue_select_fused_batch,
-               lib.queue_select_walk_batch):
+               lib.queue_select_walk_batch, lib.queue_select_batch):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(scores: torch.Tensor, feasible: torch.Tensor) -> None:
+def _check(scores: torch.Tensor, feasible: torch.Tensor,
+           dim: int = 1) -> None:
+    """Types, one ``dim``-D shape (``[N]``, or ``[B, T]``), at least one
+    entry a row, one device."""
     if scores.dtype != torch.int32:
         raise TypeError(f"scores must be int32, got {scores.dtype}")
     if feasible.dtype not in (torch.bool, torch.int32):
         raise TypeError(f"feasible must be bool or int32, got {feasible.dtype}")
-    if scores.dim() != 1 or feasible.shape != scores.shape:
+    if scores.dim() != dim or feasible.shape != scores.shape:
         raise ValueError(
-            f"scores and feasible must be 1-D of one length, got "
+            f"scores and feasible must be {dim}-D of one shape, got "
             f"{tuple(scores.shape)} and {tuple(feasible.shape)}")
-    if scores.numel() == 0:
+    if scores.shape[-1] == 0:
         raise ValueError("queue_select needs at least one entry")
     if scores.device != feasible.device:
         raise ValueError(
@@ -133,6 +151,44 @@ def queue_select(scores: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"queue_select kernel launch failed: CUDA error {err}")
     queue_select.launches += 1
     return out
+
+
+def queue_select_batch(scores: torch.Tensor, feasible: torch.Tensor,
+                       members) -> list:
+    """Masked lex-argmin of several rows at once: for each member ``b`` of
+    ``members``, ``(index, score)`` of ``scores[b]`` under ``feasible[b]``
+    (``[B, T]`` each) as :func:`queue_select` answers a row alone, as
+    Python ints.  On CUDA one upload of the members, one launch of one
+    cluster a member and one wait, the answers read from mapped host
+    memory."""
+    _check(scores, feasible, dim=2)
+    members = [int(b) for b in members]
+    B, n = scores.shape
+    if not all(0 <= b < B for b in members):
+        raise ValueError(f"members must lie in [0, {B}), got "
+                         f"{sorted(set(members))}")
+    if not members:
+        return []
+    if scores.device.type == "cpu":
+        return queue_select_batched_reference(scores, feasible, members)
+    if scores.device.type != "cuda":
+        raise ValueError(
+            f"queue_select_batch runs on cpu or cuda, not {scores.device}")
+    if not (scores.is_contiguous() and feasible.is_contiguous()):
+        raise ValueError("queue_select_batch needs contiguous tensors")
+    n_req = len(members)
+    req = (ctypes.c_int32 * n_req)(*members)
+    out = (ctypes.c_int32 * (2 * n_req))()
+    stream = torch.cuda.current_stream(scores.device).cuda_stream
+    err = _lib().queue_select_batch(
+        scores.data_ptr(), feasible.data_ptr(), feasible.element_size(), n,
+        B, ctypes.addressof(req), n_req, stream, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"queue_select_batch launch of {n_req} rows: "
+                           f"CUDA error {err}")
+    queue_select_batch.launches += 1
+    queue_select_batch.selections += n_req
+    return [(out[i], out[i + 1]) for i in range(0, 2 * n_req, 2)]
 
 
 def shadow_walk(table: "TableSelect", jstate: torch.Tensor,
@@ -162,6 +218,7 @@ def shadow_walk(table: "TableSelect", jstate: torch.Tensor,
 def reset_launches() -> None:
     queue_select.launches = 0
     queue_select.batch_launches = queue_select.batch_selections = 0
+    queue_select_batch.launches = queue_select_batch.selections = 0
     shadow_walk.launches = shadow_walk.steps = 0
     shadow_walk.batch_launches = shadow_walk.batch_walks = 0
     shadow_walk.batch_steps = 0
@@ -416,4 +473,4 @@ class BatchedTableSelect:
 
 
 __all__ = ["MODES", "BatchedTableSelect", "TableSelect", "queue_select",
-           "reset_launches", "shadow_walk"]
+           "queue_select_batch", "reset_launches", "shadow_walk"]

@@ -10,6 +10,8 @@
 - :func:`fused_select_batched_reference` and
   :func:`shadow_walk_batched_reference`: the same, for every active member
   of a stacked ``[B, J]`` table, one member at a time.
+- :func:`queue_select_batched_reference`: :func:`queue_select_reference`
+  for requested rows of a stacked ``[B, T]`` score matrix and mask.
 """
 
 from __future__ import annotations
@@ -64,6 +66,30 @@ def queue_select_reference(scores: torch.Tensor,
     found = torch.any(feas)
     return torch.stack([torch.where(found, idx, -1),
                         torch.where(found, best, BIG)]).to(torch.int32)
+
+
+def queue_select_batched_reference(scores: torch.Tensor,
+                                   feasible: torch.Tensor,
+                                   members) -> list:
+    """``(index, score)`` as Python ints for each requested row ``b`` of
+    ``members`` of the ``[B, T]`` scores and mask: what
+    :func:`queue_select_reference` gives on ``scores[b]`` and
+    ``feasible[b]`` (the first index of the least feasible score, or ``(-1,
+    BIG)``), for every row at once."""
+    rows_b = torch.as_tensor(list(members), dtype=torch.long,
+                             device=scores.device)
+    sc = scores[rows_b]
+    feas = feasible[rows_b].to(torch.bool)
+    rows = torch.arange(scores.shape[-1], dtype=torch.int32,
+                        device=scores.device)
+    best = torch.min(torch.where(feas, sc, torch.iinfo(torch.int32).max),
+                     dim=-1).values
+    idx = torch.min(torch.where(feas & (sc == best[:, None]), rows, BIG),
+                    dim=-1).values
+    found = torch.any(feas, dim=-1)
+    return [tuple(p) for p in torch.stack(
+        [torch.where(found, idx, -1), torch.where(found, best, BIG)],
+        dim=-1).tolist()]
 
 
 def fused_key_mask(mode: int, cols: dict, jstate: torch.Tensor, clock: int,

@@ -37,7 +37,8 @@ def jax_spec(x):
     if isinstance(x, rt.ArrayTrace):
         return api.ArrayTrace(**_fields(x))
     for name in ("FailureModel", "ServiceClass", "AutoscalePolicy",
-                 "SyntheticTrace", "WorkflowTrace", "MalleableModel"):
+                 "SyntheticTrace", "SwfTrace", "WorkflowTrace",
+                 "MalleableModel"):
         if isinstance(x, getattr(rt, name)):
             return getattr(api, name)(**_fields(x))
     return x

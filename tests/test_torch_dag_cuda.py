@@ -113,3 +113,38 @@ def test_pool_engine_on_card_equals_cpu(policy):
         for k in out["cpu"]:
             np.testing.assert_array_equal(out["cuda"][k], out["cpu"][k],
                                           err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_events", (None, 9))
+def test_pool_engine_ensemble_on_card_equals_cpu(max_events):
+    """The batched pool engine over ragged members (pad rows, pad edges of
+    index T), mixed policies and pools and a member whose priorities reach
+    INF_TIME: the card's state equals the CPU's, with batched launches."""
+    _need_card()
+    wfs = [galactic_like(4, 8, seed=1), sipht_like(20, seed=2),
+           random_layered(60, 6, seed=3), montage_like(8, seed=4)]
+    pols = ["fcfs", "fcfs_fit", "cpath", "fcfs_fit"]
+    pools = np.array([[16, 8192], [8, 8192], [4, 4096], [6, 8192]])
+    prios = [None, None, rt.critical_path_length(wfs[2]["exec_time"],
+                                                 wfs[2]["dep_pairs"]),
+             np.where(np.arange(len(wfs[3]["exec_time"])) % 2 == 1,
+                      2**30 + 2, 0)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        stack = rt.stack_tasksets([
+            rt.make_taskset(w["exec_time"], w["resources"], w["dep_pairs"],
+                            priority=p, device=dev)
+            for w, p in zip(wfs, prios)])
+        ops.reset_launches()
+        out[dev] = rt.simulate_workflow_ensemble(stack, pools, pols,
+                                                 max_events=max_events,
+                                                 device=dev)
+        if dev == "cuda":
+            assert ops.queue_select_batch.launches > 0
+            assert ops.queue_select.launches == 0
+    for k in ("tstate", "start", "finish", "free"):
+        assert torch.equal(getattr(out["cuda"], k).cpu(),
+                           getattr(out["cpu"], k)), k
+    assert out["cuda"].n_events == out["cpu"].n_events
+    assert out["cuda"].clock == out["cpu"].clock

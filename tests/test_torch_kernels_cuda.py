@@ -194,6 +194,37 @@ def test_batched_entries_match_plain_and_solo_on_card(n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(8, 165), (24, 2625), (32, 165),
+                                 (3, 8193)])
+def test_batched_generic_entry_matches_plain_on_card(B, T):
+    """queue_select_batch: one launch a call, each row's answer equal to
+    the plain version's and the solo kernel's, bit for bit, with rows all
+    infeasible, all tied and scoring BIG, and either mask type."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.kernels.queue_select.ref import (
+        BIG, queue_select_batched_reference,
+    )
+    rng = np.random.default_rng(B * T)
+    scores = rng.integers(-1000, 1001, (B, T)).astype(np.int32)
+    feas = rng.random((B, T)) < rng.choice([0.0, 0.01, 0.5, 1.0], (B, 1))
+    scores[0] = BIG
+    scores[1 % B] = 7
+    s = torch.from_numpy(scores).cuda()
+    for mask in (torch.from_numpy(feas).cuda(),
+                 torch.from_numpy(feas.astype(np.int32)).cuda()):
+        for members in (list(range(B)), [B - 1, 0, B // 2, 0],
+                        [int(b) for b in rng.permutation(B)[:max(B // 3, 1)]]):
+            before = ops.queue_select_batch.launches
+            got = ops.queue_select_batch(s, mask, members)
+            assert ops.queue_select_batch.launches == before + 1
+            assert got == queue_select_batched_reference(s.cpu(), mask.cpu(),
+                                                         members)
+            for b, g in zip(members, got):
+                assert g == tuple(ops.queue_select(s[b], mask[b]).tolist())
+
+
+@pytest.mark.cuda
 def test_sweep_on_card_equals_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
