@@ -72,16 +72,18 @@ Phases, each printing one JSON line with its wall time:
              its digests.  n_compiles, wall seconds, aggregate events/s,
              batched launches and the member-selections a launch served.
 6c. ensemble - Fig. 5(a)'s shape: DAS-2-like backfill on 400 nodes,
-             5,000 jobs (10,000 until the oracle came; phase 4 and phase
-             6b's das2 members hold the 10,000-job seed 0 to its digest),
+             2,500 jobs (10,000 until the oracle came, 5,000 until the
+             window phases; phase 4 and phase 6b's das2 members hold the
+             10,000-job seed 0 to its digest),
              trace seeds 0-7 as one batch of 8 and as a serial loop of
              run, member by member equal; events/s both ways and their
              ratio; B = 1 through
              sweep against the solo run (the lockstep driver's own cost);
              the card's busy share of a profiled 250-job batch of 8.
-6d. alloc  - topology-aware allocation at 2,500 jobs (2.5x fig_alloc.py's
-             1,000; 10,000 until the malleable phases came, 5,000 until
-             the oracle, PERF.md section 4), each run held to
+6d. alloc  - topology-aware allocation at 1,250 jobs (1.25x
+             fig_alloc.py's 1,000; 10,000 until the malleable phases
+             came, 5,000 until the oracle, 2,500 until the window phases,
+             PERF.md section 4), each run held to
              the JAX engine's n_events, makespan and digests of start,
              finish, alloc_first, alloc_span, alloc_sum and the ev_lfb log
              (tests/data/torch_alloc_golden.json): Fig. alloc's grid
@@ -95,7 +97,7 @@ Phases, each printing one JSON line with its wall time:
              fallback to simple.  Per run events/s, selections, walks,
              launches an event and the largest-free-run reads an event;
              beside them the scalar-mode SDSC-SP2 backfill run of the
-             same 2,500 jobs (phase 4's run when the sizes agree), and the
+             same 1,250 jobs (phase 4's run when the sizes agree), and the
              busy
              share and device operations an event of a profiled 250-job
              run.  queue_select must launch on every run, the walk on
@@ -205,6 +207,38 @@ Phases, each printing one JSON line with its wall time:
              no selection); requeue failures at MTBF 50,000 s; a serving
              trace with the autoscaler; moldable jobs (Amdahl 0.1, widths
              1-16).  The oracle's host seconds beside each card run's.
+6p. window - the conservative window step, solo: (a) phase 4's backfill
+             run (sdsc_sp2_like(10000, seed=1), 128 nodes) as rounds of
+             simulate_window of one simulated day each and a drain at
+             INF_TIME, held to its golden digest; (b) phase 6f's scalar
+             backfill run of the Galactic Plane DAG as rounds of 100 s
+             (releases cross rounds), held to its digest.  No round may
+             saturate.  Events/s beside the one-shot run's: phase 4's
+             of this process for (a), one before and one after for (b)
+             (the stop test's cost, paired in time); rounds; launches
+             (equal to the one-shot run's).
+6q. multicluster - DAS-2's five clusters (144, 64, 64, 64, 64), 2,000
+             das2 jobs each (seeds 50-54), backfill, Multicluster(window
+             =3600), the clusters stepped in lockstep: with migration and
+             the mixed grid (the Galactic Plane DAG of 657 tasks on the
+             first cluster: edges, imports and migration in one run), each
+             held to its JAX digest (tests/data/
+             torch_multicluster_golden.json: start, finish, valid, done,
+             migrated, dropped, saturated, makespan); without migration,
+             each cluster equal to its solo one-shot run (rt.run), the
+             lockstep run timed against them.  Rounds, lockstep events,
+             events/s, the exchanges' host seconds, batched launches and
+             member-selections a launch.
+6r. replay - half benchmarks/replay_smoke.py's smoke size (cut to fit
+             the limit): a 10,000-job synthetic archive (the smoke's
+             generator and arrival rate) through dump_swf and load_swf,
+             replayed under backfill on 128 nodes at window 4,096 (every
+             job done
+             or aborted, peak_live <= window); then its 4,000-job prefix
+             at window 512: a kill after round 2 and a resume identical to
+             the straight replay, which equals the port's
+             replay_reference.  Jobs/s, events/s, rounds, peak_live, the
+             flags, the oracle's and the kill/resume seconds.
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
              128 and the serve shape, f32 (the CUDA-core kernel) and bf16
@@ -258,8 +292,9 @@ Phases, each printing one JSON line with its wall time:
              phase 9.
 
 Each kernel's launch counter is set to 0 before each run of its main path
-(phases 4, 5, 6d, 6f, 6h, 6i, 6k, 6m and 6o for queue_select and its walk,
-phases 6b, 6c, 6e, 6g, 6j, 6l and 6n for their batched entries, each batch
+(phases 4, 5, 6d, 6f, 6h, 6i, 6k, 6m, 6o, 6p and 6r for queue_select and
+its walk, phases 6b, 6c, 6e, 6g, 6j, 6l, 6n and 6q for their batched
+entries, each batch
 of phase 6h' for the batched generic entry, the serve
 of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
@@ -296,6 +331,17 @@ WORKFLOW_GOLDEN = ROOT / "tests" / "data" / "torch_workflow_golden.json"
 REL_GOLDEN = ROOT / "tests" / "data" / "torch_rel_golden.json"
 SERVING_GOLDEN = ROOT / "tests" / "data" / "torch_serving_golden.json"
 MAL_GOLDEN = ROOT / "tests" / "data" / "torch_mal_golden.json"
+MC_GOLDEN = ROOT / "tests" / "data" / "torch_multicluster_golden.json"
+WINDOW_DAY = 86_400              # phase window (a): one simulated day
+WINDOW_DAG = 100                 # phase window (b): ~35 rounds of the DAG
+MC_NODES = (144, 64, 64, 64, 64)  # DAS-2's five clusters
+MC_JOBS = 2_000
+MC_WINDOW = 3_600
+REPLAY_JOBS = 10_000             # half benchmarks/replay_smoke.py's smoke
+REPLAY_PREFIX = 4_000
+REPLAY_WINDOW = 4_096
+REPLAY_PREFIX_WINDOW = 512
+REPLAY_NODES = 128
 MAL_PROFILE_EVENTS = 150         # each malleable run's profiled prefix
 PROFILE_PAD_S = 0.02             # host-only time at each end of a profile
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
@@ -319,7 +365,7 @@ SWEEP_POLICIES = ("fcfs", "sjf", "ljf", "bestfit", "backfill", "preempt")
 SWEEP_NODES = (128, 256)
 SWEEP_SOLO_POLICIES = ("backfill",)   # cut to fit the alloc phases, the oracle
 ENSEMBLE_B = 8                   # ensemble phase: das2 trace seeds 0-7
-ENSEMBLE_JOBS = 5_000            # each seed's jobs (cut to fit the oracle)
+ENSEMBLE_JOBS = 2_500            # each seed's jobs (cut to fit the windows)
 ALLOCS = ("simple", "contiguous", "spread", "topo")
 CONTENTIONS = (None, (1, 5))     # fig_alloc's two contention settings
 # phase 6d runs Fig. alloc's grid solo at this contention only; the runs
@@ -1286,7 +1332,7 @@ def check_alloc_golden(out, e, what: str = "") -> None:
 
 def phase_alloc(torch, rt, ops, golden_runs=None):
     """Topology-aware allocation at full size, each run held to its JAX
-    digests: Fig. alloc's grid (SDSC-SP2-like seed 1, 2,500 jobs, on
+    digests: Fig. alloc's grid (SDSC-SP2-like seed 1, 1,250 jobs, on
     dragonfly(16, 8), backfill x the four strategies at
     ``ALLOC_SOLO_CONTENTION``; the rest of the grid meets its digests in
     phase alloc_sweep); the per-start loop on DAS-2's 400 nodes as mesh2d(20, 20)
@@ -2124,6 +2170,312 @@ def phase_malleable_sweep(torch, rt, ops):
     return all_counts
 
 
+def launch_counts(ops) -> dict:
+    """The kernels' launch counters since the last ``reset_launches``:
+    solo selections and walks, batched launches, the member-selections
+    they served and batched walk launches."""
+    return {"launches": ops.queue_select.launches,
+            "walk_launches": ops.shadow_walk.launches,
+            "batch_launches": ops.queue_select.batch_launches,
+            "batch_selections": ops.queue_select.batch_selections,
+            "walk_batch_launches": ops.shadow_walk.batch_launches}
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def windowed_run(rt, ops, scn, width: int):
+    """``scn`` on cuda as rounds of ``simulate_window`` at ``t_hi = k x
+    width`` while an event is due, then a drain at ``INF_TIME``, which
+    must find nothing and not spin, with the one-shot run's event cap as
+    the total: ``(result dict, wall seconds, rounds, counts)``.  No round
+    may saturate."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.core.jobs import INF_TIME, SimState, result_from_state
+    jobs = rt.api.build_jobset(scn, device="cuda")
+    n = int(scn.total_nodes)
+    cap = 6 * jobs.capacity + 8
+    ops.reset_launches()
+    t = time.time()
+    state, rounds = SimState.init(jobs, n), 0
+    while engine.next_event_time(jobs, state) < INF_TIME:
+        rounds += 1
+        state, sat = engine.simulate_window(scn.policy, jobs, state,
+                                            rounds * width, cap)
+        check(not sat, f"window round {rounds} saturated")
+    n_events = state.n_events
+    state, sat = engine.simulate_window(scn.policy, jobs, state, INF_TIME,
+                                        cap)
+    check(not sat and state.n_events == n_events,
+          "the drain at INF_TIME found events or saturated")
+    out = rt.api.simresult_to_np(result_from_state(jobs, state), jobs)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = launch_counts(ops)
+    check(counts["launches"] > 0, "a windowed run launched no queue_select")
+    return out, wall, rounds, counts
+
+
+def phase_window(rt, ops, golden_runs=None):
+    """The conservative window step, solo: (a) phase 4's backfill run
+    (sdsc_sp2_like(10000, seed=1) on 128 nodes) as rounds of one simulated
+    day, held to its golden digest, its events/s beside phase 4's
+    one-shot run of this process (``golden_runs``, or run here); (b)
+    phase 6f's scalar backfill run of the Galactic Plane DAG as rounds of
+    100 s (releases cross rounds), held to its digest, between two
+    one-shot runs of the same scenario (one-shot, windowed, one-shot):
+    the stop test's cost, paired in time.  Each windowed run's launches
+    equal the one-shot run's (the same decisions)."""
+    t0 = time.time()
+    total = {}
+    e = next(e for e in json.loads(GOLDEN.read_text())["runs"]
+             if (e["kind"], e["policy"]) == ("sdsc_sp2", "backfill"))
+    scn = rt.Scenario(trace=rt.SyntheticTrace(
+        n_jobs=e["n_jobs"], seed=e["seed"], kind=e["kind"]),
+        total_nodes=e["total_nodes"], policy=e["policy"])
+    d = next(d for d in json.loads(DAG_GOLDEN.read_text())["runs"]
+             if d["policy"] == "backfill" and d["topology"] is None)
+    phase4 = (None if golden_runs is None
+              else golden_runs[("sdsc_sp2", "backfill")])
+    for what, s, width, entry, check_fn, paired in (
+            ("a", scn, WINDOW_DAY, e, check_golden, False),
+            ("b", dag_scenario(rt, d), WINDOW_DAG, d, check_dag_golden,
+             True)):
+        if what == "a" and phase4 is not None:
+            ones = [phase4]
+        else:
+            o, w, c = run_counted(rt, ops, s)
+            ones = [(o["n_events"], w, c)]
+        out, wall, rounds, counts = windowed_run(rt, ops, s, width)
+        if paired:
+            o, w, c = run_counted(rt, ops, s)
+            ones.append((o["n_events"], w, c))
+        check_fn(out, entry, f"window ({what}): ")
+        add_counts(total, counts)
+        for k in ("launches", "walk_launches"):
+            check(counts[k] == ones[0][2][k], f"window ({what}): {k} "
+                  f"{counts[k]} != the one-shot run's {ones[0][2][k]}")
+        one = [n / w for n, w, _ in ones]
+        rate = out["n_events"] / wall
+        emit("window", t0, run=what, n_jobs=int(out["valid"].sum()),
+             policy="backfill", width=width, rounds=rounds,
+             n_events=out["n_events"], run_seconds=wall,
+             events_per_s=rate, one_shot_events_per_s=one,
+             one_shot=("before and after" if paired
+                       else "phase 4's" if phase4 is not None
+                       else "before"),
+             over_one_shot=rate / statistics.mean(one), saturated=False,
+             **counts, matches_jax=True)
+    return total
+
+
+def mc_scenario(rt, kind: str, migrate: bool = True):
+    """A multicluster scenario of tests/data/torch_multicluster_golden.json
+    (``kind``: das2 or mixed)."""
+    traces = [rt.SyntheticTrace(kind="das2", n_jobs=MC_JOBS, seed=50 + c)
+              for c in range(len(MC_NODES))]
+    if kind == "mixed":
+        traces[0] = rt.WorkflowTrace(kind="galactic", params=(
+            ("tiles", 16), ("width", 12)))
+    return rt.Scenario(trace=tuple(traces), total_nodes=MC_NODES,
+                       policy="backfill", multicluster=rt.Multicluster(
+                           window=MC_WINDOW, migrate=migrate))
+
+
+def mc_run(rt, ops, scn):
+    """One multicluster run on cuda: ``(result dict, wall seconds,
+    counts)``, with the rounds (window calls, the drain included), the
+    lockstep events, the exchanges' host seconds, the batched launches and
+    the member-selections a launch."""
+    import torch
+    from repro_torch.core import engine, parallel
+    spent = {"exchange_s": 0.0, "windows": 0}
+    exchange, window = parallel._exchange, engine.simulate_window_batch
+
+    def timed_exchange(*a, **k):
+        t = time.time()
+        try:
+            return exchange(*a, **k)
+        finally:
+            spent["exchange_s"] += time.time() - t
+
+    def counted_window(*a, **k):
+        spent["windows"] += 1
+        return window(*a, **k)
+
+    parallel._exchange = timed_exchange
+    engine.simulate_window_batch = counted_window
+    ops.reset_launches()
+    try:
+        t = time.time()
+        res = rt.run(scn, device="cuda")
+        out = res.to_np()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+    finally:
+        parallel._exchange, engine.simulate_window_batch = exchange, window
+    counts = launch_counts(ops)
+    check(counts["batch_launches"] > 0,
+          "a multicluster run launched no batched queue_select")
+    check(counts["walk_batch_launches"] > 0,
+          "a backfill multicluster run launched no batched walk")
+    events = sum(res.raw.state.n_events)
+    counts.update(rounds=spent["windows"], lockstep_events=events,
+                  events_per_s=events / wall,
+                  exchange_s=spent["exchange_s"],
+                  member_selections_per_launch=(
+                      counts["batch_selections"] / counts["batch_launches"]))
+    return out, wall, counts
+
+
+def check_mc_golden(out, e, what: str) -> None:
+    got = {"n_jobs": int(out["valid"].sum()), "migrated": out["migrated"],
+           "dropped": out["dropped"], "saturated": out["saturated"],
+           "makespan": out["makespan"]}
+    for k in ("start", "finish"):
+        got[f"{k}_sha256"] = digest(out[k])
+    for k in ("valid", "done"):   # one byte a row
+        got[f"{k}_sha256"] = hashlib.sha256(
+            out[k].astype("uint8").tobytes()).hexdigest()
+    for k, want in got.items():
+        check(want == e[k], f"multicluster {what}: {k} {want} != golden "
+              f"{e[k]}")
+
+
+def phase_multicluster(rt, ops, np):
+    """DAS-2's five clusters, backfill, Multicluster(window=3600): the run
+    with migration and the mixed grid (the Galactic Plane DAG on the first
+    cluster) held to their JAX digests; the run without migration equal,
+    cluster by cluster, to each cluster's solo one-shot run, and timed
+    against them."""
+    t0 = time.time()
+    golden = {e["run"]: e for e in json.loads(MC_GOLDEN.read_text())["runs"]}
+    total = {}
+    for kind in ("das2", "mixed"):
+        out, wall, counts = mc_run(rt, ops, mc_scenario(rt, kind))
+        check_mc_golden(out, golden[kind], kind)
+        add_counts(total, {k: counts[k] for k in launch_counts(ops)})
+        emit("multicluster", t0, run=kind, clusters=list(MC_NODES),
+             n_jobs=int(out["valid"].sum()), window=MC_WINDOW,
+             migrated=out["migrated"], dropped=out["dropped"],
+             saturated=out["saturated"], makespan=out["makespan"],
+             run_seconds=wall, **counts, matches_jax=True)
+    scn = mc_scenario(rt, "das2", migrate=False)
+    out, wall, counts = mc_run(rt, ops, scn)
+    add_counts(total, {k: counts[k] for k in launch_counts(ops)})
+    solo_wall = 0.0
+    for c, (spec, n) in enumerate(zip(scn.trace_specs(), MC_NODES)):
+        one = rt.Scenario(trace=spec, total_nodes=n, policy="backfill",
+                          capacity=MC_JOBS)
+        o, w, cnt = run_counted(rt, ops, one)
+        solo_wall += w
+        add_counts(total, {k: cnt[k] for k in ("launches",
+                                               "walk_launches")})
+        sl = slice(c * MC_JOBS, (c + 1) * MC_JOBS)
+        for k in ("start", "finish"):
+            check(bool(np.array_equal(out[k][sl], o[k])),
+                  f"multicluster without migration: cluster {c} {k} "
+                  "differs from its solo run")
+    emit("multicluster", t0, run="das2 without migration",
+         run_seconds=wall, **counts, solo_runs_seconds=solo_wall,
+         lockstep_over_solo=solo_wall / wall, equals_solo_runs=True)
+    return total
+
+
+def phase_replay(rt, ops, np):
+    """Half benchmarks/replay_smoke.py's smoke size on the card: a
+    10,000-job synthetic archive written by dump_swf and read back by
+    load_swf,
+    replayed under backfill on 128 nodes at window 4,096 (every job done
+    or aborted, peak_live <= window); then its 4,000-job prefix at window
+    512: a kill after round 2 and a resume identical to the straight
+    replay, which equals the port's replay_reference."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.refsim import replay_reference
+    from repro_torch.replay import (
+        ReplayInterrupted, StreamingReplay, replay_trace, resume,
+    )
+    from repro_torch.traces import dump_swf, load_swf, synthetic_trace
+    t0 = time.time()
+    total = {}
+    trace = synthetic_trace(REPLAY_JOBS, seed=3, mean_interarrival=220.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(pathlib.Path(tmp) / "synthetic.swf.gz")
+        t = time.time()
+        check(dump_swf(path, trace) == REPLAY_JOBS, "dump_swf row count")
+        loaded, rep = load_swf(path, rebase=False)
+        io_s = time.time() - t
+    check(rep.n_jobs == REPLAY_JOBS and rep.n_quarantined == 0,
+          rep.summary())
+    for k in ("submit", "runtime", "nodes", "estimate"):
+        check(bool(np.array_equal(np.asarray(trace[k], np.int64),
+                                  loaded[k])), f"SWF round trip: {k}")
+    kw = dict(total_nodes=REPLAY_NODES, device="cuda")
+    ops.reset_launches()
+    t = time.time()
+    full = replay_trace(loaded, "backfill", window=REPLAY_WINDOW, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = launch_counts(ops)
+    check(counts["launches"] > 0, "the replay launched no queue_select")
+    add_counts(total, counts)
+    s = full.summary()
+    check(s["n_done"] + s["n_aborted"] == REPLAY_JOBS, f"replay: {s}")
+    check(s["peak_live"] <= s["window"], f"replay: {s}")
+    emit("replay", t0, run="archive", n_jobs=REPLAY_JOBS,
+         window=REPLAY_WINDOW, swf_round_trip_s=io_s, run_seconds=wall,
+         jobs_per_s=REPLAY_JOBS / wall, events_per_s=s["n_events"] / wall,
+         rounds=s["n_rounds"], peak_live=s["peak_live"],
+         n_events=s["n_events"], flags=s["flags"], **counts)
+    pfx = {k: v[:REPLAY_PREFIX] for k, v in loaded.items()}
+    kw["window"] = REPLAY_PREFIX_WINDOW
+    ops.reset_launches()
+    t = time.time()
+    straight = replay_trace(dict(pfx), "backfill", **kw)
+    straight_s = time.time() - t
+    add_counts(total, launch_counts(ops))
+    t = time.time()
+    with tempfile.TemporaryDirectory() as ckpt:
+        try:
+            StreamingReplay(dict(pfx), "backfill", ckpt_dir=ckpt,
+                            ckpt_every=1, _crash_after_round=2, **kw).run()
+            check(False, "the crash hook never fired")
+        except ReplayInterrupted:
+            pass
+        resumed = resume(ckpt, dict(pfx), "backfill", **kw)
+    kill_s = time.time() - t
+    for f in dataclasses.fields(straight):
+        a, b = getattr(straight, f.name), getattr(resumed, f.name)
+        same = (bool(np.array_equal(a, b)) if isinstance(a, np.ndarray)
+                else a == b)
+        check(same, f"resume differs from the straight replay: {f.name}")
+    t = time.time()
+    ref = replay_reference(dict(pfx), "backfill", total_nodes=REPLAY_NODES)
+    oracle_s = time.time() - t
+    d = straight.done
+    for k, a, b in (("start", straight.start, ref["start"]),
+                    ("finish", straight.finish[d], ref["finish"][ref["done"]]),
+                    ("wait", straight.wait[d], ref["wait"][ref["done"]]),
+                    ("done", d, ref["done"])):
+        check(bool(np.array_equal(a, b)), f"replay prefix: {k} differs "
+              "from replay_reference")
+    check(straight.n_events == int(ref["n_events"]),
+          "replay prefix: n_events differs from replay_reference")
+    emit("replay", t0, run="prefix", n_jobs=REPLAY_PREFIX,
+         window=REPLAY_PREFIX_WINDOW, run_seconds=straight_s,
+         jobs_per_s=REPLAY_PREFIX / straight_s,
+         events_per_s=straight.n_events / straight_s,
+         rounds=straight.n_rounds, peak_live=straight.peak_live,
+         flags=straight.flags.as_dict(), kill_resume_s=kill_s,
+         resume_identical=True, oracle_s=oracle_s, matches_oracle=True)
+    return total
+
+
 def flash_check(torch, ops, ref, q, k, v, causal, window, tol) -> float:
     """One kernel call against the plain version; the largest error."""
     kw = dict(causal=causal, window=window, q_offset=k.shape[1] - q.shape[1])
@@ -2639,8 +2991,8 @@ PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "sweep", "ensemble", "alloc", "alloc_sweep", "dag", "dag_sweep",
           "workflow", "workflow_batch", "reliability", "reliability_sweep",
           "serving", "serving_sweep", "malleable", "malleable_sweep",
-          "oracle", "flash", "lm_golden", "serve", "linattn", "rwkv_golden",
-          "rwkv_serve")
+          "oracle", "window", "multicluster", "replay", "flash",
+          "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve")
 
 
 def main(argv=None) -> int:
@@ -2659,7 +3011,8 @@ def main(argv=None) -> int:
     if not ((ROOT / "src" / "repro_torch").is_dir() and all(
             g.exists() for g in (GOLDEN, LM_GOLDEN, ALLOC_GOLDEN, DAG_GOLDEN,
                                  DAG_SWEEP_GOLDEN, WORKFLOW_GOLDEN,
-                                 REL_GOLDEN, SERVING_GOLDEN, MAL_GOLDEN))):
+                                 REL_GOLDEN, SERVING_GOLDEN, MAL_GOLDEN,
+                                 MC_GOLDEN))):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 1
@@ -2726,6 +3079,10 @@ def main(argv=None) -> int:
         "malleable": lambda: phase_malleable(torch, rt, ops),
         "malleable_sweep": lambda: phase_malleable_sweep(torch, rt, ops),
         "oracle": lambda: phase_oracle(rt, ops, np),
+        "window": lambda: phase_window(
+            rt, ops, out["golden"][2] if "golden" in out else None),
+        "multicluster": lambda: phase_multicluster(rt, ops, np),
+        "replay": lambda: phase_replay(rt, ops, np),
         "flash": lambda: phase_flash(torch, np),
         "lm_golden": lambda: phase_lm_golden(torch, np),
         "serve": lambda: phase_serve(torch, np),
@@ -2748,17 +3105,21 @@ def main(argv=None) -> int:
     stream_sweeps = out["reliability_sweep"] + out["serving_sweep"]
     mal_sweeps = out["malleable_sweep"]
     oracle, wf_batch = out["oracle"], out["workflow_batch"]
+    windows = [out["window"], out["multicluster"], out["replay"]]
     launches = (out["golden"][0] + out["archive"][0] + alloc["launches"]
                 + dag["launches"] + out["workflow"][0] + rel["launches"]
-                + svc["launches"] + mal["launches"] + oracle["launches"])
+                + svc["launches"] + mal["launches"] + oracle["launches"]
+                + sum(c["launches"] for c in windows))
     walk_launches = (out["golden"][1] + out["archive"][1]
                      + alloc["walk_launches"] + dag["walk_launches"]
                      + rel["walk_launches"] + svc["walk_launches"]
-                     + mal["walk_launches"] + oracle["walk_launches"])
+                     + mal["walk_launches"] + oracle["walk_launches"]
+                     + sum(c["walk_launches"] for c in windows))
     cand = modes["backfill_cand"]
     batch_err, batch_timing, generic_batch = out["batched"]
     batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"],
-                  *out["dag_sweep"], *stream_sweeps, *mal_sweeps]
+                  *out["dag_sweep"], *stream_sweeps, *mal_sweeps,
+                  out["multicluster"]]
     batch_launches = sum(c["batch_launches"] for c in batch_runs)
     batch_selections = sum(c["batch_selections"] for c in batch_runs)
     walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
@@ -2814,6 +3175,8 @@ def main(argv=None) -> int:
                                        for c in stream_sweeps)},
         "oracle_mode": {"launches": oracle["launches"],
                         "walk_launches": oracle["walk_launches"]},
+        "window_mode": {phase: out[phase] for phase in (
+            "window", "multicluster", "replay")},
         "malleable_mode": {
             "launches": mal["launches"],
             "walk_launches": mal["walk_launches"],

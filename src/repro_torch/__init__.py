@@ -11,10 +11,13 @@ and malleable jobs (``MalleableModel``), whose every selection runs the
 ``queue_select`` CUDA kernel on a CUDA device; the
 standalone multi-resource workflow engine (``simulate_workflow``, paper
 §3, and ``simulate_workflow_ensemble``, a stack of workflows in lockstep),
-whose selections run the same kernel; the host oracle (``run_ref``,
-``repro_torch.refsim``) that validates any run; and the dense-family LM serving
-path (``repro_torch.launch.serve``), whose prefill
-runs the ``flash_attention`` CUDA kernel in every layer:
+whose selections run the same kernel; conservative windows
+(``simulate_window``), multicluster runs with migration
+(``Multicluster``, the clusters' windows in lockstep) and the crash-safe
+streaming replay of archive traces (``repro_torch.replay``); the host
+oracle (``run_ref``, ``repro_torch.refsim``) that validates any run; and
+the dense-family LM serving path (``repro_torch.launch.serve``), whose
+prefill runs the ``flash_attention`` CUDA kernel in every layer:
 
     import repro_torch as rt
 
@@ -42,6 +45,11 @@ runs the ``flash_attention`` CUDA kernel in every layer:
     mal = scn.with_(malleable=rt.MalleableModel(
         param=0.1, max_width=16, mode="elastic", interval=64))
     rt.sweep(mal, axes={"malleable.param": (0.05, 0.5)})  # one bucket
+    multi = rt.Scenario(trace=(rt.SyntheticTrace(kind="das2", seed=0),
+                               rt.SyntheticTrace(kind="das2", seed=1)),
+                        total_nodes=(144, 64), policy="backfill",
+                        multicluster=rt.Multicluster(window=3600))
+    rt.run(multi)["migrated"]
 
 A sweep runs each static bucket of its grid as one ensemble
 (``simulate_ensemble``), whose members advance in lockstep and share each
@@ -50,24 +58,25 @@ batched launch of the ``queue_select`` kernel.
 
 from repro_torch.api import (
     WF_POLICY_IDS, ArrayTrace, AutoscalePolicy, FailureModel,
-    MalleableModel, Result,
+    MalleableModel, Multicluster, Result,
     Scenario, ServiceClass, ServiceTrace, SwfTrace, SweepCacheStats,
     SweepResult, SyntheticTrace, Topology, WorkflowTrace, cache_stats,
     critical_path_length, make_taskset, reset_cache_stats, run, run_ref,
-    simulate_alloc_sweep, simulate_ensemble, simulate_workflow,
-    simulate_workflow_ensemble, stack_jobsets, stack_tasksets, sweep,
-    workflow_result_np,
+    simulate_alloc_sweep, simulate_ensemble, simulate_multicluster,
+    simulate_workflow, simulate_workflow_ensemble, stack_jobsets,
+    stack_tasksets, sweep, workflow_result_np,
 )
-from repro_torch.core.engine import simulate
+from repro_torch.core.engine import simulate, simulate_window
 
 __all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
-           "MalleableModel", "Result",
+           "MalleableModel", "Multicluster", "Result",
            "Scenario", "ServiceClass", "ServiceTrace", "SwfTrace",
            "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
            "WF_POLICY_IDS",
            "WorkflowTrace", "cache_stats", "critical_path_length",
            "make_taskset", "reset_cache_stats", "run", "run_ref",
            "simulate",
-           "simulate_alloc_sweep", "simulate_ensemble", "simulate_workflow",
+           "simulate_alloc_sweep", "simulate_ensemble",
+           "simulate_multicluster", "simulate_window", "simulate_workflow",
            "simulate_workflow_ensemble", "stack_jobsets", "stack_tasksets",
            "sweep", "workflow_result_np"]

@@ -27,15 +27,18 @@ import numpy as np
 from repro_torch.api.scenario import Scenario
 from repro_torch.core import metrics
 from repro_torch.core.jobs import ALLOC_FIELDS, EV_FIELDS, JobSet, SimResult
+from repro_torch.core.parallel import multicluster_result_np
 
 
 @dataclasses.dataclass
 class Result:
-    """One simulation outcome, of either backend.
+    """One simulation outcome, of any backend.
 
     ``backend`` is ``"torch"`` (the port's engine: ``raw`` its
-    ``SimResult``, tensors on the run's device, and ``jobs`` its job table)
-    or ``"ref"`` (the host oracle, ``run_ref``: ``raw`` its numpy dict,
+    ``SimResult``, tensors on the run's device, and ``jobs`` its job table),
+    ``"multicluster"`` (the multicluster engine: ``raw`` its
+    ``MulticlusterResult``, ``to_np()`` its ``multicluster_result_np``) or
+    ``"ref"`` (the host oracle, ``run_ref``: ``raw`` its numpy dict,
     ``jobs`` ``None``).  A member of an ensemble or a sweep holds its row of
     the batched result (``SimResult.member``) and its member table
     (``JobSet.member``)."""
@@ -52,6 +55,8 @@ class Result:
         if self._np is None:
             if self.backend == "ref":
                 self._np = dict(self.raw)
+            elif self.backend == "multicluster":
+                self._np = multicluster_result_np(self.raw)
             else:
                 self._np = simresult_to_np(
                     self.raw, self.jobs,
@@ -60,7 +65,7 @@ class Result:
         return self._np
 
     def _service_plan(self):
-        spec = self.scenario.trace
+        spec = self.scenario.trace_specs()[0]
         return spec.plan() if hasattr(spec, "plan") else None
 
     def __getitem__(self, key: str) -> np.ndarray:
@@ -71,9 +76,10 @@ class Result:
         utilization and throughput, plus the job-span and fragmentation
         scalars when the scenario has a topology, the reliability scalars
         with a failure model, the SLO scalars with a ``ServiceTrace`` and
-        the malleable scalars with a ``MalleableModel``."""
+        the malleable scalars with a ``MalleableModel``; over the clusters'
+        summed nodes for a multicluster run."""
         out = self.to_np()
-        total = int(self.scenario.total_nodes)
+        total = int(np.sum(self.scenario.nodes_per_cluster()))
         s = metrics.summary(out, total)
         if "ev_time" in out and "alloc_span" in out:
             s.update(metrics.alloc_summary(out))

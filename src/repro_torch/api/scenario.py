@@ -6,10 +6,12 @@ Counterpart of ``repro.api.scenario`` for the ported slices: a
 ``ServiceTrace``), the cluster size, the policy, optionally a machine shape
 (:class:`Topology`) with its placement strategy and contention model, a
 node-failure model (``FailureModel``), a malleable-jobs model
-(``MalleableModel``), the padded table capacity and an event cap.  The
-same field values describe the same run as the reference's ``Scenario``.  Features of the reference
-that the port does not carry yet raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+(``MalleableModel``), the padded table capacity and an event cap, and
+whether the run is partitioned into conservatively synchronized clusters
+(:class:`Multicluster`, with one trace spec and one node count a
+cluster).  The same field values describe the same run as the reference's
+``Scenario``.  Features of the reference that the port does not carry yet
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -231,8 +233,8 @@ def as_trace_spec(trace) -> TraceSpec:
     if isinstance(trace, str):
         return SwfTrace(trace)
     raise NotImplementedError(
-        f"trace {type(trace).__name__} is not ported yet: per-cluster trace "
-        "tuples are ROADMAP Queue 1 item 6, injected what-if jobs item 8")
+        f"trace {type(trace).__name__} is not ported yet: injected what-if "
+        "jobs are ROADMAP Queue 1 item 8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,15 +281,26 @@ class Topology:
             "known: linear, mesh2d, dragonfly")
 
 
-# fields of the reference's Scenario that later slices of the port bring
-_NOT_PORTED = {
-    "multicluster": "ROADMAP Queue 1 item 6 (multicluster windows)",
-}
+@dataclasses.dataclass(frozen=True)
+class Multicluster:
+    """Conservative-window multi-cluster settings (DESIGN.md §2).
+
+    When set on a :class:`Scenario`, ``trace`` must be a tuple of trace
+    specs (one a cluster) and ``total_nodes`` is per cluster (one int for
+    every cluster, or a tuple).
+    """
+
+    window: int
+    horizon: Optional[int] = None   # None: derived from the traces
+    migrate: bool = True
+    max_export: int = 8
+    latency: Optional[int] = None   # None: == window (the least conservative)
+    load_imbalance_threshold: float = 1.5
 
 
 @dataclasses.dataclass(frozen=True)
 class Scenario:
-    """One single-cluster experiment.
+    """One experiment, on one cluster or, with ``multicluster``, on several.
 
     ``trace`` is a trace spec, a dict of arrays or an .swf path;
     ``total_nodes`` the cluster size (default: the topology's node count);
@@ -300,12 +313,15 @@ class Scenario:
     frozen ``FailureModel``) switches on node failures (DESIGN.md §15),
     ``malleable`` (a frozen ``MalleableModel``) malleable jobs (§17), which
     refuse contention, preempt and multicluster as the reference's do.
-    Passing the reference's ``multicluster`` raises
-    ``NotImplementedError``.
+    ``multicluster`` (a :class:`Multicluster`) partitions the run into
+    clusters: ``trace`` is then a tuple of specs, one a cluster, and
+    ``total_nodes`` one int for every cluster or a tuple; failures,
+    malleable jobs, a ``ServiceTrace`` and (at ``run``) a topology are
+    refused with it, as the reference refuses them.
     """
 
-    trace: Union[TraceSpec, Dict[str, Any], str]
-    total_nodes: Optional[int] = None
+    trace: Union[TraceSpec, Dict[str, Any], str, Tuple[TraceSpec, ...]]
+    total_nodes: Optional[Union[int, Tuple[int, ...]]] = None
     policy: Union[str, int] = "fcfs"
     topology: Optional[Topology] = None
     alloc: Optional[Union[str, int]] = None
@@ -314,7 +330,7 @@ class Scenario:
     max_events: Optional[int] = None
     failures: Optional[FailureModel] = None
     malleable: Optional[MalleableModel] = None
-    multicluster: Any = None
+    multicluster: Optional[Multicluster] = None
 
     def __post_init__(self):
         if self.malleable is not None:
@@ -340,18 +356,31 @@ class Scenario:
                     "malleable jobs cannot be combined with the preempt "
                     "policy (width-aware preemption is an open item, "
                     "DESIGN.md §17)")
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"Scenario.{name} is not ported yet: {item}")
-        if (self.failures is not None
-                and not isinstance(self.failures, FailureModel)):
-            raise TypeError(
-                "Scenario.failures must be a repro_torch.reliability."
-                f"FailureModel, got {type(self.failures).__name__} (specs "
-                "stay frozen/hashable; materialized FailureTraces belong to "
-                "the engine call, not the scenario)")
-        object.__setattr__(self, "trace", as_trace_spec(self.trace))
+        if self.failures is not None:
+            if not isinstance(self.failures, FailureModel):
+                raise TypeError(
+                    "Scenario.failures must be a repro_torch.reliability."
+                    f"FailureModel, got {type(self.failures).__name__} "
+                    "(specs stay frozen/hashable; materialized "
+                    "FailureTraces belong to the engine call, not the "
+                    "scenario)")
+            if self.multicluster is not None:
+                raise ValueError(
+                    "failures are not supported in multicluster scenarios "
+                    "yet; simulate the clusters individually")
+        if self.multicluster is None:
+            object.__setattr__(self, "trace", as_trace_spec(self.trace))
+        else:
+            if not isinstance(self.trace, (tuple, list)):
+                raise ValueError(
+                    "multicluster scenarios take one trace spec per cluster "
+                    "(a tuple); got a single trace")
+            object.__setattr__(
+                self, "trace", tuple(as_trace_spec(t) for t in self.trace))
+            if any(isinstance(t, ServiceTrace) for t in self.trace):
+                raise ValueError(
+                    "ServiceTrace is not supported in multicluster "
+                    "scenarios yet; serve each cluster individually")
         if isinstance(self.trace, ServiceTrace):
             if (self.failures is not None and self.topology is not None
                     and self.trace.autoscale is not None):
@@ -377,7 +406,7 @@ class Scenario:
                 raise ValueError(
                     "total_nodes is required when no topology is given")
             object.__setattr__(self, "total_nodes", self.topology.n_nodes)
-        if (self.topology is not None
+        if (self.topology is not None and self.multicluster is None
                 and int(self.total_nodes) != self.topology.n_nodes):
             raise ValueError(
                 f"topology has {self.topology.n_nodes} nodes but "
@@ -401,14 +430,27 @@ class Scenario:
             if target is None:
                 raise ValueError(f"cannot set {head}.{next(iter(sub))}: "
                                  f"scenario has no {head}")
-            flat[head] = dataclasses.replace(target, **sub)
+            if isinstance(target, tuple):   # per-cluster trace specs
+                target = tuple(dataclasses.replace(t, **sub) for t in target)
+            else:
+                target = dataclasses.replace(target, **sub)
+            flat[head] = target
         return dataclasses.replace(self, **flat)
 
     def trace_specs(self) -> Tuple[TraceSpec, ...]:
-        """Per-cluster tuple view of ``trace``: length 1, as multicluster
-        scenarios are not ported yet."""
-        return (self.trace,)
+        """Per-cluster tuple view of ``trace`` (length 1 without
+        multicluster)."""
+        return self.trace if isinstance(self.trace, tuple) else (self.trace,)
 
     def nodes_per_cluster(self) -> Tuple[int, ...]:
-        """Per-cluster ``total_nodes`` tuple (length 1)."""
-        return (int(self.total_nodes),)
+        """Per-cluster ``total_nodes`` tuple (length 1 without
+        multicluster)."""
+        n_clusters = len(self.trace_specs())
+        tn = self.total_nodes
+        if isinstance(tn, tuple):
+            if len(tn) != n_clusters:
+                raise ValueError(
+                    f"total_nodes tuple has {len(tn)} entries for "
+                    f"{n_clusters} clusters")
+            return tuple(int(x) for x in tn)
+        return (int(tn),) * n_clusters

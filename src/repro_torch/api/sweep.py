@@ -24,6 +24,10 @@ axes over a base :class:`Scenario`:
 4. the batched result is sliced into per-point :class:`Result`\\ s in grid
    order.
 
+A multicluster scenario's every setting is static (the clusters' node
+counts too), so its buckets run point by point through ``run``, as the
+reference's do.
+
 **What "compile once" means here.**  PyTorch runs eagerly, so there is no
 executable to compile: a static bucket is one batched ``simulate_ensemble``
 call, whatever its number of points, and ``SweepResult.n_compiles`` counts
@@ -62,12 +66,16 @@ from repro_torch.core.parallel import simulate_ensemble, stack_jobsets
 def _static_key(scenario: Scenario) -> tuple:
     """Hashable bucket key: everything that fixes the stacked shapes.
     ``total_nodes`` is data in scalar-counter mode, and static with a
-    topology, which pins the machine.  A failure model adds only its
-    padded capacity, a malleable model its width range, mode and tick
-    capacity."""
+    topology, which pins the machine, or with multicluster, which pins
+    the clusters.  A failure model adds only its padded capacity, a
+    malleable model its width range, mode and tick capacity; every
+    multicluster setting is static."""
+    pinned = (scenario.topology is not None
+              or scenario.multicluster is not None)
     return (tuple(t.static_key() for t in scenario.trace_specs()),
             scenario.topology,
-            None if scenario.topology is None else scenario.total_nodes,
+            scenario.total_nodes if pinned else None,
+            scenario.multicluster,
             scenario.capacity, scenario.max_events,
             None if scenario.failures is None
             else scenario.failures.static_key(),
@@ -153,6 +161,11 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence[Any]], *,
     results: List[Optional[Result]] = [None] * len(points)
     for key, indices in buckets.items():
         bucket = [scenarios[i] for i in indices]
+        if bucket[0].multicluster is not None:
+            # every multicluster setting is static: one run a point
+            for i, scn in zip(indices, bucket):
+                results[i] = run(scn, device=device)
+            continue
         for i, res in zip(indices, _run_bucket(key, bucket, device)):
             results[i] = res
     return SweepResult(axes=axes, points=points, results=results,

@@ -17,9 +17,9 @@ the reference's:
 With dependency edges (paper §3, DESIGN.md §13-§14) a PENDING job arrives
 only once ``submit <= clock`` and its unmet-dependency counter
 ``n_unmet`` is 0; an unreleased job does not set the clock.  Completions
-decrement the counters along their out-edges (one cumsum over the edge
-list between the CSR bounds of :func:`dep_csr`), so a job whose last
-dependency finished arrives in the same event.
+decrement the counters along their out-edges (one scatter-add over the
+edge list, :func:`dep_list`, which holds in any edge order), so a job
+whose last dependency finished arrives in the same event.
 
 Stream entries (DESIGN.md §15-§16) are known before the run, so their
 streams stay on the host (``reliability.FailCtx``, ``serving.SvcCtx``) and
@@ -66,6 +66,12 @@ J]`` table in lockstep) steps every member's event at once and, round by
 round, answers each kind of request for all the members that made it with
 one batched launch or one indexed write, so every member makes exactly the
 calls of its solo run.
+
+A conservative window (:func:`simulate_window`; over a stack in lockstep,
+:func:`simulate_window_batch`, the multicluster engine's step) runs the
+same events up to a bound ``t_hi``, on a state carried across calls: an
+event past the bound changes nothing, which the host learns from the
+event's one read.
 """
 
 from __future__ import annotations
@@ -79,8 +85,8 @@ from repro_torch import alloc as _alloc
 from repro_torch.core import policies
 from repro_torch.core.jobs import (
     BACKFILL, DONE, FCFS, INF_TIME, LJF, PENDING, POLICY_IDS,
-    PREEMPT, RUNNING, SJF, WAITING, DepCsr, EnsembleState, JobSet,
-    SimResult, SimState, count_deps, edge_csr, resolve_device,
+    PREEMPT, RUNNING, SJF, WAITING, DepList, EnsembleState, JobSet,
+    SimResult, SimState, count_deps, edge_list, resolve_device,
     result_from_state,
 )
 from repro_torch.core.policies import (
@@ -547,12 +553,12 @@ def _schedule_pass(policy: int, jobs: JobSet, state: SimState,
     return state
 
 
-def dep_csr(jobs: JobSet) -> Optional[DepCsr]:
-    """The CSR bounds of the table's edge list (``jobs.edge_csr``), once a
-    run, or ``None`` without edges."""
+def dep_list(jobs: JobSet) -> Optional[DepList]:
+    """The release structure of the table's edge list (``jobs.edge_list``),
+    once a run or a window call, or ``None`` without edges."""
     if jobs.dep_dst is None:
         return None
-    return edge_csr(jobs.dep_dst, jobs.dep_src, jobs.capacity)
+    return edge_list(jobs.dep_dst, jobs.dep_src, jobs.capacity)
 
 
 def _stream_time(state, k: int) -> int:
@@ -904,17 +910,34 @@ def _solo_row(t):
     return t
 
 
+def _clamp_due(clock: torch.Tensor, t_hi: int) -> torch.Tensor:
+    """The clock an event's device updates use in a window bounded by
+    ``t_hi``: ``clock`` clamped to ``t_hi`` (and below ``INF_TIME``, the
+    nothing-is-due sentinel).  One operation that stands for the stop
+    test: the clock is the least running finish and arrivable submit, so
+    an event past the bound has none of either at or before the clamped
+    clock, and completes and admits nothing; an event that is due keeps
+    its clock."""
+    return torch.clamp(clock, max=min(t_hi, INF_TIME - 1))
+
+
 def _event_step(policy: int, jobs: JobSet, state: SimState,
                 order: Optional[torch.Tensor] = None,
                 ctx: Optional[AllocCtx] = None,
                 log: Optional[_MapLog] = None,
-                csr: Optional[DepCsr] = None,
-                *, unfinished: int) -> int:
+                deps: Optional[DepList] = None,
+                *, unfinished: int, t_hi: Optional[int] = None
+                ) -> Optional[int]:
     """Process one event in place; returns the number of jobs it made DONE
     (completions and aborts: the host's count of unfinished jobs,
     ``unfinished`` before the event, drops by that much).  ``order`` is
-    ``_fast_order``'s permutation (``None``: selector loop), ``csr`` the
-    table's :func:`dep_csr` (``None`` without edges).  With a machine,
+    ``_fast_order``'s permutation (``None``: selector loop), ``deps`` the
+    table's :func:`dep_list` (``None`` without edges).  With ``t_hi`` (a window) the event happens only
+    when it is due by ``t_hi``: the completions test the clamped clock
+    (:func:`_clamp_due`), so an event that is not due changes nothing on
+    the device, and the host learns it from the event's one read and
+    returns ``None`` before its stream entries and arrivals.  With a
+    machine,
     completions free their nodes (before the one read, which then carries
     the largest free run, where that run is the cap; after it, and only
     when some job completed, elsewhere), and the event's (clock, free,
@@ -929,7 +952,7 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
                or (m is not None and m.ctx[0].elastic))
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
-    if csr is not None:   # an unreleased job is no arrival event
+    if deps is not None:   # an unreleased job is no arrival event
         pending &= state.n_unmet == 0
     # min over arrivals and completions at once == min(t_arr, t_fin)
     nxt = torch.where(pending, jobs.submit,
@@ -937,19 +960,22 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
     clock = torch.min(nxt)
     if streams:
         clock = torch.clamp(clock, max=_stream_time(state, 0))
-    completed = running & (state.finish <= clock)
+    completed = running & (state.finish <= (
+        clock if t_hi is None else _clamp_due(clock, t_hi)))
     freed = torch.sum(torch.where(completed, policies.node_column(jobs, state),
                                   0))
     if m is not None:
         m.node_s += torch.where(completed, m.width * (clock - m.seg_start), 0)
     state.jstate = torch.where(completed, DONE, state.jstate).to(torch.int32)
-    if csr is not None:
-        state.n_unmet -= count_deps(csr, completed)
+    if deps is not None:
+        state.n_unmet -= count_deps(deps, completed)
     reads = [clock.to(torch.int64), freed, torch.sum(completed)]
     if state.lfb is not None:
         _release_nodes(state.node_owner, completed)
         reads.append(_alloc.largest_free_run(_owner_eff(state)).long())
     clock, freed, n_completed, *lfb = torch.stack(reads).tolist()
+    if t_hi is not None and not (clock <= t_hi and clock < INF_TIME):
+        return None
     if ctx is not None and state.lfb is None and n_completed:
         _release_nodes(state.node_owner, completed)
     state.clock = clock
@@ -968,12 +994,14 @@ def _event_step(policy: int, jobs: JobSet, state: SimState,
             state.lfb = int(_alloc.largest_free_run(_owner_eff(state)))
             counters["stream_reads"] += 1
     arrived = (state.jstate == PENDING) & (jobs.submit <= clock)
-    if csr is not None:
+    if deps is not None:
         arrived &= state.n_unmet == 0
     state.jstate = torch.where(arrived, WAITING, state.jstate).to(torch.int32)
     _schedule_pass(policy, jobs, state, order, ctx)
-    if ctx is not None:
-        slot = state.n_events - 1
+    slot = state.n_events - 1
+    # a window's log may be shorter than its events (replay keeps none):
+    # writes past it drop, as the reference's
+    if ctx is not None and slot < state.ev_time.shape[-1]:
         state.ev_time[slot] = state.clock
         state.ev_free[slot] = state.free
         log.add(_owner_eff(state), slot)
@@ -1104,15 +1132,110 @@ def simulate(jobs: JobSet, policy, total_nodes: int, *, machine=None,
     order = _fast_order(jobs, policy, None if ctx is None else ctx.strategy,
                         mctx is not None)
     log = None if ctx is None else _MapLog(state.node_owner, state.ev_lfb)
-    csr = dep_csr(jobs)
+    deps = dep_list(jobs)
     jobs.selector.bind_stream()
     unfinished = int(torch.sum(jobs.valid))
     while unfinished > 0 and state.n_events < cap:
-        unfinished -= _event_step(policy, jobs, state, order, ctx, log, csr,
+        unfinished -= _event_step(policy, jobs, state, order, ctx, log, deps,
                                   unfinished=unfinished)
     if log is not None:
         log.flush()
     return result_from_state(jobs, state)
+
+
+# ---------------------------------------------------------------------------
+# the conservative window (DESIGN.md §2)
+# ---------------------------------------------------------------------------
+
+def _next_time(jobs: JobSet, state) -> torch.Tensor:
+    """The next arrival or completion time of each table (``[...]`` on
+    the device), ``INF_TIME`` when none: a PENDING job with unmet
+    dependencies is no arrival."""
+    pending = state.jstate == PENDING
+    if jobs.dep_dst is not None:
+        pending &= state.n_unmet == 0
+    return torch.where(pending, jobs.submit, torch.where(
+        state.jstate == RUNNING, state.finish, INF_TIME)).amin(dim=-1)
+
+
+def next_event_time(jobs: JobSet, state: SimState) -> int:
+    """The time of the state's next arrival or completion, ``INF_TIME``
+    when none (the reference's ``next_event_time``): one read."""
+    return int(_next_time(jobs, state))
+
+
+def simulate_window(policy, jobs: JobSet, state: SimState, t_hi: int,
+                    max_events: int, ctx: Optional[AllocCtx] = None,
+                    rel=None) -> tuple:
+    """Process every event with time ``<= t_hi`` (a conservative window),
+    in place; returns ``(state, saturated)``.
+
+    The multicluster engine steps its clusters' windows in lockstep
+    (:func:`simulate_window_batch`), the streaming replay runner
+    (``repro_torch.replay``) calls this once a round.  The loop stops when
+    the next event is past ``t_hi`` or is ``INF_TIME`` (nothing is due:
+    a drain at ``t_hi = INF_TIME`` ends without spinning), or when
+    ``state.n_events`` reaches ``max_events`` (a total, so a state carried
+    across calls shares one cap).  ``saturated`` is true when the cap
+    stopped the loop with an event still due: the state is then a valid
+    prefix of the round.
+
+    The stop test is the event's own (:func:`_event_step`'s ``t_hi``):
+    the step's completions test the clock clamped to ``t_hi`` on the
+    device (one operation) and the host reads the true clock with the
+    event's one read, so an event that is not due changes nothing and
+    costs no more than an event that is.  The unfinished
+    count is taken from ``jstate != DONE`` at the call's start, so a row
+    that is PENDING but invalid (replay's sentinel) keeps the run open, as
+    the reference's liveness guard does.  Releases scatter-add over the
+    call's edge list (:func:`dep_list`), which holds in any edge order.
+    The blocking order is the call's table's.
+
+    ``ctx`` is ``make_alloc_ctx``'s (``None``: scalar-counter mode); under
+    ``contiguous`` a state without the host's largest free run reads it
+    once.  The state's event log takes the events that fit in it; those
+    past it drop.  ``rel`` (anything ``simulate``'s ``failures`` takes) is
+    the failure stream, a clock source while some job is not DONE; the
+    state must carry its reliability state (``SimState.init(...,
+    failures=)``), whose pointer the stream starts from.  A state that
+    carries a stream needs ``rel``, and a service or malleable plan is
+    refused: the reference's window takes neither."""
+    if state.svc is not None or state.mal is not None:
+        raise ValueError("simulate_window runs no service or malleable "
+                         "plan, as the reference's takes none")
+    if (rel is None) != (state.rel is None):
+        raise ValueError(
+            "rel= and the state's reliability state go together: "
+            "SimState.init(..., failures=) for a window with rel=")
+    if rel is not None:
+        state.rel.ctx = [make_fail_ctx(rel)]
+    policy = min(max(policies_id(policy), 0), len(policies.SELECTORS) - 1)
+    t_hi, max_events = int(t_hi), int(max_events)
+    if ctx is not None and ctx.machine.device != jobs.device:
+        ctx = ctx._replace(machine=ctx.machine.to(jobs.device))
+    if (ctx is not None and ctx.strategy == _alloc.CONTIGUOUS
+            and state.lfb is None):
+        state.lfb = int(_alloc.largest_free_run(_owner_eff(state)))
+    order = _fast_order(jobs, policy, None if ctx is None else ctx.strategy)
+    log = None if ctx is None else _MapLog(state.node_owner, state.ev_lfb)
+    deps = dep_list(jobs)
+    jobs.selector.bind_stream()
+    unfinished = int(torch.sum(state.jstate != DONE))
+    while unfinished > 0 and state.n_events < max_events:
+        n = _event_step(policy, jobs, state, order, ctx, log, deps,
+                        unfinished=unfinished, t_hi=t_hi)
+        if n is None:
+            break
+        unfinished -= n
+    if log is not None:
+        log.flush()
+    saturated = False
+    if unfinished > 0 and state.n_events >= max_events:
+        due = next_event_time(jobs, state)
+        if state.rel is not None:
+            due = min(due, _stream_time(state, 0))
+        saturated = due <= t_hi and due < INF_TIME
+    return state, saturated
 
 
 # ---------------------------------------------------------------------------
@@ -1173,12 +1296,13 @@ def _arrive_batch(jobs: JobSet, state: EnsembleState, clock: torch.Tensor,
 def _event_step_batch(jobs: JobSet, state: EnsembleState,
                       active: Optional[torch.Tensor],
                       actx: Optional[BatchAlloc] = None,
-                      csr: Optional[DepCsr] = None,
-                      t_stream: Optional[torch.Tensor] = None) -> tuple:
+                      deps: Optional[DepList] = None,
+                      t_stream: Optional[torch.Tensor] = None,
+                      t_hi: Optional[int] = None) -> tuple:
     """:func:`_event_step`'s event for every member at once, over the
     ``[B, J]`` state, written in place.  ``active`` (bool[B], ``None`` for
     every member) masks the members that are done, whose state is left as
-    it is; ``csr`` is the stack's :func:`dep_csr` (``[B, ...]``, ``None``
+    it is; ``deps`` is the stack's :func:`dep_list` (``[B, ...]``, ``None``
     without edges).  One read: ``[clock, freed, n_completed]`` for each
     member (a done member's row means nothing), with the largest free run
     after the completions as a fourth column when some member's cap is
@@ -1186,18 +1310,23 @@ def _event_step_batch(jobs: JobSet, state: EnsembleState,
     each member's clock.  In a malleable run completions free their
     widths and close their node-second segments.  The arrivals are left
     to the caller
-    (:func:`_arrive_batch`, after the stream entries).  Returns the read
-    rows and the clocks on the device."""
+    (:func:`_arrive_batch`, after the stream entries).  With ``t_hi`` (the
+    lockstep window) the completions and the arrivals test each member's
+    clamped clock (:func:`_clamp_due`), so a member whose event is past
+    ``t_hi`` is left as it is; the rows read carry the true clocks.
+    Returns the read rows and the clocks for the arrivals, on the
+    device."""
     pending = state.jstate == PENDING
     running = state.jstate == RUNNING
-    if csr is not None:
+    if deps is not None:
         pending &= state.n_unmet == 0
     nxt = torch.where(pending, jobs.submit,
                       torch.where(running, state.finish, INF_TIME))
     clock = torch.amin(nxt, dim=1)
     if t_stream is not None:
         clock = torch.minimum(clock, t_stream)
-    completed = running & (state.finish <= clock[:, None])
+    clock_m = clock if t_hi is None else _clamp_due(clock, t_hi)
+    completed = running & (state.finish <= clock_m[:, None])
     if active is not None:
         completed &= active[:, None]
     freed = torch.sum(torch.where(completed, policies.node_column(jobs, state),
@@ -1207,14 +1336,14 @@ def _event_step_batch(jobs: JobSet, state: EnsembleState,
         m.node_s += torch.where(completed,
                                 m.width * (clock[:, None] - m.seg_start), 0)
     state.jstate.copy_(torch.where(completed, DONE, state.jstate))
-    if csr is not None:   # a done member completes nothing: no decrement
-        state.n_unmet -= count_deps(csr, completed)
+    if deps is not None:   # a done member completes nothing: no decrement
+        state.n_unmet -= count_deps(deps, completed)
     reads = [clock.to(torch.int64), freed, torch.sum(completed, dim=1)]
     if actx is not None:
         _release_nodes(state.node_owner, completed)
         if _alloc.CONTIGUOUS in actx.strategies:
             reads.append(_alloc.largest_free_run(_owner_eff(state)).long())
-    return torch.stack(reads, dim=1).tolist(), clock
+    return torch.stack(reads, dim=1).tolist(), clock_m
 
 
 def _to_device(rows, device) -> torch.Tensor:
@@ -1494,50 +1623,101 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
         jobs.capacity, None if failures_b is None else failures_b[0],
         None if service_b is None else service_b[0],
         None if malleable_b is None else malleable_b[0])
-    actx = None
-    if machine is not None:
-        actx = BatchAlloc.make(machine, list(alloc_b), list(contention_b),
-                               jobs.device)
-    state = EnsembleState.init(jobs, total_nodes_b, machine, cap,
-                               failures_b, service_b, malleable_b)
-    if actx is not None:
-        for b, s in enumerate(actx.strategies):
-            if s == _alloc.CONTIGUOUS:
-                state.members[b].lfb = machine.n_nodes
-    host = jobs.host
-    hosts = [{f: a[b] for f, a in host.items()} for b in range(B)]
-    if state.mal is not None:   # each member's passes read its widths
-        for b in range(B):
-            hosts[b]["nodes"] = state.mal.width_host[b]
-    # a member batches as its solo run would: by its own table's edges
-    edged = [jobs.dep_dst is not None and bool((h["dep_dst"]
-                                                < jobs.capacity).any())
-             for h in hosts]
-    batched = [_batches(p, None if actx is None else actx.strategies[b],
-                        edged[b], malleable_b is not None)
-               for b, p in enumerate(pols)]
-    order = _batch_order(jobs, pols, batched)
-    csr = dep_csr(jobs)
-    jobs.selector.bind_stream()
-    unfinished = torch.sum(jobs.valid, dim=1).tolist()
-    members = [b for b in range(B) if unfinished[b] > 0 and cap > 0]
-    active, n_masked = None, B
-    log = None if actx is None else _MapLog(state.node_owner, state.ev_lfb)
-    streams = (state.rel is not None or state.svc is not None
-               or any(c.elastic for c in malleable_b or ()))
-    t_host = t_stream = None
-    if streams:
-        t_host = [_stream_time(state, b) for b in range(B)]
-        t_stream = torch.tensor(t_host, dtype=torch.int32).to(jobs.device)
-    rnd = 0
+    run = _BatchRun(jobs, pols, total_nodes_b, cap, machine=machine,
+                    alloc_b=alloc_b, contention_b=contention_b,
+                    failures_b=failures_b, service_b=service_b,
+                    malleable_b=malleable_b)
+    members = [b for b in range(B) if run.unfinished[b] > 0 and cap > 0]
     while members:
-        if len(members) != n_masked:   # a member is done: mask it from now
+        run.step(members)
+        members = [b for b in members if run.unfinished[b] > 0
+                   and run.state.members[b].n_events < cap]
+    if run.log is not None:
+        run.log.flush(run.state.n_events)
+    return result_from_state(jobs, run.state)
+
+
+class _BatchRun:
+    """The part of a lockstep run that lives across calls: the ensemble
+    state, the members' host rows and pass kinds, their blocking orders,
+    the release structure, the streams' next times, the device mask of
+    the members stepping and the event log.
+
+    :func:`simulate_batch` steps it until every member is done; the
+    lockstep window (:func:`simulate_window_batch`) steps it up to a bound,
+    call after call, and a multicluster exchange rebinds it to the
+    exchanged table (:meth:`bind`)."""
+
+    def __init__(self, jobs: JobSet, pols, total_nodes_b, cap: int, *,
+                 machine=None, alloc_b=None, contention_b=None,
+                 failures_b=None, service_b=None, malleable_b=None):
+        self.pols, self.rnd = pols, 0
+        B = jobs.batch
+        self.actx = None
+        if machine is not None:
+            self.actx = BatchAlloc.make(machine, list(alloc_b),
+                                        list(contention_b), jobs.device)
+        self.state = state = EnsembleState.init(
+            jobs, total_nodes_b, machine, cap, failures_b, service_b,
+            malleable_b)
+        if self.actx is not None:
+            for b, s in enumerate(self.actx.strategies):
+                if s == _alloc.CONTIGUOUS:
+                    state.members[b].lfb = machine.n_nodes
+        self.malleable = malleable_b is not None
+        self.log = (None if self.actx is None
+                    else _MapLog(state.node_owner, state.ev_lfb))
+        self.streams = (state.rel is not None or state.svc is not None
+                        or any(c.elastic for c in malleable_b or ()))
+        self.t_host = self.t_stream = None
+        if self.streams:
+            self.t_host = [_stream_time(state, b) for b in range(B)]
+            self.t_stream = torch.tensor(self.t_host, dtype=torch.int32).to(
+                jobs.device)
+        self.active, self.masked = None, list(range(B))
+        self.bind(jobs)
+        self.unfinished = torch.sum(state.jstate != DONE, dim=1).tolist()
+
+    def bind(self, jobs: JobSet) -> None:
+        """Run on ``jobs`` from now on (a new table after an exchange, whose
+        cached host copy and selector are its own): the members' host rows
+        (a malleable member's widths in place of ``nodes``), each member's
+        pass kind by its own table's edges as its solo run's, the blocking
+        orders, and the release structure (:func:`dep_list`)."""
+        self.jobs = jobs
+        host, state, B = jobs.host, self.state, jobs.batch
+        self.hosts = [{f: a[b] for f, a in host.items()} for b in range(B)]
+        if state.mal is not None:   # each member's passes read its widths
+            for b in range(B):
+                self.hosts[b]["nodes"] = state.mal.width_host[b]
+        edged = [jobs.dep_dst is not None
+                 and bool((h["dep_dst"] < jobs.capacity).any())
+                 for h in self.hosts]
+        self.batched = [
+            _batches(p, None if self.actx is None else self.actx.strategies[b],
+                     edged[b], self.malleable)
+            for b, p in enumerate(self.pols)]
+        self.order = _batch_order(jobs, self.pols, self.batched)
+        self.deps = dep_list(jobs)
+        jobs.selector.bind_stream()
+
+    def step(self, members, t_hi: Optional[int] = None) -> list:
+        """One lockstep event of ``members`` (ascending): with ``t_hi``
+        only of those whose event is due by it.  Returns the members that
+        stepped."""
+        jobs, state, actx = self.jobs, self.state, self.actx
+        B = jobs.batch
+        if members != self.masked:   # members left: mask them from now
             mask = [False] * B
             for b in members:
                 mask[b] = True
-            active, n_masked = torch.tensor(mask).to(jobs.device), len(members)
-        stepped, clock_d = _event_step_batch(jobs, state, active, actx, csr,
-                                             t_stream)
+            self.active = torch.tensor(mask).to(jobs.device)
+            self.masked = list(members)
+        stepped, clock_d = _event_step_batch(
+            jobs, state, self.active, actx, self.deps, self.t_stream, t_hi)
+        if t_hi is not None:
+            members = [b for b in members
+                       if stepped[b][0] <= t_hi and stepped[b][0] < INF_TIME]
         for b in members:
             clock, freed, n_completed, *lfb = stepped[b]
             st = state.members[b]
@@ -1546,33 +1726,66 @@ def simulate_batch(jobs: JobSet, policies_b, total_nodes_b, *,
             st.n_events += 1
             if st.lfb is not None:
                 st.lfb = lfb[0]
-            unfinished[b] -= n_completed
-        if streams:
+            self.unfinished[b] -= n_completed
+        if self.streams:
             moved = []
             for b in members:
                 aborts, mv = _streams_step(
                     jobs, state, state.members[b], b,
-                    lambda t, b=b: t[b], hosts[b],
+                    lambda t, b=b: t[b], self.hosts[b],
                     None if actx is None else (actx.machine,
                                                actx.strategies[b]),
-                    unfinished[b])
-                unfinished[b] -= aborts
+                    self.unfinished[b])
+                self.unfinished[b] -= aborts
                 if mv:
                     moved.append(b)
                 t = _stream_time(state, b)
-                if t != t_host[b]:
-                    t_host[b] = t
-                    t_stream[b] = t
+                if t != self.t_host[b]:
+                    self.t_host[b] = t
+                    self.t_stream[b] = t
             if moved:
                 _read_lfb(state, moved, "stream_reads")
-        _arrive_batch(jobs, state, clock_d, active, csr is not None)
-        _schedule_batch(jobs, state, pols, hosts, order, members, batched,
-                        actx)
-        if log is not None:
-            _log_events_batch(state, members, log, rnd)
-        rnd += 1
-        members = [b for b in members
-                   if unfinished[b] > 0 and state.members[b].n_events < cap]
-    if log is not None:
-        log.flush(state.n_events)
-    return result_from_state(jobs, state)
+        _arrive_batch(jobs, state, clock_d, self.active,
+                      self.deps is not None)
+        _schedule_batch(jobs, state, self.pols, self.hosts, self.order,
+                        members, self.batched, actx)
+        if self.log is not None:
+            _log_events_batch(state, members, self.log, self.rnd)
+        self.rnd += 1
+        return members
+
+
+def simulate_window_batch(run: _BatchRun, t_hi: int,
+                          max_events: int) -> list:
+    """:func:`simulate_window` for every member of a lockstep run at once
+    (the counterpart of ``jax.vmap(simulate_window)``): process each
+    member's events with time ``<= t_hi``, members in lockstep, in place.
+    Returns each member's ``saturated`` flag.
+
+    A member stops stepping once its next event is past ``t_hi``, once
+    nothing is due for it, or once its event count reaches ``max_events``
+    (a total across calls), and its state is not written again in this
+    call.  Every round of selections serves every stepping member with one
+    batched ``queue_select`` launch.  The unfinished counts are taken from
+    ``jstate != DONE`` at the call's start (one read).  The run must have
+    no machine: members' event logs would take different slots."""
+    if run.actx is not None:
+        raise ValueError("the lockstep window runs scalar-counter members")
+    state, jobs = run.state, run.jobs
+    t_hi, max_events = int(t_hi), int(max_events)
+    run.unfinished = torch.sum(state.jstate != DONE, dim=1).tolist()
+    live = [b for b in range(jobs.batch) if run.unfinished[b] > 0]
+    members = [b for b in live if state.members[b].n_events < max_events]
+    while members:
+        members = [b for b in run.step(members, t_hi)
+                   if run.unfinished[b] > 0
+                   and state.members[b].n_events < max_events]
+    saturated = [False] * jobs.batch
+    capped = [b for b in range(jobs.batch) if run.unfinished[b] > 0
+              and state.members[b].n_events >= max_events]
+    if capped:
+        due = _next_time(jobs, state).tolist()
+        for b in capped:
+            d = due[b] if run.t_host is None else min(due[b], run.t_host[b])
+            saturated[b] = d <= t_hi and d < INF_TIME
+    return saturated

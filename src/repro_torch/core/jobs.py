@@ -25,9 +25,8 @@ edge list: ``JobSet.dep_dst``/``dep_src`` in dst-ascending order, pad slots
 holding the index ``capacity``, ``None`` for a table without edges; the
 state carries the in-degree counters ``n_unmet`` (``None`` without edges)
 and a result's ``ready`` is ``max(submit, last dependency's finish)``.  A
-pad index is never used as one: the engine keeps pad edges out by the CSR
-bounds, which sit past every row's range, or by a ``J + 1`` buffer whose
-last slot is cut off.
+pad index is never used as one: the engine keeps pad edges out by a
+``J + 1`` buffer whose last slot is cut off (:func:`count_deps`).
 
 With a failure stream (DESIGN.md §15) the state carries ``rel``
 (:class:`RelState`: each job's latest start, restarts, lost work and abort
@@ -362,45 +361,44 @@ def make_jobset(
     )
 
 
-class DepCsr(NamedTuple):
-    """A dst-ascending edge list's loop-invariant index: each row's range
-    of edges (``start``, ``end``, i64 ``[..., J]``) and the edges'
-    dependency rows clamped into the table (``src``, i64 ``[..., E]``; pad
-    edges lie past every row's range, so their clamped index is never
-    counted)."""
+class DepList(NamedTuple):
+    """The release structure of an edge list in any order: a multicluster
+    import neutralizes the edges of its landing rows in the middle of the
+    list (both endpoints to the pad index ``J``), so the list may lose its
+    dst order.  ``dst`` (i64 ``[..., E]``, pads ``J``) and ``src`` (i64,
+    clamped into the table); counts scatter-add into a ``J + 1`` buffer
+    whose last slot takes the pad edges and is cut off."""
 
-    start: torch.Tensor
-    end: torch.Tensor
+    dst: torch.Tensor
     src: torch.Tensor
 
 
-def edge_csr(dep_dst: torch.Tensor, dep_src: torch.Tensor, J: int) -> DepCsr:
-    """The CSR bounds of a dst-ascending edge list over ``J`` rows: one
-    ``searchsorted`` of the rows ``0..J`` (the reference's ``side="left"``),
-    batched over a stack's members."""
-    rows = torch.arange(J + 1, dtype=dep_dst.dtype, device=dep_dst.device
-                        ).expand(*dep_dst.shape[:-1], J + 1).contiguous()
-    bounds = torch.searchsorted(dep_dst, rows)
-    return DepCsr(bounds[..., :-1], bounds[..., 1:],
-                  dep_src.long().clamp(max=max(J - 1, 0)))
+def edge_list(dep_dst: torch.Tensor, dep_src: torch.Tensor, J: int
+              ) -> DepList:
+    """The :class:`DepList` of an edge list over ``J`` rows."""
+    return DepList(dep_dst.long(), dep_src.long().clamp(max=max(J - 1, 0)))
 
 
-def count_deps(csr: DepCsr, flags: torch.Tensor) -> torch.Tensor:
+def count_deps(deps: DepList, flags: torch.Tensor) -> torch.Tensor:
     """Each row's count of dependencies whose flag is set (``flags``:
-    bool ``[..., J]``): a cumsum of the flags gathered along the edge
-    list, differenced between each row's bounds; i32 ``[..., J]``."""
-    c = torch.nn.functional.pad(torch.cumsum(
-        torch.gather(flags, -1, csr.src).to(torch.int32), -1,
-        dtype=torch.int32), (1, 0))
-    return torch.gather(c, -1, csr.end) - torch.gather(c, -1, csr.start)
+    bool ``[..., J]``), i32 ``[..., J]``: a scatter-add of the flags
+    gathered along the edge list by ``dst`` (the reference window's
+    release; integer counts, so equal in any edge order)."""
+    J = flags.shape[-1]
+    out = torch.zeros((*flags.shape[:-1], J + 1), dtype=torch.int32,
+                      device=flags.device)
+    out.scatter_add_(-1, deps.dst, torch.gather(flags, -1, deps.src).to(
+        torch.int32))
+    return out[..., :J]
 
 
 def in_degrees(jobs: JobSet) -> Optional[torch.Tensor]:
     """Each job's count of dependencies (``n_unmet`` at the start), i32
-    ``[J]`` or ``[B, J]``, or ``None`` for a table without edges."""
+    ``[J]`` or ``[B, J]``, or ``None`` for a table without edges; a
+    scatter-add, so it holds in any edge order."""
     if jobs.dep_dst is None:
         return None
-    return count_deps(edge_csr(jobs.dep_dst, jobs.dep_src, jobs.capacity),
+    return count_deps(edge_list(jobs.dep_dst, jobs.dep_src, jobs.capacity),
                       torch.ones_like(jobs.valid))
 
 

@@ -277,8 +277,8 @@ def _select_reference(policy: int, priority: torch.Tensor,
 
 class _Run:
     """One ``simulate_workflow`` call: the table, the state, the host's
-    copy of the free pools and the dependency counters with their CSR
-    bounds."""
+    copy of the free pools and the dependency counters with their edge
+    list."""
 
     def __init__(self, tasks: TaskSet, pools, policy: int):
         T, dev = tasks.capacity, tasks.device
@@ -299,9 +299,9 @@ class _Run:
         # a table takes the reference's form in plain PyTorch (ROADMAP
         # Queue 3)
         self.plain = bool((tasks.priority >= INF_TIME).any())
-        self.csr = _jobs.edge_csr(tasks.dep_dst, tasks.dep_src, T)
+        self.deps = _jobs.edge_list(tasks.dep_dst, tasks.dep_src, T)
         self.n_unmet = _jobs.count_deps(
-            self.csr, torch.ones(T, dtype=torch.bool, device=dev))
+            self.deps, torch.ones(T, dtype=torch.bool, device=dev))
 
     def _unmet(self) -> torch.Tensor:
         """Each task's count of dependencies not DONE now: the counters, or
@@ -310,7 +310,7 @@ class _Run:
         as the reference's dense reduction does)."""
         if not self.plain:
             return self.n_unmet
-        return _jobs.count_deps(self.csr, self.state.tstate != DONE)
+        return _jobs.count_deps(self.deps, self.state.tstate != DONE)
 
     def select(self) -> int:
         """The task the policy starts next, or -1."""
@@ -353,7 +353,7 @@ class _Run:
                           dim=0, dtype=torch.int32)
         st.tstate = torch.where(completed, DONE, st.tstate).to(torch.int32)
         if not self.plain:
-            self.n_unmet -= _jobs.count_deps(self.csr, completed)
+            self.n_unmet -= _jobs.count_deps(self.deps, completed)
         st.free += freed
         clock, n_completed, *got = torch.cat(
             [clock[None], torch.sum(completed, dtype=torch.int32)[None],
@@ -389,8 +389,8 @@ def simulate_workflow(tasks: TaskSet, pools, policy=WF_FCFS, *,
 class _BatchRun:
     """One ``simulate_workflow_ensemble`` call: the stacked table, the
     batched state, each member's host copy of its free pools and running
-    count, and the dependency counters of every member as one CSR over the
-    ``B x T`` rows (member ``b``'s rows offset by ``b * T``)."""
+    count, and the dependency counters of every member as one edge list
+    over the ``B x T`` rows (member ``b``'s rows offset by ``b * T``)."""
 
     def __init__(self, tasks: TaskSet, pools, policies):
         B, T, dev = tasks.batch, tasks.capacity, tasks.device
@@ -415,9 +415,9 @@ class _BatchRun:
         offset = (np.arange(B, dtype=np.int64) * T)[:, None]
         dst = torch.from_numpy((h["dep_dst"] + offset)[real]).to(dev)
         src = torch.from_numpy((h["dep_src"] + offset)[real]).to(dev)
-        self.csr = _jobs.edge_csr(dst, src, B * T)
+        self.deps = _jobs.edge_list(dst, src, B * T)
         self.n_unmet = _jobs.count_deps(
-            self.csr, torch.ones(B * T, dtype=torch.bool, device=dev)
+            self.deps, torch.ones(B * T, dtype=torch.bool, device=dev)
         ).view(B, T)
 
     def select(self, members: list) -> list:
@@ -442,7 +442,7 @@ class _BatchRun:
             # the reference's form, with a recount of the dependencies not
             # DONE, as the solo engine's plain path (_Run._unmet)
             unmet = _jobs.count_deps(
-                self.csr, (st.tstate != DONE).reshape(-1)).view_as(ready)
+                self.deps, (st.tstate != DONE).reshape(-1)).view_as(ready)
             for b in plain:
                 picks[b] = _select_reference(
                     self.policy[b], tasks.priority[b], tasks.resources[b],
@@ -497,7 +497,7 @@ class _BatchRun:
                                       0), dim=1, dtype=torch.int32)
         st.tstate = torch.where(completed, DONE, st.tstate).to(torch.int32)
         self.n_unmet -= _jobs.count_deps(
-            self.csr, completed.reshape(-1)).view_as(self.n_unmet)
+            self.deps, completed.reshape(-1)).view_as(self.n_unmet)
         st.free += freed
         got = torch.cat([clock, torch.sum(completed, dim=1,
                                           dtype=torch.int32),

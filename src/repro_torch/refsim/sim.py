@@ -73,6 +73,7 @@ from repro_torch.core.jobs import (
     BACKFILL, BESTFIT, FCFS, INF_TIME, LJF, PREEMPT, SJF, dep_edge_arrays,
 )
 from repro_torch.reliability.model import FAIL, REQUEUE, merge_stream
+from repro_torch.traces.normalize import normalize_trace
 
 _POL = {"fcfs": FCFS, "sjf": SJF, "ljf": LJF, "bestfit": BESTFIT,
         "backfill": BACKFILL, "preempt": PREEMPT}
@@ -802,33 +803,6 @@ def simulate_reference(trace, policy: str, *, total_nodes: int, machine=None,
     return sim.run()
 
 
-def _normalize(trace: Dict[str, np.ndarray], total_nodes: int) -> dict:
-    """The streaming replay runner's normalization (``repro.replay.runner.
-    _normalize``), kept here until the port has that runner: make_jobset's
-    rules in int64 and unguarded by the int32 horizon check — rebase submit
-    to 0, clamp runtime/estimate/nodes, sort by (submit, original index)."""
-    submit = np.asarray(trace["submit"], dtype=np.int64)
-    n = submit.shape[0]
-    submit = submit - (submit.min() if n else 0)
-    runtime = np.maximum(np.asarray(trace["runtime"], dtype=np.int64), 1)
-    estimate = (np.maximum(np.asarray(trace["estimate"], dtype=np.int64), 1)
-                if trace.get("estimate") is not None else runtime.copy())
-    nodes = np.clip(np.asarray(trace["nodes"], dtype=np.int64), 1, total_nodes)
-    priority = (np.asarray(trace["priority"], dtype=np.int64)
-                if trace.get("priority") is not None
-                else np.zeros(n, dtype=np.int64))
-    if trace.get("deps") is not None:
-        raise ValueError(
-            "streaming replay drives dependency-free archive traces; "
-            "workflow DAGs go through simulate/simulate_window directly")
-    order = np.lexsort((np.arange(n), submit))
-    return {
-        "submit": submit[order], "runtime": runtime[order],
-        "estimate": estimate[order], "nodes": nodes[order],
-        "priority": priority[order],
-    }
-
-
 def replay_reference(trace, policy: str = "fcfs", *, total_nodes: int,
                      machine=None, alloc: str = "simple", contention=None,
                      failures=None):
@@ -838,12 +812,13 @@ def replay_reference(trace, policy: str = "fcfs", *, total_nodes: int,
     schedule (window boundaries never reorder or split an event, DESIGN.md
     §19), so the reference for a streamed trace is simply the reference
     schedule of the *whole* trace.  The trace goes through the replay
-    runner's own int64 normalization (``_normalize``) — identical input
-    columns on both sides — and the int64 host arithmetic here imposes no
-    int32 horizon cap, which makes this the oracle for beyond-int32
-    archives that one-shot ``simulate`` refuses outright.
+    runner's own int64 normalization (``traces.normalize.normalize_trace``)
+    — identical input columns on both sides — and the int64 host
+    arithmetic here imposes no int32 horizon cap, which makes this the
+    oracle for beyond-int32 archives that one-shot ``simulate`` refuses
+    outright.
     """
-    t = _normalize(dict(trace), total_nodes)
+    t = normalize_trace(dict(trace), total_nodes)
     return simulate_reference(t, policy, total_nodes=total_nodes,
                               machine=machine, alloc=alloc,
                               contention=contention, failures=failures)

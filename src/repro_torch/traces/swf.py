@@ -8,8 +8,8 @@ Workloads Archive).  Both distribute SWF: one job per line, 18 whitespace-
 separated fields, ';' comment header.  This container is offline, so tests
 and benchmarks use the statistical generators in ``synthetic.py``; drop a
 real ``.swf``/``.swf.gz`` file in and this loader feeds it straight to the
-engines (one-shot ``simulate`` for trimmed logs; full archives that
-overflow the int32 clock need windowed replay, not ported yet).
+engines (``repro_torch.replay`` for full archives, one-shot ``simulate``
+for trimmed ones).
 
 SWF fields used (1-indexed per the spec):
   1 job id, 2 submit time, 4 run time, 5 allocated processors,
@@ -160,8 +160,9 @@ def load_swf(
     if not int32_safe:
         warnings.warn(
             f"{path}: column values up to {top} exceed int32; the one-shot "
-            "engine's downcast would truncate — trim the log or rescale "
-            "its time unit",
+            "engine's downcast would truncate — replay this trace through "
+            "repro_torch.replay (int64 host clocks) or rescale its time "
+            "unit",
             stacklevel=2)
     report = SwfReport(
         path=str(path), n_lines=n_lines, n_jobs=len(submit),
@@ -170,3 +171,30 @@ def load_swf(
         examples=tuple(examples),
     )
     return trace, report
+
+
+def dump_swf(path: str, trace: Dict[str, np.ndarray], *,
+             comment: str | None = None) -> int:
+    """Write a trace dict as a standard 18-field SWF file (gzipped when
+    the path ends in ``.gz``).
+
+    The inverse of :func:`load_swf` for the fields this project reads
+    (submit, runtime, nodes, estimate; unused fields hold -1, status 1),
+    so synthetic traces can go through the archive ingestion path.
+    Returns the number of rows written."""
+    submit = np.asarray(trace["submit"], dtype=np.int64)
+    runtime = np.asarray(trace["runtime"], dtype=np.int64)
+    nodes = np.asarray(trace["nodes"], dtype=np.int64)
+    estimate = np.asarray(trace.get("estimate", runtime), dtype=np.int64)
+    n = len(submit)
+    with _opener(path)(path, "wt") as fh:
+        if comment:
+            for ln in comment.splitlines():
+                fh.write(f"; {ln}\n")
+        fh.write("; job submit wait run alloc_procs avgcpu mem req_procs "
+                 "req_time req_mem status uid gid exe queue part prev think\n")
+        for i in range(n):
+            fh.write(
+                f"{i + 1} {submit[i]} -1 {runtime[i]} {nodes[i]} -1 -1 "
+                f"{nodes[i]} {estimate[i]} -1 1 -1 -1 -1 -1 -1 -1 -1\n")
+    return n

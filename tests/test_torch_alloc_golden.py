@@ -1,7 +1,7 @@
 """The JAX engine's golden values for the port's machine-mode runs on the card.
 
 ``chip_smoke.py`` runs the port on the card, where JAX is not installed,
-and holds each 2,500-job allocation run to
+and holds each 1,250-job allocation run to
 ``tests/data/torch_alloc_golden.json``: ``n_events``, ``makespan`` and
 sha256 digests of the int32 bytes of the valid rows of ``start``,
 ``finish``, ``alloc_first``, ``alloc_span`` and ``alloc_sum`` and of the
@@ -27,7 +27,7 @@ from repro import api
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "torch_alloc_golden.json")
-N_JOBS = 2500   # 2.5x fig_alloc.py's 1,000 jobs; a quarter of phase 4's trace
+N_JOBS = 1250   # 1.25x fig_alloc.py's 1,000 jobs; an eighth of phase 4's trace
 SDSC = ("sdsc_sp2", 1, ("dragonfly", (16, 8)))
 DAS2 = ("das2", 0, ("mesh2d", (20, 20)))
 # (trace, policy, alloc, contention)

@@ -4,7 +4,8 @@ against the JAX package, on the CPU.
 - representation: ``make_jobset``'s padded ``dep_dst``/``dep_src`` equal the
   JAX package's array for array (built by a sort of the permuted pairs in
   place of a dense matrix), the unmet counters start at the in-degrees,
-  the CSR bounds equal ``repro.core.engine.dep_csr``'s, and the refusals
+  the release (a scatter-add over the edge list) counts what the JAX
+  engine's ``dep_csr`` release counts for any completions, and the refusals
   (cycles, self-dependencies, pairs out of range, a dense matrix of the
   wrong shape, a short ``edge_capacity``) are the reference's;
 - the prefix pass: FCFS, SJF and LJF on tables with edges take it in
@@ -18,6 +19,7 @@ against the JAX package, on the CPU.
 
 import numpy as np
 import pytest
+import torch
 from _hypothesis_compat import given, settings, st
 
 import repro_torch as rt
@@ -89,12 +91,19 @@ def test_n_unmet_and_csr_equal_jax():
     want = np.asarray(jjobs.SimState.init(jax, 8).n_unmet)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, port.deps.numpy().sum(axis=1))
-    csr, jcsr = engine.dep_csr(port), jengine.dep_csr(jax)
-    np.testing.assert_array_equal(csr.start.numpy(), np.asarray(jcsr[0]))
-    np.testing.assert_array_equal(csr.end.numpy(), np.asarray(jcsr[1]))
+    deps, (start, end) = engine.dep_list(port), jengine.dep_csr(jax)
+    rng = np.random.default_rng(0)
+    for flags in [np.ones(64, dtype=bool)] + [rng.random(64) < 0.5
+                                              for _ in range(4)]:
+        got = tjobs.count_deps(deps, torch.from_numpy(flags)).numpy()
+        # the JAX engine's release: a cumsum between its CSR bounds
+        dec = flags[np.clip(np.asarray(jax.dep_src), 0, 63)].astype(np.int32)
+        c = np.concatenate([[0], np.cumsum(dec)])
+        np.testing.assert_array_equal(
+            got, c[np.asarray(end)] - c[np.asarray(start)])
     plain, _ = both({k: trace[k] for k in ("submit", "runtime", "nodes")},
                     total_nodes=8)
-    assert plain.dep_dst is None and engine.dep_csr(plain) is None
+    assert plain.dep_dst is None and engine.dep_list(plain) is None
     assert tjobs.SimState.init(plain, 8).n_unmet is None
 
 

@@ -177,19 +177,22 @@ def test_run_defaults_to_cuda():
 @pytest.mark.parametrize("field,value", [
     ("malleable", object()), ("multicluster", object())])
 def test_unported_features_raise(field, value):
-    """``multicluster`` is not ported and raises naming its ROADMAP item.
-    ``malleable``, refused before the malleable slice, is ported now: a
-    value that is no ``MalleableModel`` raises as the reference's does
-    (``test_malleable_field_runs`` runs a model)."""
-    if field == "malleable":
-        for mod in (rt, api):
+    """Both fields, refused before their slices, are ported now.  A
+    ``malleable`` value that is no ``MalleableModel`` raises as the
+    reference's does (``test_malleable_field_runs`` runs a model); a
+    ``multicluster`` value with a single trace raises as the reference's
+    does (``tests/test_torch_multicluster.py`` runs multicluster
+    scenarios)."""
+    for mod in (rt, api):
+        if field == "malleable":
             with pytest.raises(TypeError, match="MalleableModel"):
                 mod.Scenario(trace=mod.SyntheticTrace(n_jobs=5),
                              total_nodes=8, malleable=value)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.Scenario(trace=rt.SyntheticTrace(n_jobs=5), total_nodes=8,
-                    **{field: value})
+        else:
+            with pytest.raises(ValueError,
+                               match="one trace spec per cluster"):
+                mod.Scenario(trace=mod.SyntheticTrace(n_jobs=5),
+                             total_nodes=8, multicluster=value)
 
 
 def test_malleable_field_runs():

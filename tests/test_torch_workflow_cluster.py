@@ -218,12 +218,12 @@ def test_workflow_trace_spec_hygiene():
 
 
 def test_unported_traces_name_what_is_left():
-    """Workflow (item 3) and service (item 5) traces are carried now; the
-    refusal names what is left."""
+    """Workflow (item 3) and service (item 5) traces and per-cluster trace
+    tuples (item 6) are carried now; the refusal names what is left."""
     with pytest.raises(NotImplementedError) as err:
         as_trace_spec(42)
     assert "item 3" not in str(err.value)
     assert "item 5" not in str(err.value)
-    assert "item 6" in str(err.value) and "item 8" in str(err.value)
+    assert "item 6" not in str(err.value) and "item 8" in str(err.value)
     spec = rt.ServiceTrace(horizon=100, rate=0.1)
     assert as_trace_spec(spec) is spec
