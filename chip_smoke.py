@@ -239,6 +239,26 @@ Phases, each printing one JSON line with its wall time:
              the straight replay, which equals the port's
              replay_reference.  Jobs/s, events/s, rounds, peak_live, the
              flags, the oracle's and the kill/resume seconds.
+6s. whatif - the what-if service (repro_torch.service) on demo_fleet's
+             three queues at 1,000 jobs each (five times the demo's 200:
+             batch, sdsc_sp2 on 128 nodes under fcfs; mesh, mesh2d(8, 16)
+             under sjf/contiguous; flaky, backfill with failures at MTBF
+             1e6 s) and fig_whatif.py's full query set: placement of 400 s
+             jobs of 4, 16 and 48 nodes over every queue, add_nodes 0, 32,
+             64 and 128 on batch, MTBF 500e3-4e6 s on flaky.  Per family
+             a cold pass (a fresh planner on cuda after
+             reset_cache_stats(clear=True)), every answer held to the JAX
+             planner's document and the pass's compiles and hits to its
+             counts (tests/data/torch_whatif_golden.json; the first key
+             that differs is named); the capacity query's points held to
+             rt.run_ref; then a warm pass of the same queries over HTTP to
+             make_server(device="cuda") on port 0, served from a thread of
+             this process: every status 200, every answer the cold one's
+             bytes but for cache, 0 compiles.  GET /health and /fleet must
+             answer 200; the server is shut down before the phase ends.
+             Cold and warm seconds a query and their ratio, points,
+             compiles and hits, batched launches, member-selections and
+             walk launches (each pass must launch the batched entries).
 7. flash   - flash_attention on the card against its plain PyTorch
              version over the CPU tests' shape grid plus head dims 80 and
              128 and the serve shape, f32 (the CUDA-core kernel) and bf16
@@ -293,8 +313,8 @@ Phases, each printing one JSON line with its wall time:
 
 Each kernel's launch counter is set to 0 before each run of its main path
 (phases 4, 5, 6d, 6f, 6h, 6i, 6k, 6m, 6o, 6p and 6r for queue_select and
-its walk, phases 6b, 6c, 6e, 6g, 6j, 6l, 6n and 6q for their batched
-entries, each batch
+its walk, phases 6b, 6c, 6e, 6g, 6j, 6l, 6n and 6q and each pass of 6s
+for their batched entries, each batch
 of phase 6h' for the batched generic entry, the serve
 of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
@@ -332,6 +352,7 @@ REL_GOLDEN = ROOT / "tests" / "data" / "torch_rel_golden.json"
 SERVING_GOLDEN = ROOT / "tests" / "data" / "torch_serving_golden.json"
 MAL_GOLDEN = ROOT / "tests" / "data" / "torch_mal_golden.json"
 MC_GOLDEN = ROOT / "tests" / "data" / "torch_multicluster_golden.json"
+WHATIF_GOLDEN = ROOT / "tests" / "data" / "torch_whatif_golden.json"
 WINDOW_DAY = 86_400              # phase window (a): one simulated day
 WINDOW_DAG = 100                 # phase window (b): ~35 rounds of the DAG
 MC_NODES = (144, 64, 64, 64, 64)  # DAS-2's five clusters
@@ -342,6 +363,7 @@ REPLAY_PREFIX = 4_000
 REPLAY_WINDOW = 4_096
 REPLAY_PREFIX_WINDOW = 512
 REPLAY_NODES = 128
+WHATIF_JOBS = 1_000              # demo_fleet's queues at 5x the demo's 200
 MAL_PROFILE_EVENTS = 150         # each malleable run's profiled prefix
 PROFILE_PAD_S = 0.02             # host-only time at each end of a profile
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
@@ -2476,6 +2498,209 @@ def phase_replay(rt, ops, np):
     return total
 
 
+# ---------------------------------------------------------------------------
+# the what-if capacity-planning service
+# ---------------------------------------------------------------------------
+
+
+def whatif_fleet(rt) -> dict:
+    """demo_fleet's three queues at WHATIF_JOBS jobs each (the fleet of
+    tests/test_torch_whatif_golden.py)."""
+    return {
+        "batch": rt.Scenario(
+            trace=rt.SyntheticTrace(n_jobs=WHATIF_JOBS, seed=0,
+                                    kind="sdsc_sp2"),
+            total_nodes=128, policy="fcfs"),
+        "mesh": rt.Scenario(
+            trace=rt.SyntheticTrace(n_jobs=WHATIF_JOBS, seed=1,
+                                    kind="sdsc_sp2"),
+            topology=rt.Topology.mesh2d(8, 16), policy="sjf",
+            alloc="contiguous"),
+        "flaky": rt.Scenario(
+            trace=rt.SyntheticTrace(n_jobs=WHATIF_JOBS, seed=2,
+                                    kind="sdsc_sp2"),
+            total_nodes=128, policy="backfill",
+            failures=rt.FailureModel(mtbf=1_000_000.0, seed=7,
+                                     max_failures=512)),
+    }
+
+
+def whatif_queries(svc) -> dict:
+    """benchmarks/fig_whatif.py's full query set, by family."""
+    return {
+        "placement": [
+            svc.WhatIfQuery(kind="placement", job=svc.JobRequest(
+                submit=0, runtime=400, nodes=w)) for w in (4, 16, 48)],
+        "capacity": [
+            svc.WhatIfQuery(kind="capacity", queue="batch",
+                            deltas=tuple(svc.ScenarioDelta(add_nodes=d)
+                                         for d in (0, 32, 64, 128)))],
+        "reliability": [
+            svc.WhatIfQuery(kind="reliability", queue="flaky",
+                            mtbf_grid=(500e3, 1000e3, 2000e3, 4000e3),
+                            objective=svc.Objective(metric="goodput",
+                                                    goal="max"))],
+    }
+
+
+def first_diff(a, b, path: str = "$"):
+    """The path of the first key or item where two JSON documents differ,
+    or ``None``."""
+    if type(a) is not type(b):
+        return path
+    if isinstance(a, dict):
+        for k in sorted(set(a) | set(b)):
+            if k not in a or k not in b:
+                return f"{path}.{k}"
+            d = first_diff(a[k], b[k], f"{path}.{k}")
+            if d is not None:
+                return d
+        return None
+    if isinstance(a, list):
+        if len(a) != len(b):
+            return f"{path}[len]"
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = first_diff(x, y, f"{path}[{i}]")
+            if d is not None:
+                return d
+        return None
+    return None if a == b else path
+
+
+def without_cache(doc: dict, keep_counts: bool) -> dict:
+    """An answer's canonical document without ``cache.entries`` (the
+    process's history), or without ``cache`` at all."""
+    doc = json.loads(json.dumps(doc))
+    if keep_counts:
+        doc["cache"].pop("entries")
+    else:
+        doc.pop("cache")
+    return doc
+
+
+def http_json(url: str, payload=None):
+    """GET (``payload`` None) or POST one JSON document: ``(status,
+    body)``; a non-200 status is returned, never raised."""
+    import urllib.error
+    import urllib.request
+    data = None
+    if payload is not None:
+        data = json.dumps(payload, sort_keys=True,
+                          separators=(",", ":")).encode()
+    req = urllib.request.Request(url, data=data, method=(
+        "GET" if payload is None else "POST"),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_whatif(torch, rt, ops):
+    """The what-if service on the card: per family a cold pass (a fresh
+    planner after reset_cache_stats(clear=True)) held to the JAX planner's
+    answers and counts (tests/data/torch_whatif_golden.json), the capacity
+    query's points held to rt.run_ref, then the same queries over HTTP to
+    make_server(device="cuda") from this process (200, the cold answers'
+    bytes but for cache, 0 compiles); GET /health and /fleet."""
+    import threading
+    from repro_torch import service
+    t0 = time.time()
+    golden = json.loads(WHATIF_GOLDEN.read_text())
+    check(golden["fleet"] == service.fleet_to_json(whatif_fleet(rt)),
+          "whatif: the fleet differs from the golden file's")
+    server = service.make_server(whatif_fleet(rt), device="cuda")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    total = {}
+    try:
+        for family, queries in whatif_queries(service).items():
+            want = golden["families"][family]
+            check(want["queries"] == [q.to_json_dict() for q in queries],
+                  f"whatif {family}: the queries differ from the golden "
+                  "file's")
+            rt.reset_cache_stats(clear=True)
+            planner = service.CapacityPlanner(whatif_fleet(rt),
+                                              device="cuda")
+            ops.reset_launches()
+            t = time.time()
+            cold = [json.loads(service.canonical_dumps(planner.answer(q)))
+                    for q in queries]
+            torch.cuda.synchronize()
+            cold_s = time.time() - t
+            counts = launch_counts(ops)
+            stats = rt.cache_stats()
+            for i, (doc, ref) in enumerate(zip(cold, want["answers"])):
+                got = without_cache(doc, keep_counts=True)
+                d = first_diff(got, ref)
+                check(d is None, f"whatif {family} query {i}: the answer "
+                      f"differs from the JAX planner's at {d}")
+            check((stats.compiles, stats.hits)
+                  == (want["compiles"], want["hits"]),
+                  f"whatif {family}: compiles/hits {stats.compiles}/"
+                  f"{stats.hits} != golden {want['compiles']}/"
+                  f"{want['hits']}")
+            check(counts["batch_launches"] > 0,
+                  f"whatif {family}: no batched queue_select launch")
+            add_counts(total, counts)
+            oracle_s, held = 0.0, 0
+            if family == "capacity":
+                t = time.time()
+                for q in queries:
+                    for p in planner.evaluate(q):
+                        ref = rt.run_ref(p["scenario"])
+                        check(p["result"].matches(ref),
+                              f"whatif capacity {p['label']}: the card "
+                              "point differs from run_ref")
+                        held += 1
+                oracle_s = time.time() - t
+            ops.reset_launches()
+            t = time.time()
+            warm = []
+            for q in queries:
+                status, body = http_json(f"{server.url}/query",
+                                         q.to_json_dict())
+                check(status == 200, f"whatif {family} over HTTP: status "
+                      f"{status}: {body}")
+                warm.append(body)
+            warm_s = time.time() - t
+            warm_counts = launch_counts(ops)
+            add_counts(total, warm_counts)
+            for i, (body, doc) in enumerate(zip(warm, cold)):
+                a = without_cache(body, keep_counts=False)
+                b = without_cache(doc, keep_counts=False)
+                check(json.dumps(a, sort_keys=True) == json.dumps(
+                    b, sort_keys=True), f"whatif {family} query {i} over "
+                      f"HTTP differs from its cold answer at "
+                      f"{first_diff(a, b)}")
+                check(body["cache"]["compiles"] == 0, f"whatif {family} "
+                      f"query {i}: the warm answer compiled")
+            n = len(queries)
+            emit("whatif", t0, family=family, queries=n,
+                 points=sum(len(d["points"]) for d in cold),
+                 cold_s_per_query=cold_s / n, warm_s_per_query=warm_s / n,
+                 warm_over_cold=warm_s / cold_s,
+                 cold_compiles=stats.compiles, cold_hits=stats.hits,
+                 warm_compiles=sum(b["cache"]["compiles"] for b in warm),
+                 warm_hits=sum(b["cache"]["hits"] for b in warm),
+                 cold=counts, warm=warm_counts,
+                 capacity_points_held_to_run_ref=held, oracle_s=oracle_s,
+                 matches_jax=True, http_equal=True)
+        for route in ("/health", "/fleet"):
+            status, body = http_json(f"{server.url}{route}")
+            check(status == 200, f"whatif GET {route}: status {status}: "
+                  f"{body}")
+        check(sorted(body["queues"]) == ["batch", "flaky", "mesh"],
+              f"whatif GET /fleet: {sorted(body['queues'])}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    emit("whatif", t0, run="total", **total)
+    return total
+
+
 def flash_check(torch, ops, ref, q, k, v, causal, window, tol) -> float:
     """One kernel call against the plain version; the largest error."""
     kw = dict(causal=causal, window=window, q_offset=k.shape[1] - q.shape[1])
@@ -2991,7 +3216,7 @@ PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "sweep", "ensemble", "alloc", "alloc_sweep", "dag", "dag_sweep",
           "workflow", "workflow_batch", "reliability", "reliability_sweep",
           "serving", "serving_sweep", "malleable", "malleable_sweep",
-          "oracle", "window", "multicluster", "replay", "flash",
+          "oracle", "window", "multicluster", "replay", "whatif", "flash",
           "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve")
 
 
@@ -3012,7 +3237,7 @@ def main(argv=None) -> int:
             g.exists() for g in (GOLDEN, LM_GOLDEN, ALLOC_GOLDEN, DAG_GOLDEN,
                                  DAG_SWEEP_GOLDEN, WORKFLOW_GOLDEN,
                                  REL_GOLDEN, SERVING_GOLDEN, MAL_GOLDEN,
-                                 MC_GOLDEN))):
+                                 MC_GOLDEN, WHATIF_GOLDEN))):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 1
@@ -3083,6 +3308,7 @@ def main(argv=None) -> int:
             rt, ops, out["golden"][2] if "golden" in out else None),
         "multicluster": lambda: phase_multicluster(rt, ops, np),
         "replay": lambda: phase_replay(rt, ops, np),
+        "whatif": lambda: phase_whatif(torch, rt, ops),
         "flash": lambda: phase_flash(torch, np),
         "lm_golden": lambda: phase_lm_golden(torch, np),
         "serve": lambda: phase_serve(torch, np),
@@ -3105,7 +3331,8 @@ def main(argv=None) -> int:
     stream_sweeps = out["reliability_sweep"] + out["serving_sweep"]
     mal_sweeps = out["malleable_sweep"]
     oracle, wf_batch = out["oracle"], out["workflow_batch"]
-    windows = [out["window"], out["multicluster"], out["replay"]]
+    windows = [out["window"], out["multicluster"], out["replay"],
+               out["whatif"]]
     launches = (out["golden"][0] + out["archive"][0] + alloc["launches"]
                 + dag["launches"] + out["workflow"][0] + rel["launches"]
                 + svc["launches"] + mal["launches"] + oracle["launches"]
@@ -3119,7 +3346,7 @@ def main(argv=None) -> int:
     batch_err, batch_timing, generic_batch = out["batched"]
     batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"],
                   *out["dag_sweep"], *stream_sweeps, *mal_sweeps,
-                  out["multicluster"]]
+                  out["multicluster"], out["whatif"]]
     batch_launches = sum(c["batch_launches"] for c in batch_runs)
     batch_selections = sum(c["batch_selections"] for c in batch_runs)
     walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
@@ -3177,6 +3404,7 @@ def main(argv=None) -> int:
                         "walk_launches": oracle["walk_launches"]},
         "window_mode": {phase: out[phase] for phase in (
             "window", "multicluster", "replay")},
+        "whatif_mode": out["whatif"],
         "malleable_mode": {
             "launches": mal["launches"],
             "walk_launches": mal["walk_launches"],

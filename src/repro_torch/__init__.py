@@ -15,7 +15,10 @@ whose selections run the same kernel; conservative windows
 (``simulate_window``), multicluster runs with migration
 (``Multicluster``, the clusters' windows in lockstep) and the crash-safe
 streaming replay of archive traces (``repro_torch.replay``); the host
-oracle (``run_ref``, ``repro_torch.refsim``) that validates any run; and
+oracle (``run_ref``, ``repro_torch.refsim``) that validates any run; the
+what-if capacity-planning service (``repro_torch.service``: queries
+lowered onto ``sweep``, candidate jobs through ``InjectedTrace``, an HTTP
+front end); and
 the dense-family LM serving path (``repro_torch.launch.serve``), whose
 prefill runs the ``flash_attention`` CUDA kernel in every layer:
 
@@ -58,7 +61,7 @@ batched launch of the ``queue_select`` kernel.
 
 from repro_torch.api import (
     WF_POLICY_IDS, ArrayTrace, AutoscalePolicy, FailureModel,
-    MalleableModel, Multicluster, Result,
+    InjectedTrace, MalleableModel, Multicluster, Result,
     Scenario, ServiceClass, ServiceTrace, SwfTrace, SweepCacheStats,
     SweepResult, SyntheticTrace, Topology, WorkflowTrace, cache_stats,
     critical_path_length, make_taskset, reset_cache_stats, run, run_ref,
@@ -69,7 +72,7 @@ from repro_torch.api import (
 from repro_torch.core.engine import simulate, simulate_window
 
 __all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
-           "MalleableModel", "Multicluster", "Result",
+           "InjectedTrace", "MalleableModel", "Multicluster", "Result",
            "Scenario", "ServiceClass", "ServiceTrace", "SwfTrace",
            "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
            "WF_POLICY_IDS",

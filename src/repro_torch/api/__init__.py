@@ -4,8 +4,8 @@ the PyTorch port, and the standalone workflow engine's entry points."""
 from repro_torch.api.result import Result, simresult_to_np
 from repro_torch.api.run import build_jobset, build_machine, run, run_ref
 from repro_torch.api.scenario import (
-    ArrayTrace, Multicluster, Scenario, SwfTrace, SyntheticTrace, Topology,
-    WorkflowTrace, as_trace_spec,
+    ArrayTrace, InjectedTrace, Multicluster, Scenario, SwfTrace,
+    SyntheticTrace, Topology, WorkflowTrace, as_trace_spec,
 )
 from repro_torch.api.sweep import (
     SweepCacheStats, SweepResult, cache_stats, reset_cache_stats, sweep,
@@ -23,7 +23,7 @@ from repro_torch.core.workflow import (
 )
 
 __all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
-           "MalleableModel", "Multicluster", "Result",
+           "InjectedTrace", "MalleableModel", "Multicluster", "Result",
            "Scenario", "ServiceClass", "ServiceTrace", "SwfTrace",
            "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
            "WF_POLICY_IDS",

@@ -1,17 +1,16 @@
 """Declarative experiment specs of the PyTorch port.
 
-Counterpart of ``repro.api.scenario`` for the ported slices: a
-:class:`Scenario` names a trace (:class:`SyntheticTrace`, :class:`SwfTrace`,
-:class:`WorkflowTrace`, :class:`ArrayTrace` or an open-arrival
-``ServiceTrace``), the cluster size, the policy, optionally a machine shape
-(:class:`Topology`) with its placement strategy and contention model, a
-node-failure model (``FailureModel``), a malleable-jobs model
-(``MalleableModel``), the padded table capacity and an event cap, and
-whether the run is partitioned into conservatively synchronized clusters
+Counterpart of ``repro.api.scenario``: a :class:`Scenario` names a trace
+(:class:`SyntheticTrace`, :class:`SwfTrace`, :class:`WorkflowTrace`,
+:class:`ArrayTrace`, an open-arrival ``ServiceTrace``, or one of the
+others with what-if candidate jobs appended, :class:`InjectedTrace`), the
+cluster size, the policy, optionally a machine shape (:class:`Topology`)
+with its placement strategy and contention model, a node-failure model
+(``FailureModel``), a malleable-jobs model (``MalleableModel``), the
+padded table capacity and an event cap, and whether the run is partitioned into conservatively synchronized clusters
 (:class:`Multicluster`, with one trace spec and one node count a
 cluster).  The same field values describe the same run as the reference's
-``Scenario``.  Features of the reference that the port does not carry yet
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+``Scenario``.
 """
 
 from __future__ import annotations
@@ -219,22 +218,134 @@ class ArrayTrace:
         return len(np.asarray(self.submit))
 
 
+@dataclasses.dataclass(frozen=True)
+class InjectedTrace:
+    """A base trace spec plus appended candidate jobs (DESIGN.md §20).
+
+    The what-if service's "where should this job run" queries add a
+    hypothetical job to a queue's workload.  The injected jobs' values are
+    trace data; only their count changes the table's shape, so
+    ``static_key`` is ``("inject", base key, len(jobs))`` and every
+    placement query against one base workload with one candidate shares a
+    sweep bucket.
+
+    ``jobs`` is a tuple of ``(submit, runtime, nodes, estimate, priority)``
+    tuples (``estimate`` and ``priority`` may be ``None``); the rows are
+    appended after the base trace in input order, so with equal submit
+    times a candidate sorts behind every incumbent.  The base's
+    dependencies (pairs or a dense matrix) are kept; injected jobs have
+    none.
+    """
+
+    base: Any                    # a trace spec (not a ServiceTrace)
+    jobs: Tuple[Tuple[Optional[int], ...], ...]
+
+    def __post_init__(self):
+        base = as_trace_spec(self.base)
+        if isinstance(base, ServiceTrace):
+            raise ValueError(
+                "InjectedTrace cannot wrap a ServiceTrace: open-arrival "
+                "plans carry their own padded job table (inject the "
+                "candidate through ServiceTrace.arrivals instead)")
+        object.__setattr__(self, "base", base)
+        norm = []
+        for j in self.jobs:
+            j = tuple(j) + (None,) * (5 - len(j))
+            if len(j) != 5:
+                raise ValueError(
+                    "injected jobs are (submit, runtime, nodes[, estimate"
+                    f"[, priority]]) tuples; got {j!r}")
+            submit, runtime, nodes = (int(j[0]), int(j[1]), int(j[2]))
+            if runtime < 1 or nodes < 1:
+                raise ValueError(
+                    f"injected job needs runtime >= 1 and nodes >= 1; "
+                    f"got runtime={runtime}, nodes={nodes}")
+            if submit < 0:
+                raise ValueError(
+                    f"injected job submit must be >= 0, got {submit} "
+                    "(make_jobset re-zeroes the trace on its minimum "
+                    "submit; an earlier candidate would shift every "
+                    "incumbent timestamp)")
+            est = None if j[3] is None else int(j[3])
+            pri = None if j[4] is None else int(j[4])
+            norm.append((submit, runtime, nodes, est, pri))
+        if not norm:
+            raise ValueError("InjectedTrace needs at least one injected job")
+        object.__setattr__(self, "jobs", tuple(norm))
+
+    def materialize(self) -> Dict[str, np.ndarray]:
+        t = dict(self.base.materialize())
+        k = len(self.jobs)
+        sub = np.asarray(t["submit"], dtype=np.int64)
+        run = np.asarray(t["runtime"], dtype=np.int64)
+        j_sub = np.asarray([j[0] for j in self.jobs], dtype=np.int64)
+        j_run = np.asarray([j[1] for j in self.jobs], dtype=np.int64)
+        j_nod = np.asarray([j[2] for j in self.jobs], dtype=np.int64)
+        out = {
+            "submit": np.concatenate([sub, j_sub]),
+            "runtime": np.concatenate([run, j_run]),
+            "nodes": np.concatenate(
+                [np.asarray(t["nodes"], dtype=np.int64), j_nod]),
+        }
+        # an optional column exists when the base carries it or an
+        # injected job sets it; the base's default is make_jobset's
+        # (estimate == runtime, priority == 0)
+        j_est = [j[3] for j in self.jobs]
+        if "estimate" in t or any(e is not None for e in j_est):
+            base_est = np.asarray(t.get("estimate", run), dtype=np.int64)
+            inj = np.asarray(
+                [e if e is not None else r
+                 for e, r in zip(j_est, j_run)], dtype=np.int64)
+            out["estimate"] = np.concatenate([base_est, inj])
+        j_pri = [j[4] for j in self.jobs]
+        if "priority" in t or any(p is not None for p in j_pri):
+            base_pri = np.asarray(
+                t.get("priority", np.zeros(len(sub))), dtype=np.int64)
+            inj = np.asarray([p if p is not None else 0 for p in j_pri],
+                             dtype=np.int64)
+            out["priority"] = np.concatenate([base_pri, inj])
+        deps = t.get("deps")
+        if deps is not None:
+            dm = np.asarray(deps)
+            if dm.ndim == 2 and dm.dtype == bool:
+                # a dense matrix gains k all-False rows and columns
+                n = dm.shape[0]
+                padded = np.zeros((n + k, n + k), dtype=bool)
+                padded[:n, :n] = dm
+                out["deps"] = padded
+            else:
+                # (job, dependency) pairs index the base's input order,
+                # which appending at the tail leaves as it is
+                out["deps"] = deps
+        return out
+
+    def static_key(self):
+        """The base's key and the injected count: the candidates' values
+        are data, only their number changes the table's shape."""
+        return ("inject", self.base.static_key(), len(self.jobs))
+
+    @property
+    def n_rows(self) -> Optional[int]:
+        base = self.base.n_rows
+        return None if base is None else base + len(self.jobs)
+
+
 TraceSpec = Union[SyntheticTrace, SwfTrace, WorkflowTrace, ArrayTrace,
-                  ServiceTrace]
+                  ServiceTrace, InjectedTrace]
 
 
 def as_trace_spec(trace) -> TraceSpec:
     """Accept a spec, a plain dict of arrays, or an .swf path string."""
     if isinstance(trace, (SyntheticTrace, SwfTrace, WorkflowTrace, ArrayTrace,
-                          ServiceTrace)):
+                          ServiceTrace, InjectedTrace)):
         return trace
     if isinstance(trace, dict):
         return ArrayTrace.from_dict(trace)
     if isinstance(trace, str):
         return SwfTrace(trace)
-    raise NotImplementedError(
-        f"trace {type(trace).__name__} is not ported yet: injected what-if "
-        "jobs are ROADMAP Queue 1 item 8")
+    raise TypeError(
+        f"trace must be a trace spec, dict of arrays, or .swf path; "
+        f"got {type(trace).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,8 +38,9 @@ execution against its signature, as the reference logs its executions
 against its compile signature: the bucket key, the policy and the strategy
 when every point of the bucket shares one (the reference bakes such a
 value into its executable), and the stacked tensors' shapes and dtypes.  A
-new signature counts as a ``compile``, a seen one as a ``hit``, so that a
-later service can assert that a repeated query reuses its bucket.  No CUDA
+new signature counts as a ``compile``, a seen one as a ``hit``, so that the
+what-if service (``repro_torch.service``) can assert that a repeated query
+reuses its bucket.  No CUDA
 graphs are captured.
 """
 

@@ -4,8 +4,8 @@ The PyTorch port's own copy of ``percentiles``, ``summary`` and the step
 series (occupancy, active jobs, queue length, sampling onto a grid), and of
 the allocation series (fragmentation, largest free block, job span),
 ``alloc_summary``, ``reliability_summary``, ``slo_summary`` and
-``malleable_summary``, from
-``repro.core.metrics``: pure numpy functions of the
+``malleable_summary``, and of the what-if service's ``compare_summaries``
+and ``rank_candidates``, from ``repro.core.metrics``: pure numpy functions of the
 canonical result dict, identical to the reference's, so both engines'
 metrics agree bit for bit.
 """
@@ -311,3 +311,63 @@ def malleable_summary(res) -> Dict[str, float]:
                           if n_done else 1.0),
         "parallel_efficiency": ideal / consumed if consumed > 0 else 1.0,
     }
+
+
+def compare_summaries(baseline: Dict[str, float],
+                      candidate: Dict[str, float],
+                      keys=None) -> Dict[str, float]:
+    """Per-metric deltas between two scalar-summary dicts (DESIGN.md §20):
+    ``{key: candidate[key] - baseline[key]}`` over the shared numeric keys
+    (or the explicit ``keys``).  NaNs propagate: an empty percentile on
+    either side gives a NaN delta, which ``rank_candidates`` sorts last."""
+    if keys is None:
+        keys = [k for k in candidate
+                if k in baseline
+                and isinstance(candidate[k], (int, float))
+                and isinstance(baseline[k], (int, float))]
+    return {k: float(candidate[k]) - float(baseline[k]) for k in keys}
+
+
+def rank_candidates(rows, metric: str, *, goal: str = "min",
+                    baseline: Dict[str, float] = None,
+                    target: float = None):
+    """Rank ``(label, summary)`` candidates into recommendation dicts.
+
+    ``goal`` is ``"min"`` (smaller is better, e.g. p99 wait) or ``"max"``
+    (e.g. goodput).  Each output row carries ``rank`` (1 = best),
+    ``label``, ``metric``, ``value`` and, with a ``baseline`` summary,
+    ``baseline`` and ``delta`` (value - baseline).  With a ``target``,
+    ``meets_target`` marks the rows at or better than it; the ranking is
+    unchanged.  NaN values rank last in input order, and ties keep input
+    order.
+    """
+    if goal not in ("min", "max"):
+        raise ValueError(f"goal must be 'min' or 'max', got {goal!r}")
+    rows = list(rows)
+    for label, summ in rows:
+        if metric not in summ:
+            raise KeyError(
+                f"candidate {label!r} summary has no metric {metric!r}; "
+                f"available: {sorted(summ)}")
+    sign = 1.0 if goal == "min" else -1.0
+
+    def sort_key(item):
+        i, (_, summ) = item
+        v = float(summ[metric])
+        return (1, 0.0, i) if np.isnan(v) else (0, sign * v, i)
+
+    ranked = sorted(enumerate(rows), key=sort_key)
+    out = []
+    for rank, (_, (label, summ)) in enumerate(ranked, start=1):
+        v = float(summ[metric])
+        row = {"rank": rank, "label": label, "metric": metric, "value": v}
+        if baseline is not None and metric in baseline:
+            base_v = float(baseline[metric])
+            row["baseline"] = base_v
+            row["delta"] = v - base_v
+        if target is not None:
+            row["meets_target"] = bool(
+                not np.isnan(v)
+                and (v <= target if goal == "min" else v >= target))
+        out.append(row)
+    return out

@@ -21,9 +21,9 @@ def _fields(x) -> dict:
 
 
 def jax_spec(x):
-    """A port spec (scenario, trace, topology, failure model, service
-    trace, class, autoscaler, malleable model) as the reference's; other
-    values as they are."""
+    """A port spec (scenario, trace, injected trace, topology, failure
+    model, service trace, class, autoscaler, malleable model) as the
+    reference's; other values as they are."""
     if isinstance(x, rt.Scenario):
         return api.Scenario(**{k: jax_spec(v) for k, v in _fields(x).items()
                                if v is not None})
@@ -36,6 +36,8 @@ def jax_spec(x):
         return api.Topology(x.kind, x.shape)
     if isinstance(x, rt.ArrayTrace):
         return api.ArrayTrace(**_fields(x))
+    if isinstance(x, rt.InjectedTrace):
+        return api.InjectedTrace(base=jax_spec(x.base), jobs=x.jobs)
     for name in ("FailureModel", "ServiceClass", "AutoscalePolicy",
                  "SyntheticTrace", "SwfTrace", "WorkflowTrace",
                  "MalleableModel"):

@@ -218,12 +218,16 @@ def test_workflow_trace_spec_hygiene():
 
 
 def test_unported_traces_name_what_is_left():
-    """Workflow (item 3) and service (item 5) traces and per-cluster trace
-    tuples (item 6) are carried now; the refusal names what is left."""
-    with pytest.raises(NotImplementedError) as err:
+    """Workflow (item 3), service (item 5) and injected what-if traces
+    (item 8) and per-cluster trace tuples (item 6) are carried now; what
+    is not a trace spec is refused with the reference's TypeError."""
+    with pytest.raises(TypeError) as err:
         as_trace_spec(42)
-    assert "item 3" not in str(err.value)
-    assert "item 5" not in str(err.value)
-    assert "item 6" not in str(err.value) and "item 8" in str(err.value)
+    with pytest.raises(TypeError) as want:
+        api.as_trace_spec(42)
+    assert str(err.value) == str(want.value)
     spec = rt.ServiceTrace(horizon=100, rate=0.1)
+    assert as_trace_spec(spec) is spec
+    spec = rt.InjectedTrace(base=rt.SyntheticTrace(n_jobs=5),
+                            jobs=((0, 10, 1),))
     assert as_trace_spec(spec) is spec
