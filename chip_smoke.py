@@ -310,6 +310,24 @@ Phases, each printing one JSON line with its wall time:
              kernel once per layer (32) and the CUDA-core kernel never;
              then one profiled prefill and one profiled decode step, as in
              phase 9.
+13. train  - training on the card (repro_torch.runtime.Trainer):
+             (a) reduced llama3.2-3b (accum=2) and reduced rwkv6-7b (int8
+             gradient compression), f32, 8 steps of 4 x 32 synthetic
+             tokens from seeded numpy weights, each step's loss, ce, grad
+             norm and lr held to the JAX trainer's
+             (tests/data/torch_train_golden.json, with the tolerances it
+             states); (b) the llama run again with a fault injected at
+             step 5: one restart from the step-4 checkpoint, and the
+             replayed steps' losses equal the clean run's bit for bit;
+             (c) llama3.2-3b at full width (3.2e9 parameters, bf16 compute
+             over f32 master weights and moments, per-layer remat, the
+             blockwise attention; the attention projections drawn at their
+             true fan-in, as in phase 9a), 8 steps of 2 x 2,048 tokens in 2
+             microbatches: tokens/s a step after the first, the first
+             step's seconds, peak device memory, every parameter and
+             grad norm finite and the loss falling.  The training path
+             launches no kernel (none has a backward pass, in the JAX
+             package either); the phase checks that it launched none.
 
 Each kernel's launch counter is set to 0 before each run of its main path
 (phases 4, 5, 6d, 6f, 6h, 6i, 6k, 6m, 6o, 6p and 6r for queue_select and
@@ -318,8 +336,8 @@ for their batched entries, each batch
 of phase 6h' for the batched generic entry, the serve
 of phase 9 for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
-not launch the kernel fails.  TF32 is off for matrix products and
-convolutions throughout.  The script catches nothing: any failed check
+not launch the kernel fails.  Phase 13 must launch none.  TF32 is off for
+matrix products and convolutions throughout.  The script catches nothing: any failed check
 exits non-zero.  The last lines are the kernels table, the nvidia-smi line
 and ``{"ok": true, "device": {...}}``.
 
@@ -353,6 +371,7 @@ SERVING_GOLDEN = ROOT / "tests" / "data" / "torch_serving_golden.json"
 MAL_GOLDEN = ROOT / "tests" / "data" / "torch_mal_golden.json"
 MC_GOLDEN = ROOT / "tests" / "data" / "torch_multicluster_golden.json"
 WHATIF_GOLDEN = ROOT / "tests" / "data" / "torch_whatif_golden.json"
+TRAIN_GOLDEN = ROOT / "tests" / "data" / "torch_train_golden.json"
 WINDOW_DAY = 86_400              # phase window (a): one simulated day
 WINDOW_DAG = 100                 # phase window (b): ~35 rounds of the DAG
 MC_NODES = (144, 64, 64, 64, 64)  # DAS-2's five clusters
@@ -476,6 +495,13 @@ LINATTN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # as tests/test_kernels.py
 LINATTN_TIMED, LINATTN_PLAIN_TIMED = 50, 3
 RWKV_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
 RWKV_LIVE_SEED = 7
+TRAIN_FAIL_AT = 5                # phase 13b: the injected fault's step
+TRAIN_FULL = {"batch": 2, "seq": 2048, "accum": 2, "steps": 8}
+# Adam's first steps are sign steps, each weight moving by the learning
+# rate: at lr 1e-3 (5e-4 at step 1), against an init spread of 0.018, the
+# loss rose from 11.8 to 25.4 over the 8 steps; at 3e-5 it fell to 7.9, at
+# 1e-5 to 7.1 (PERF.md section 6)
+TRAIN_FULL_OPT = {"lr": 1e-5, "warmup_steps": 2, "total_steps": 8}
 
 
 def emit(phase: str, t0: float, **fields) -> None:
@@ -3212,12 +3238,256 @@ def phase_rwkv_serve(torch, np):
     return launches
 
 
+class GoldenTokens:
+    """The token stream of an entry of tests/data/torch_train_golden.json:
+    step i serves the JAX pipeline's windows of step i as the file's host
+    drew them (another numpy's zipf sampler draws another stream from the
+    same Philox key), replayable by ``state.step`` as SyntheticTokens."""
+
+    def __init__(self, np, windows):
+        from repro_torch.data.pipeline import DataState
+        self.windows = [np.asarray(w, np.int32) for w in windows]
+        self.state = DataState(seed=0, step=0)
+
+    def __next__(self):
+        w = self.windows[self.state.step]
+        self.state.step += 1
+        return {"tokens": w[:, :-1], "labels": w[:, 1:]}
+
+
+def golden_trainer(torch, np, g, ckpt_dir, **over):
+    """The port's trainer on cuda for an entry of
+    tests/data/torch_train_golden.json, its _init_state given the entry's
+    seeded numpy weights (as the JAX trainer's was), its data the entry's
+    token windows."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
+    from repro_torch.optim import (
+        AdamWConfig, CompressionState, adamw_init, compression_init)
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = get_config(g["arch"]).reduced()
+    tree = numpy_lm_params(cfg, **g["weights"])
+    compress = g["trainer"].get("compress_grads", False)
+    tr = Trainer(cfg, AdamWConfig(**g["opt"]), TrainerConfig(
+        ckpt_dir=ckpt_dir, log_every=10**9, **{**g["trainer"], **over}),
+        GoldenTokens(np, g["tokens"]), log=lambda *_: None, device="cuda")
+
+    def init_state():
+        p = lm_params_from_numpy(tree, "cuda")
+        return p, adamw_init(p), (
+            compression_init(p) if compress
+            else CompressionState(residual=torch.zeros((), device="cuda")))
+
+    tr._init_state = init_state
+    return tr
+
+
+def train_op_ms(torch, cfg) -> dict:
+    """Two operations of one full-width training microbatch, alone, CUDA
+    events, medians of 5.  The blockwise attention of a layer, bf16: its
+    forward (as the first pass of a remat layer runs it) and its forward
+    and backward (the recompute and the backward pass, each KV tile
+    checkpointed), beside F.scaled_dot_product_attention's forward and
+    backward on the same inputs (the library yardstick for a flash
+    backward kernel, which the port has not).  The token embedding's
+    backward pass into the f32 table: F.embedding's (the port's, summing
+    repeated tokens in a fixed order) beside indexing's (an accumulating
+    index_put_, atomics)."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import blockwise_attention
+    B = TRAIN_FULL["batch"] // TRAIN_FULL["accum"]
+    S, H, KV, hd = TRAIN_FULL["seq"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator("cuda").manual_seed(0)
+
+    def draw(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+
+    q, k, v = (draw(B, S, n, hd).requires_grad_() for n in (H, KV, KV))
+    do = draw(B, S, H, hd)
+
+    def attn():
+        return blockwise_attention(q, k, v, causal=True, block_q=cfg.block_q,
+                                   block_k=cfg.block_k)
+
+    def fwd():
+        with torch.no_grad():
+            attn()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    table = draw(cfg.vocab, cfg.d_model, dtype=torch.float32)
+    table.requires_grad_()
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    dh = draw(B, S, cfg.d_model, dtype=torch.float32)
+
+    def embed_bwd(gather):
+        table.grad = None
+        gather().backward(dh)
+
+    return {"attention": {
+                "fwd_ms": time_ms(fwd, n=5, warm=1),
+                "fwd_bwd_ms": time_ms(lambda: attn().backward(do), n=5,
+                                      warm=1),
+                "sdpa_fwd_bwd_ms": time_ms(lambda: sdpa().backward(do), n=5,
+                                           warm=1),
+                "shape": f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal"},
+            "embedding_bwd": {
+                "f_embedding_ms": time_ms(lambda: embed_bwd(
+                    lambda: F.embedding(tokens, table)), n=5, warm=1),
+                "index_put_ms": time_ms(lambda: embed_bwd(
+                    lambda: table[tokens]), n=5, warm=1),
+                "shape": f"{B * S} tokens into [{cfg.vocab}, {cfg.d_model}] "
+                         "f32"}}
+
+
+def phase_train(torch, np, smi):
+    """Training on the card: (a) the reduced golden runs against the JAX
+    trainer's steps, (b) failure recovery bit for bit, (c) llama3.2-3b at
+    full width.  No kernel is on the training path (use_pallas=False: the
+    kernels have no backward pass); the phase checks that it launched
+    none."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.linattn_scan import ops as lops
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_leaves
+    t_phase = time.time()
+    torch.cuda.empty_cache()            # the serve phases' weights are gone
+    fops.reset_launches()
+    lops.reset_launches()
+    golden = json.loads(TRAIN_GOLDEN.read_text())
+
+    # (a) each golden run, step for step
+    clean = {}
+    for g in golden:
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as d:
+            tr = golden_trainer(torch, np, g, d)
+            res = tr.run()
+        got = tr.metrics
+        check(res["restarts"] == 0 and [s["step"] for s in got]
+              == [s["step"] for s in g["steps"]],
+              f"train {g['name']}: ran steps {[s['step'] for s in got]}")
+        errs = {k: max(abs(a[k] - b[k]) / abs(b[k])
+                       for a, b in zip(got, g["steps"]))
+                for k in ("loss", "ce", "grad_norm", "lr")}
+        check(all(errs[k] <= g["tol"][k] for k in errs),
+              f"train {g['name']}: relative errors {errs} against the JAX "
+              f"trainer's steps, tolerances {g['tol']}")
+        data = g["data"]
+        here = SyntheticTokens(tr.cfg.vocab, data["batch"], data["seq"],
+                               seed=data["seed"])
+        emit("train_golden", t0, run=g["name"], arch=g["arch"],
+             reduced=True, dtype="float32", trainer=g["trainer"],
+             max_rel_err=errs, tol=g["tol"],
+             losses=[s["loss"] for s in got], numpy=np.__version__,
+             golden_numpy=g["numpy"],
+             synthetic_tokens_equal_golden=all(
+                 np.array_equal(np.concatenate(
+                     [b["tokens"], b["labels"][:, -1:]], axis=1), w)
+                 for b, w in ((here.batch_at(i), np.asarray(w))
+                              for i, w in enumerate(g["tokens"]))))
+        clean[g["name"]] = {h["step"]: h["loss"] for h in res["history"]}
+
+    # (b) the first run again with a fault injected: a rollback to the
+    # step-4 checkpoint, whose replay must give the clean run's losses
+    t0 = time.time()
+    g = golden[0]
+    with tempfile.TemporaryDirectory() as d:
+        res = golden_trainer(torch, np, g, d,
+                             inject_failure_at=TRAIN_FAIL_AT).run()
+    ckpt = g["trainer"]["ckpt_every"]
+    steps = [h["step"] for h in res["history"]]
+    check(res["restarts"] == 1 and steps == list(range(TRAIN_FAIL_AT))
+          + list(range(ckpt, g["trainer"]["steps"])),
+          f"train recovery: restarts {res['restarts']}, steps {steps}")
+    after = {h["step"]: h["loss"] for h in res["history"]}
+    replayed = list(range(TRAIN_FAIL_AT, g["trainer"]["steps"]))
+    check(all(after[s] == clean[g["name"]][s] for s in replayed),
+          f"train recovery: the replayed losses {after} differ from the "
+          f"clean run's {clean[g['name']]}")
+    emit("train_recovery", t0, run=g["name"], fault_at=TRAIN_FAIL_AT,
+         restarted_from=ckpt, restarts=res["restarts"], steps=steps,
+         bit_equal_steps=replayed)
+
+    # (c) llama3.2-3b at full width: bf16 compute, f32 master weights and
+    # moments, per-layer remat, the blockwise attention; the attention
+    # projections at their true fan-in (the reference's initializer makes a
+    # 28-layer random model chaotic: its gradients then overflow an f32
+    # norm and clipping stops every step)
+    t0 = time.time()
+    cfg = dataclasses.replace(get_config("llama3.2-3b"), remat=True,
+                              use_pallas=False)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, AdamWConfig(**TRAIN_FULL_OPT), TrainerConfig(
+        steps=TRAIN_FULL["steps"], accum=TRAIN_FULL["accum"],
+        log_every=10**9, seed=0),
+        SyntheticTokens(cfg.vocab, TRAIN_FULL["batch"], TRAIN_FULL["seq"],
+                        seed=0),
+        log=lambda *_: None, device="cuda")
+
+    def init_state(tr=tr):
+        params, opt, comp = Trainer._init_state(tr)
+        fan_in_attention(params, cfg)
+        return params, opt, comp
+
+    tr._init_state = init_state
+    res = tr.run()
+    peak = torch.cuda.max_memory_allocated()
+    params = tr.state[0]
+    losses = [h["loss"] for h in res["history"]]
+    dts = [h["dt"] for h in res["history"]]
+    norms = [m["grad_norm"] for m in tr.metrics]
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    launches = {"flash_attention": fops.flash_attention.launches,
+                "linattn_scan": lops.linattn.launches}
+    del tr, params, res
+    torch.cuda.empty_cache()
+    ops_ms = train_op_ms(torch, cfg)
+    attn = ops_ms["attention"]
+    attn_s = cfg.n_layers * TRAIN_FULL["accum"] * (
+        attn["fwd_ms"] + attn["fwd_bwd_ms"]) / 1e3
+    emit("train_full", t0, arch=cfg.name, dtype=cfg.dtype,
+         master_dtype="float32", remat=cfg.remat,
+         remat_policy=cfg.remat_policy, use_pallas=cfg.use_pallas,
+         **TRAIN_FULL, n_params=n_params, losses=losses, grad_norms=norms,
+         params_finite=finite, step_s=dts, first_step_s=dts[0],
+         tokens_per_s=[tokens / dt for dt in dts[1:]],
+         median_tokens_per_s=tokens / statistics.median(dts[1:]),
+         max_memory_allocated=peak, **ops_ms,
+         attention_s_per_step=attn_s,
+         attention_share_of_step=attn_s / statistics.median(dts[1:]),
+         nvidia_smi=smi)
+    check(finite, "full-width training left a parameter not finite")
+    check(all(math.isfinite(x) for x in norms + losses),
+          f"full-width training: losses {losses}, grad norms {norms}")
+    check(losses[-1] < losses[0],
+          f"full-width training: the loss did not fall ({losses})")
+    check(not any(launches.values()),
+          f"the training phase launched a kernel: {launches}")
+    emit("train", t_phase, kernel_launches=launches,
+         note="no kernel is on the training path: the kernels have no "
+              "backward pass (nor have the JAX package's), so training "
+              "takes the blockwise attention and wkv_chunked")
+
+
 PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "sweep", "ensemble", "alloc", "alloc_sweep", "dag", "dag_sweep",
           "workflow", "workflow_batch", "reliability", "reliability_sweep",
           "serving", "serving_sweep", "malleable", "malleable_sweep",
           "oracle", "window", "multicluster", "replay", "whatif", "flash",
-          "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve")
+          "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve",
+          "train")
 
 
 def main(argv=None) -> int:
@@ -3237,7 +3507,7 @@ def main(argv=None) -> int:
             g.exists() for g in (GOLDEN, LM_GOLDEN, ALLOC_GOLDEN, DAG_GOLDEN,
                                  DAG_SWEEP_GOLDEN, WORKFLOW_GOLDEN,
                                  REL_GOLDEN, SERVING_GOLDEN, MAL_GOLDEN,
-                                 MC_GOLDEN, WHATIF_GOLDEN))):
+                                 MC_GOLDEN, WHATIF_GOLDEN, TRAIN_GOLDEN))):
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch and tests/data are missing)", file=sys.stderr)
         return 1
@@ -3315,7 +3585,8 @@ def main(argv=None) -> int:
         "linattn": lambda: phase_linattn(torch, np),
         "rwkv_golden": lambda: phase_lm_golden(torch, np, "rwkv6-7b",
                                                "rwkv_golden"),
-        "rwkv_serve": lambda: phase_rwkv_serve(torch, np)}
+        "rwkv_serve": lambda: phase_rwkv_serve(torch, np),
+        "train": lambda: phase_train(torch, np, smi)}
     out = {}
     for name in PHASES:
         if only is None or name in only:

@@ -18,9 +18,13 @@ streaming replay of archive traces (``repro_torch.replay``); the host
 oracle (``run_ref``, ``repro_torch.refsim``) that validates any run; the
 what-if capacity-planning service (``repro_torch.service``: queries
 lowered onto ``sweep``, candidate jobs through ``InjectedTrace``, an HTTP
-front end); and
-the dense-family LM serving path (``repro_torch.launch.serve``), whose
-prefill runs the ``flash_attention`` CUDA kernel in every layer:
+front end); the
+dense and rwkv LM serving path (``repro_torch.launch.serve``), whose
+prefill runs the ``flash_attention`` (or ``linattn_scan``) CUDA kernel in
+every layer; and their training (``Trainer``, ``repro_torch.launch.train``:
+the chunked LM loss through the differentiable blockwise attention and
+WKV, AdamW, int8 gradient compression, a deterministic token pipeline,
+checkpoints with rollback and replay):
 
     import repro_torch as rt
 
@@ -53,6 +57,11 @@ prefill runs the ``flash_attention`` CUDA kernel in every layer:
                         total_nodes=(144, 64), policy="backfill",
                         multicluster=rt.Multicluster(window=3600))
     rt.run(multi)["migrated"]
+    cfg = rt.get_config("llama3.2-3b").reduced()
+    tr = rt.Trainer(cfg, rt.AdamWConfig(lr=1e-3),
+                    rt.TrainerConfig(steps=8, accum=2),
+                    rt.SyntheticTokens(cfg.vocab, batch=4, seq=32))
+    tr.run()["history"]      # [{"step", "loss", "dt"}], on cuda
 
 A sweep runs each static bucket of its grid as one ensemble
 (``simulate_ensemble``), whose members advance in lockstep and share each
@@ -69,15 +78,21 @@ from repro_torch.api import (
     simulate_workflow, simulate_workflow_ensemble, stack_jobsets,
     stack_tasksets, sweep, workflow_result_np,
 )
+from repro_torch.configs.base import get_config
 from repro_torch.core.engine import simulate, simulate_window
+from repro_torch.data.pipeline import MemmapTokens, SyntheticTokens
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-__all__ = ["ArrayTrace", "AutoscalePolicy", "FailureModel",
-           "InjectedTrace", "MalleableModel", "Multicluster", "Result",
+__all__ = ["AdamWConfig", "ArrayTrace", "AutoscalePolicy", "FailureModel",
+           "InjectedTrace", "MalleableModel", "MemmapTokens", "Multicluster",
+           "Result",
            "Scenario", "ServiceClass", "ServiceTrace", "SwfTrace",
-           "SweepCacheStats", "SweepResult", "SyntheticTrace", "Topology",
+           "SweepCacheStats", "SweepResult", "SyntheticTokens",
+           "SyntheticTrace", "Topology", "Trainer", "TrainerConfig",
            "WF_POLICY_IDS",
            "WorkflowTrace", "cache_stats", "critical_path_length",
-           "make_taskset", "reset_cache_stats", "run", "run_ref",
+           "get_config", "make_taskset", "reset_cache_stats", "run", "run_ref",
            "simulate",
            "simulate_alloc_sweep", "simulate_ensemble",
            "simulate_multicluster", "simulate_window", "simulate_workflow",

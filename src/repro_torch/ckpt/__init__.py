@@ -1,6 +1,7 @@
 """Durable, crc-checked checkpoints of host arrays (the streaming replay
-runner's)."""
+runner's and the trainer's)."""
 
 from repro_torch.ckpt.store import (  # noqa: F401
-    latest_step, load_checkpoint_raw, save_checkpoint,
+    CheckpointManager, latest_step, load_checkpoint, load_checkpoint_raw,
+    save_checkpoint,
 )

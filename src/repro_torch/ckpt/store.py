@@ -4,13 +4,18 @@ manifest, written atomically and verified by crc32 on load.
 - **atomic**: a checkpoint is written into ``<dir>/tmp.<step>`` and
   published by one rename to ``step_<step>``, so a crash in the middle of
   a write never corrupts the latest checkpoint;
-- **integrity**: the manifest records each leaf's crc32, checked on load.
+- **integrity**: the manifest records each leaf's crc32, checked on load;
+- **async**: ``CheckpointManager(async_save=True)`` snapshots the tree to
+  host memory, then writes it from a daemon thread while the caller goes
+  on.
 
-The port's copy of what the streaming replay runner uses of
-``repro.ckpt.store`` (numpy only): :func:`save_checkpoint`,
-:func:`load_checkpoint_raw`, :func:`latest_step`.  The template-based
-restore and the manager serve training, which the port does not carry
-yet (ROADMAP Queue 1 item 10).
+The port's copy of ``repro.ckpt.store`` (numpy and host threads): the
+streaming replay runner's template-free :func:`load_checkpoint_raw`, and
+the trainer's :func:`load_checkpoint` into a template's structure and
+devices.  Trees are those of ``repro_torch.tree``: dicts, lists, tuples
+and dataclasses, keys joined by ``/``.  Leaves are stored whole; the
+sharded restore of the reference (``shardings``) waits for the sharded
+layout (ROADMAP Queue 1 item 10(f)).
 """
 
 from __future__ import annotations
@@ -18,25 +23,22 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import zlib
 from typing import Any, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.tree import tree_items, tree_map, tree_map_with_path
 
 
-def _flatten(tree: Any, prefix: str = "") -> list:
-    """``[(key, leaf)]`` of a tree of dicts, lists and tuples, dict keys in
-    sorted order and joined by ``/``."""
-    if isinstance(tree, dict):
-        items = sorted(tree.items())
-    elif isinstance(tree, (list, tuple)):
-        items = list(enumerate(tree))
-    else:
-        return [(prefix, tree)]
-    out = []
-    for k, v in items:
-        out += _flatten(v, f"{prefix}/{k}" if prefix else str(k))
-    return out
+def _host(leaf) -> np.ndarray:
+    """A host copy of a leaf, never a view of memory the caller may
+    update in place."""
+    if isinstance(leaf, torch.Tensor):
+        return np.array(leaf.detach().cpu())
+    return np.array(leaf)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
@@ -50,8 +52,8 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
-    for i, (key, leaf) in enumerate(_flatten(tree)):
-        arr = np.asarray(leaf)
+    for i, (key, leaf) in enumerate(tree_items(tree)):
+        arr = _host(leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"].append({
@@ -101,3 +103,71 @@ def load_checkpoint_raw(ckpt_dir: str, *, step: Optional[int] = None,
             raise IOError(f"crc mismatch for leaf {rec['key']!r} in {path}")
         leaves[rec["key"]] = arr
     return leaves, manifest["step"], manifest.get("extra", {})
+
+
+def load_checkpoint(ckpt_dir: str, template: Any, *,
+                    step: Optional[int] = None, verify: bool = True):
+    """Restore into ``template``'s structure: ``(tree, step, extra)``.
+
+    Each leaf is looked up by its key, checked against the manifest's crc32
+    and the template leaf's shape, and placed on the template leaf's device
+    (a tensor leaf) or returned as a host array."""
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    by_key = {rec["key"]: rec for rec in manifest["leaves"]}
+
+    def restore(key, tmpl):
+        rec = by_key.get(key)
+        if rec is None:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        arr = np.load(os.path.join(path, rec["file"]))
+        if verify and zlib.crc32(arr.tobytes()) != rec["crc32"]:
+            raise IOError(f"crc mismatch for leaf {key!r} in {path}")
+        if tuple(arr.shape) != tuple(np.shape(tmpl)):
+            raise ValueError(
+                f"checkpoint leaf {key!r} has shape {arr.shape}, template "
+                f"expects {tuple(np.shape(tmpl))}: wrong model/config for "
+                "this checkpoint directory?")
+        if isinstance(tmpl, torch.Tensor):
+            return torch.from_numpy(arr).to(tmpl.device)
+        return arr
+
+    tree = tree_map_with_path(restore, template)
+    return tree, manifest["step"], manifest.get("extra", {})
+
+
+class CheckpointManager:
+    """keep-last-k manager with optional async writes."""
+
+    def __init__(self, ckpt_dir: str, *, keep: int = 3,
+                 async_save: bool = False):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self.last_saved: Optional[int] = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def save(self, step: int, tree: Any, *, extra: Optional[dict] = None):
+        host_tree = tree_map(_host, tree)          # snapshot
+        self.wait()
+        if self.async_save:
+            self._thread = threading.Thread(
+                target=save_checkpoint, args=(self.ckpt_dir, step, host_tree),
+                kwargs={"extra": extra, "keep": self.keep}, daemon=True)
+            self._thread.start()
+        else:
+            save_checkpoint(self.ckpt_dir, step, host_tree, extra=extra,
+                            keep=self.keep)
+        self.last_saved = step
+
+    def restore(self, template: Any, *, step: Optional[int] = None):
+        return load_checkpoint(self.ckpt_dir, template, step=step)

@@ -26,7 +26,10 @@ from repro_torch.core.jobs import (
     machine_fields,
 )
 from repro_torch.models.lm import LM, param_defs
+from repro_torch.optim.adamw import OptState
+from repro_torch.optim.compression import CompressionState
 from repro_torch.sharding.rules import ParamDef, map_defs
+from repro_torch.tree import tree_map
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -82,12 +85,15 @@ def lm_params_from_numpy(tree, device) -> LM:
 
 
 def numpy_lm_params(cfg: ModelConfig, seed: int,
-                    live_seed: Optional[int] = None) -> dict:
+                    live_seed: Optional[int] = None,
+                    fan_in: bool = False) -> dict:
     """Seeded numpy weights over the port's ``param_defs``: each leaf drawn
     in turn (sorted key order) from ``np.random.default_rng(seed)`` and
     scaled as ``init_from_defs`` scales; with ``live_seed``, an rwkv
     model's zero-init leaves are then drawn by :func:`set_rwkv_live_leaves`
-    from that seed.  The same tree feeds the JAX package (``jnp.asarray``
+    from that seed; with ``fan_in``, a dense model's attention projections
+    are then scaled to their true fan-in (:func:`scale_attention_fan_in`).
+    The same tree feeds the JAX package (``jnp.asarray``
     per leaf) and, through :func:`lm_params_from_numpy`, the port: this is
     how the golden file ``tests/data/torch_lm_golden.json`` and
     ``chip_smoke.py`` give a card without JAX the weights of a JAX run."""
@@ -103,7 +109,48 @@ def numpy_lm_params(cfg: ModelConfig, seed: int,
     tree = map_defs(leaf, param_defs(cfg))
     if live_seed is not None:
         set_rwkv_live_leaves(tree, cfg, live_seed)
+    if fan_in:
+        scale_attention_fan_in(tree, cfg)
     return tree
+
+
+def scale_attention_fan_in(tree: dict, cfg: ModelConfig) -> None:
+    """Scale, in place, a dense numpy tree's attention projections from
+    the reference initializer's fan-in (the heads axis) to their true one:
+    std ``d_model^-0.5`` for ``wq``/``wk``/``wv``, ``(H hd)^-0.5`` for
+    ``wo``.  Drawn the reference's way, q and k reach ~20 and a random
+    model is chaotic: two f32 implementations drift apart through its
+    layers (and its training steps) by more than their rounding.  Test data,
+    as ``chip_smoke.py``'s ``fan_in_attention`` is for a torch tree."""
+    a = tree["blocks"]["attn"]
+    for n in ("wq", "wk", "wv"):                          # [L, D, heads, hd]
+        a[n] = a[n] * np.float32((a[n].shape[2] / cfg.d_model) ** 0.5)
+    a["wo"] = a["wo"] * np.float32(a["wo"].shape[1] ** -0.5)   # [L, H, hd, D]
+
+
+def _from_numpy(tree, device):
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def opt_state_from_numpy(m, v, step, device) -> OptState:
+    """The port's ``OptState`` from numpy trees of the moments (the
+    reference's ``OptState.m``/``.v``) and its step count."""
+    return OptState(m=_from_numpy(m, device), v=_from_numpy(v, device),
+                    step=torch.tensor(int(step), dtype=torch.int32,
+                                      device=device))
+
+
+def compression_state_from_numpy(residual, device) -> CompressionState:
+    """The port's ``CompressionState`` from a numpy tree (or 0-d array) of
+    the reference's residuals."""
+    return CompressionState(residual=_from_numpy(residual, device))
+
+
+def state_to_numpy(tree):
+    """A tree of the port's tensors (an ``LM``, an ``OptState``, a
+    ``CompressionState``, a gradient tree) as the same tree of numpy
+    arrays."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def set_rwkv_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:

@@ -205,8 +205,14 @@ def flash_attention(
     """GQA attention forward, ``[B, Sq, H, hd]`` in q's dtype.
 
     ``block_q``/``block_k`` are accepted for the JAX wrapper's signature;
-    the kernels pick their own tiles."""
+    the kernels pick their own tiles.  Forward only: with grad mode on and
+    an input that requires grad it raises, on every device."""
     del block_q, block_k
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward pass (the reference cannot "
+            "differentiate its Pallas kernel either): train with "
+            "use_pallas=False, which takes the blockwise attention")
     _check(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,

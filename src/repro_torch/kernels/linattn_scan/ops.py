@@ -175,9 +175,16 @@ def linattn(r, k, v, logw, u, *, chunk: int = 128, return_state: bool = False):
     ``return_state``, ``(y, state)`` where state is the final f32
     ``[B, H, K, K]``, key axis first.  ``chunk`` is accepted for the JAX
     wrapper's signature; the kernels pick their own chunk, which changes the
-    result only by rounding.
+    result only by rounding.  Forward only: with grad mode on and an input
+    that requires grad it raises, on every device.
     """
     del chunk
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, logw, u)):
+        raise RuntimeError(
+            "linattn has no backward pass (the reference cannot "
+            "differentiate its Pallas kernel either): train with "
+            "use_pallas=False, which takes wkv_chunked")
     _check(r, k, v, logw, u)
     if r.device.type == "cpu":
         y, state = linattn_reference(r, k, v, logw, u)

@@ -1,1 +1,1 @@
-"""Launchers: batched LM serving."""
+"""Launchers: batched LM serving and training."""

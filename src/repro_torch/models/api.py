@@ -1,5 +1,6 @@
 """Family-dispatching facade over the port's models (the dense and rwkv
-families so far): counterpart of ``repro.models.api``."""
+families so far): counterpart of ``repro.models.api``, with ``loss_fn``
+for training and ``prefill``/``decode_step`` for serving."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.sharding.rules import count_params, init_from_defs
 class ModelAPI:
     cfg: ModelConfig
     param_defs: Any
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     cache_defs_fn: Callable
@@ -34,6 +36,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         param_defs=lm.param_defs(cfg),
+        loss_fn=lambda p, b: lm.loss_fn(p, b, cfg),
         prefill=lambda p, b: lm.prefill(p, b, cfg),
         decode_step=lambda p, t, pos, c: lm.decode_step(p, t, pos, c, cfg),
         cache_defs_fn=lambda batch, seq: lm.cache_defs(cfg, batch, seq),

@@ -7,6 +7,13 @@ key-validity mask.  ``attend`` takes the CUDA kernel
 (``repro_torch.kernels.flash_attention``) when ``cfg.use_pallas`` is set,
 as the JAX package takes its Pallas kernel, and ``blockwise_attention``
 otherwise.  ``decode_attention`` is plain tensor code in both packages.
+
+``blockwise_attention`` is differentiable, and training takes it: while
+autograd records, each KV tile's step is checkpointed (recomputed in the
+backward pass), as the reference checkpoints its tile.  The CUDA kernel
+has no backward pass, nor has the reference's Pallas kernel: with
+``cfg.use_pallas`` set, a loss that needs gradients through ``attend``
+raises.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.layers import checkpointed
 from repro_torch.sharding.rules import ParamDef
 
 NEG_INF = -1e30
@@ -110,6 +118,12 @@ def blockwise_attention(
     q_positions = q_offset + torch.arange(Sq, device=dev)
     k_positions = torch.arange(Sk, device=dev)
 
+    def tile(m, l, a, qt, kt, vt, qp, kp, kval):
+        """Fold one KV tile into a query tile's (m, l, acc)."""
+        return _combine(m, l, a, *_block_attn(
+            qt, kt, vt, qp, kp, causal=causal, window=window, scale=scale,
+            k_valid=kval))
+
     # Ragged last tiles stand for the JAX package's padding to tile
     # multiples (a padded key is masked, a padded query row dropped); the two
     # agree on every row that sees at least one key.
@@ -122,10 +136,8 @@ def blockwise_attention(
         a = torch.zeros((B, KV, G, n, hd), dtype=qt.dtype, device=dev)
         for k0 in range(0, Sk, block_k):
             sl = slice(k0, k0 + block_k)
-            m2, l2, a2 = _block_attn(
-                qt, k[:, sl], v[:, sl], qp, k_positions[sl], causal=causal,
-                window=window, scale=scale, k_valid=kv_valid[sl])
-            m, l, a = _combine(m, l, a, m2, l2, a2)
+            m, l, a = checkpointed(tile, m, l, a, qt, k[:, sl], v[:, sl], qp,
+                                   k_positions[sl], kv_valid[sl])
         outs.append(a / torch.clamp(l, min=1e-30)[..., None].to(a.dtype))
     out = torch.cat(outs, dim=3)                          # [B,KV,G,Sq,hd]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)

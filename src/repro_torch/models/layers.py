@@ -1,15 +1,24 @@
 """Shared neural building blocks: plain functions on tensors.
 
 Counterpart of ``repro.models.layers`` (norms, MLP, rotary embeddings,
-embeddings and logits).  Parameters are nested dicts of tensors with the
-JAX package's names and shapes; weights are kept in f32 and cast to the
-activations' dtype at use, as there.
+embeddings and logits, the training loss).  Parameters are nested dicts of
+tensors with the JAX package's names and shapes; weights are kept in f32
+and cast to the activations' dtype at use, as there.
+
+Where the reference wraps a step in ``jax.checkpoint`` (a loss chunk, a
+KV tile, a WKV chunk, a layer under ``cfg.remat``), the port calls it
+through :func:`checkpointed`: while autograd records, the step's
+activations are recomputed in the backward pass instead of kept; under
+``no_grad`` or ``inference_mode`` the step simply runs.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding.rules import ParamDef
@@ -17,6 +26,16 @@ from repro_torch.sharding.rules import ParamDef
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def checkpointed(fn, *args, context_fn=None):
+    """``fn(*args)``, its activations recomputed in the backward pass when
+    autograd records (``jax.checkpoint``); ``context_fn`` selects what is
+    kept instead (see ``lm._maybe_remat``)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -117,8 +136,12 @@ def embed_defs(cfg: ModelConfig):
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    # gather, then cast: the same values as casting the whole table first
-    return p["tok"][tokens].to(compute_dtype(cfg))
+    # Gather, then cast: the same values as casting the whole table first.
+    # F.embedding, not indexing: its CUDA backward sums the rows of repeated
+    # tokens in a fixed order, where indexing's (an accumulating index_put_)
+    # adds them with atomics, so a replayed training step would not repeat
+    # its embedding gradient bit for bit.
+    return F.embedding(tokens, p["tok"]).to(compute_dtype(cfg))
 
 
 def logits_from_hidden(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -126,3 +149,53 @@ def logits_from_hidden(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["tok"].to(dt).T
     return x @ p["unembed"].to(dt)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in f32; labels [B, S] ints."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _chunk_nll(embed_p, cfg, hc, lc):
+    """(sum of the chunk's NLL, its count of labels >= 0)."""
+    lf = logits_from_hidden(embed_p, hc, cfg).float()     # [B, chunk, V]
+    lse = torch.logsumexp(lf, dim=-1)                     # [B, chunk]
+    # the gold logit by a select over the vocab, as the reference takes it
+    # (its gradient is the reference's; a gather's would scatter)
+    iota = torch.arange(lf.shape[-1], device=lf.device)
+    gold = torch.sum(torch.where(iota == lc[..., None], lf, 0.0), dim=-1)
+    valid = (lc >= 0).float()
+    nll = (lse - gold) * valid
+    return torch.sum(nll), torch.sum(valid)
+
+
+def chunked_lm_loss(embed_p, h: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig, *, chunk: int = 1024) -> torch.Tensor:
+    """Fused unembed + CE over sequence chunks: mean NLL of the labels >= 0.
+
+    Never materializes the [B, S, V] logits: per chunk the [B, chunk, V]
+    logits are computed, reduced to (lse, gold) and dropped, and the
+    backward pass recomputes them chunk by chunk.  The sequence is padded
+    to a chunk multiple with label -1, which counts nowhere.
+    """
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S + pad, chunk):
+        nll, n = checkpointed(
+            lambda hc, lc: _chunk_nll(embed_p, cfg, hc, lc),
+            h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+        total, count = total + nll, count + n
+    return total / torch.clamp(count, min=1.0)

@@ -6,6 +6,7 @@ declarative ``param_defs`` tree with stacked ``[L, ...]`` layer leaves, the
 JAX package's names and shapes, held in an :class:`LM` module; the building
 blocks are plain functions on its tree:
 
+    loss_fn(params, batch, cfg)                -> (loss, {"ce", "aux"})
     forward(params, batch, cfg)                -> (logits, cache or None)
     prefill(params, batch, cfg)                -> (last_logits, cache)
     decode_step(params, tokens, pos, cache, cfg) -> (logits, cache)
@@ -16,21 +17,34 @@ the whole sequence goes through ``attention.attend``, which runs the CUDA
 kernel when ``cfg.use_pallas`` is set, and the rwkv time-mix over the whole
 sequence through ``rwkv.apply_time_mix``, which runs the ``linattn_scan``
 CUDA kernel when it is set.
+
+``loss_fn`` is the training path: it is differentiable through the plain
+blockwise attention and ``wkv_chunked`` (the kernels have no backward
+pass), with each layer checkpointed under ``cfg.remat``
+(:func:`_maybe_remat`).  ``prefill`` and ``decode_step`` serve and record
+no gradients.  A stacked layer leaf of the tree a loss is taken of may also
+be a sequence of per-layer tensors (the trainer's view, whose gradients
+land in per-layer slices instead of a full ``[L, ...]`` tensor a layer).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.layers import (
-    apply_mlp, apply_norm, apply_rope, compute_dtype, embed_defs,
-    embed_tokens, logits_from_hidden, mlp_defs, norm_defs, rms_norm_simple,
+    apply_mlp, apply_norm, apply_rope, checkpointed, chunked_lm_loss,
+    compute_dtype, embed_defs, embed_tokens, logits_from_hidden, mlp_defs,
+    norm_defs, rms_norm_simple,
 )
 from repro_torch.sharding.rules import ParamDef
 
@@ -46,8 +60,9 @@ def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
-            "yet (ROADMAP Queue 1 item 10: moe, hybrid, vlm and encdec come "
-            "after the dense and rwkv families)")
+            "yet (ROADMAP Queue 1 item 10(b)-(e): moe, hybrid, vlm and "
+            "encdec come after the dense and rwkv families, whose serving "
+            "and training are ported)")
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +130,14 @@ def _tree(m: nn.Module) -> Tree:
 class LM(nn.ModuleDict):
     """An LM's parameters in the JAX package's tree: one submodule per dict
     level, one parameter per leaf, layers stacked on a leading ``[L]`` axis,
-    so ``state_dict()`` keys are the JAX tree's paths (``blocks.attn.wq``)."""
+    so ``state_dict()`` keys are the JAX tree's paths (``blocks.attn.wq``).
+
+    The leaves are created frozen: serving wants them so, and frozen
+    leaves may be edited in place.  ``requires_grad_()`` makes them
+    trainable, and ``loss_fn`` of the module then back-propagates into each
+    leaf's ``.grad``; the trainer keeps the module frozen and
+    differentiates its own per-layer view of the leaves
+    (``runtime.trainer``)."""
 
     def __init__(self, tree: Tree):
         super().__init__({k: _module(x) for k, x in tree.items()})
@@ -125,7 +147,8 @@ class LM(nn.ModuleDict):
 
 
 def _layer(tree: Tree, i: int) -> Tree:
-    """Layer ``i`` of a stacked tree (views, no copies)."""
+    """Layer ``i`` of a stacked tree (views, no copies), or of a tree whose
+    stacked leaves are sequences of per-layer tensors."""
     return {k: _layer(x, i) if isinstance(x, dict) else x[i]
             for k, x in tree.items()}
 
@@ -196,15 +219,42 @@ def _rwkv_block(cfg, p, h, *, cache=None):
 # full forward passes
 # ---------------------------------------------------------------------------
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep matrix products' outputs, recompute the rest
+    (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(cfg, fn):
+    """``fn`` (one layer) checkpointed under ``cfg.remat``, as the
+    reference's scan body: policy ``"nothing"`` recomputes the whole layer
+    in the backward pass, ``"dots"`` keeps the matrix products' outputs
+    (selective checkpointing)."""
+    if not cfg.remat:
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _save_dots)
+                  if cfg.remat_policy == "dots" else None)
+    return lambda *args: checkpointed(fn, *args, context_fn=context_fn)
+
+
 def _stack_forward(cfg, params, h, positions, collect_cache: bool):
-    """The layers in turn; returns (h, cache tree or None)."""
+    """The layers in turn, each under :func:`_maybe_remat`; returns (h,
+    cache tree or None)."""
+    def layer(h, lp):
+        if cfg.family == "rwkv":
+            return _rwkv_block(cfg, lp, h)
+        return _block(cfg, lp, h, positions)
+
+    layer = _maybe_remat(cfg, layer)
     cache = None
     for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        if cfg.family == "rwkv":
-            h, kv = _rwkv_block(cfg, lp, h)
-        else:
-            h, kv = _block(cfg, lp, h, positions)
+        h, kv = layer(h, _layer(params["blocks"], i))
         if collect_cache:
             if cache is None:
                 cache = {n: t.new_empty((cfg.n_layers,) + t.shape)
@@ -245,10 +295,25 @@ def forward(params: LM, batch, cfg: ModelConfig, *, collect_cache=False,
     return logits_from_hidden(params["embed"], h, cfg), cache
 
 
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Mean next-token CE of ``batch["labels"]`` (``chunked_lm_loss``).
+    Returns ``(loss + 0.01 * aux, {"ce", "aux"})``; ``aux``, the MoE
+    balance loss in the reference, is 0 for the dense and rwkv families.
+
+    ``params`` is an ``LM`` or its tree, whose stacked layer leaves may be
+    sequences of per-layer tensors."""
+    params = params.tree() if isinstance(params, LM) else params
+    h, _ = _backbone(params, batch, cfg, collect_cache=False)
+    loss = chunked_lm_loss(params["embed"], h, batch["labels"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
 # ---------------------------------------------------------------------------
 # serving: prefill + single-token decode
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def prefill(params: LM, batch, cfg: ModelConfig):
     """Process a full prompt; emit last-position logits and a cache.
 
@@ -263,6 +328,7 @@ def prefill(params: LM, batch, cfg: ModelConfig):
     return logits[:, -1], cache
 
 
+@torch.no_grad()
 def decode_step(params: LM, tokens: torch.Tensor, pos: int, cache: Tree,
                 cfg: ModelConfig):
     """One decode step.  tokens: [B] ints; pos: the position they take;

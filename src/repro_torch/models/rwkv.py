@@ -12,6 +12,11 @@ sequence takes the chunked closed form (f32, log-space decays): the
 ``wkv_chunked`` otherwise; decode takes the one-token recurrence
 ``wkv_step``.  Channel-mix is the squared-relu FFN.
 
+``wkv_chunked`` is differentiable and is the training path, each chunk
+checkpointed as in the reference.  The kernel has no backward pass, nor
+has the reference's Pallas kernel: with ``cfg.use_pallas`` set, a loss
+that needs gradients through the time-mix raises.
+
 Unlike the JAX package, the full-sequence path of both mixes returns the
 cache it leaves behind (the final WKV state and the last input position of
 each token shift): the port's prefill hands it to decode.
@@ -26,7 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.linattn_scan.ops import linattn
-from repro_torch.models.layers import rms_norm_simple
+from repro_torch.models.layers import checkpointed, rms_norm_simple
 from repro_torch.sharding.rules import ParamDef
 
 LORA_R = 64
@@ -75,7 +80,8 @@ def _mix(x, z, mu):
 
 
 def wkv_chunked(r, k, v, logw, u, chunk: int):
-    """Chunked WKV, plain PyTorch. r/k/v/logw: [B, S, H, K]; u: [H, K].
+    """Chunked WKV, plain PyTorch and differentiable. r/k/v/logw:
+    [B, S, H, K]; u: [H, K].
 
     Returns y [B, S, H, K] in r's dtype and the final state [B, H, K, K]
     in f32 (key dim first).
@@ -88,10 +94,10 @@ def wkv_chunked(r, k, v, logw, u, chunk: int):
     uf = u.float()
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=r.device),
                       diagonal=-1)                       # strictly past
-    state = torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
-    ys = []
-    for c0 in range(0, S + pad, Q):
-        rq, kq, vq, lwq = (a[:, c0:c0 + Q].float() for a in (r, k, v, logw))
+
+    def chunk_step(state, rq, kq, vq, lwq):
+        """One chunk: (state after it, its y in f32)."""
+        rq, kq, vq, lwq = (a.float() for a in (rq, kq, vq, lwq))
         E = torch.cumsum(lwq, dim=1)                     # inclusive log-decay
         Eex = E - lwq                                    # exclusive (through t-1)
         # intra-chunk pairwise decays in log space (exponent <= 0 for t > s)
@@ -108,6 +114,15 @@ def wkv_chunked(r, k, v, logw, u, chunk: int):
         kw = kq * torch.exp(Eq[:, None] - E)
         state = torch.exp(Eq)[..., None] * state + torch.einsum(
             "bshk,bshv->bhkv", kw, vq)
+        return state, y
+
+    state = torch.zeros((B, H, K, K), dtype=torch.float32, device=r.device)
+    ys = []
+    for c0 in range(0, S + pad, Q):
+        # checkpointed: the backward pass recomputes the chunk's [Q, Q, H, K]
+        # decays, as the reference's jax.checkpoint does
+        state, y = checkpointed(chunk_step, state,
+                                *(a[:, c0:c0 + Q] for a in (r, k, v, logw)))
         ys.append(y)
     y = torch.cat(ys, dim=1)[:, :S]
     return y.to(r.dtype), state
