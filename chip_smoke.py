@@ -265,8 +265,11 @@ Phases, each printing one JSON line with its wall time:
              (the tensor-core sm90 kernel), causal, windowed and full, and
              bf16 cases that stress the sm90 tiling: stablelm-3b's heads
              (hd 80), h2o-danube-1.8b's heads with its window of 4,096
-             over 4,608 positions, and Sk = 2,049; each call counted on
-             its dtype's route.  Then, at the serve shape, the sm90
+             over 4,608 positions, and Sk = 2,049; the prefill calls of
+             phases 12c and 12e at their serve shapes (mixtral-8x7b 2 x
+             6,144 with its window, llama4-scout 4 x 2,048 over a GQA
+             group of 5, zamba2-2.7b 4 x 2,048 at hd 80); each call
+             counted on its dtype's route.  Then, at the serve shape, the sm90
              kernel's time beside the f32 kernel's (in f32), the plain
              version, F.scaled_dot_product_attention (the library
              yardstick, never called by the port) and the compute bound,
@@ -310,6 +313,44 @@ Phases, each printing one JSON line with its wall time:
              kernel once per layer (32) and the CUDA-core kernel never;
              then one profiled prefill and one profiled decode step, as in
              phase 9.
+12b. moe_golden - reduced mixtral-8x7b (an 80-token prompt past its
+             64-token window: the ring and the window both bind, slots
+             dropped in the prefill) and reduced llama4-scout-17b-a16e (QK
+             norms drawn live), f32 on the kernel path, held to the JAX
+             package's prefill logits and to the tokens of its prefill
+             followed by its decode_step (tests/data/torch_lm_golden.json;
+             each entry's least router margin at least ROUTER_TIE).
+12c. moe_serve - mixtral-8x7b (10 of 32 layers) and llama4-scout (6 of
+             48) at full layer width, f32 weights, random from seed 0 with
+             the attention projections at their true fan-in and scout's QK
+             norms drawn live: (a) in f32, layer 0's apply_moe at a
+             capacity that drops nothing against the explicit top-k mixture
+             on 512 tokens; on one 4,608-token prompt (past mixtral's
+             window) layer 0's attention sublayer on the kernel path
+             against the plain path, and the whole model's last-position
+             logits, kernel path against plain path, under the routing
+             rule of ROUTER_TIE, and with the kernel path forced to the
+             plain path's experts within CHECK_TOL; (b) the bf16 serve through serve_batch,
+             cold then warm (mixtral 2 x 6,144 prompt tokens + 32, 8
+             dispatch groups a row; scout 4 x 2,048 + 32), which must
+             launch the sm90 kernel once a layer and drop no slot in a
+             decode step: prefill s, decode tok/s, peak memory, the slots
+             each layer's prefill dropped; (c) one profiled prefill and
+             decode step, the MoE layers' share of device time beside
+             flash's.
+12d. hybrid_golden - reduced zamba2-2.7b (Mamba2 leaves drawn live; a
+             40-token prompt: two 16-step chunks and a ragged one), f32
+             on the kernel path, held to the JAX package's prefill logits
+             and serve_batch tokens.
+12e. hybrid_serve - zamba2-2.7b at full width and depth (54 Mamba2 layers,
+             the shared attention block 9 times, hd 80), Mamba2 leaves
+             live: (a) in f32, one full-width Mamba2 layer's chunked scan
+             against the one-step recurrence on 512 tokens, and a
+             512-token prefill on the kernel path against the plain path
+             (logits and SSM states); (b) the bf16 serve of 4 x 2,048 +
+             32 tokens, cold then warm, 9 sm90 flash launches a prefill;
+             (c) one profiled prefill and decode step, the Mamba2 layers'
+             share of device time beside flash's.
 13. train  - training on the card (repro_torch.runtime.Trainer):
              (a) reduced llama3.2-3b (accum=2) and reduced rwkv6-7b (int8
              gradient compression), f32, 8 steps of 4 x 32 synthetic
@@ -334,7 +375,7 @@ Each kernel's launch counter is set to 0 before each run of its main path
 its walk, phases 6b, 6c, 6e, 6g, 6j, 6l, 6n and 6q and each pass of 6s
 for their batched entries, each batch
 of phase 6h' for the batched generic entry, the serve
-of phase 9 for flash_attention,
+of phases 9, 12c and 12e for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  Phase 13 must launch none.  TF32 is off for
 matrix products and convolutions throughout.  The script catches nothing: any failed check
@@ -350,6 +391,7 @@ prints neither the kernels table nor the ok line).
 from __future__ import annotations
 
 import argparse
+import bisect
 import hashlib
 import json
 import math
@@ -446,12 +488,18 @@ FLASH_SHAPES = [
 FLASH_MASKS = [(True, None), (True, 96), (False, None)]
 # bf16 only, the sm90 kernel's tiling: hd 80 (stablelm-3b's 32 heads),
 # h2o-danube-1.8b's 32 over 8 heads with its window of 4,096 cutting tiles,
-# and Sk = 2,049 (one key past a tile), whole and after a cache
+# and Sk = 2,049 (one key past a tile), whole and after a cache; then the
+# prefill calls of phase 12c's serves: mixtral-8x7b's 32 over 8 heads with
+# its 4,096 window binding over 2,048 positions, llama4-scout's 40 over 8
+# (a GQA group of 5), and of phase 12e's: zamba2-2.7b's 32 heads of 80
 FLASH_BF16_CASES = [
     ((1, 2048, 2048, 32, 32, 80), FLASH_MASKS),
     ((1, 4608, 4608, 32, 8, 80), [(True, 4096)]),
     ((1, 2049, 2049, 24, 8, 128), FLASH_MASKS),
     ((2, 77, 2049, 24, 8, 128), FLASH_MASKS),
+    ((2, 6144, 6144, 32, 8, 128), [(True, 4096)]),
+    ((4, 2048, 2048, 40, 8, 128), [(True, None)]),
+    ((4, 2048, 2048, 32, 32, 80), [(True, None)]),
 ]
 FLASH_HD80 = (1, 2048, 2048, 32, 32, 80)   # timed, causal
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py
@@ -495,6 +543,49 @@ LINATTN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # as tests/test_kernels.py
 LINATTN_TIMED, LINATTN_PLAIN_TIMED = 50, 3
 RWKV_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
 RWKV_LIVE_SEED = 7
+# phase moe_serve: full layer width, the layers cut to what 80 GB holds in
+# f32 (mixtral-8x7b 5.805 GB a layer, 58.5 GB with the embedding;
+# llama4-scout 8.81 GB a layer and a 4.14 GB embedding, 57.0 GB), and each
+# serve's requests: mixtral's 6,144-token prompts pass its 4,096 window
+# and split into 8 dispatch groups a row
+MOE_SERVE = {
+    "mixtral-8x7b": (10, {"batch": 2, "prompt_len": 6144, "gen": 32}),
+    "llama4-scout-17b-a16e": (6, {"batch": 4, "prompt_len": 2048,
+                                  "gen": 32}),
+}
+MOE_CHECK_LEN = 4608             # the f32 checks' prompt, past the window
+MOE_DENSE_LEN = 512              # the no-drop oracle's tokens
+MOE_LIVE_SEED = 7                # scout's QK norms
+# The f32 routing rule, kernel path against plain path: a routing decision
+# (an expert picked, a slot kept) may differ between the two only where
+# its top-k router margin is under ROUTER_TIE on both paths, and a kept
+# slot only in a dispatch group where an expert pick differs.  Top-k is
+# discontinuous: f32 rounding (~1e-6 of a probability) can flip a
+# near-tie among a prompt's ~46,000 decisions.  It holds for every layer
+# run from one input on both paths, and for the whole model up to the
+# first layer where a decision differs: past it the token routed to other
+# experts differs by O(1), and the layers after route others differently
+# too (scripts/moe_route_probe.py: mixtral's layer 3 flips a token of
+# margin 4.2e-7, and the plain path flips it against itself with other
+# attention tiles).  With no decision different the logits must meet
+# CHECK_TOL; and the kernel path run on the plain path's experts
+# (moe.forcing) must meet it whatever flipped.
+ROUTER_TIE = 1e-5
+HYBRID_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
+HYBRID_LIVE_SEED = 7             # zamba2's Mamba2 leaves
+SSD_TOL = (2e-4, 2e-3)           # atol, rtol: tests/test_models.py's scan check
+# Phase hybrid_serve (a): two f32 evaluations of the full 54-layer model
+# part by more than CHECK_TOL whatever their attention: the plain path
+# against itself with other attention tiles 2.41e-4 in the logits, the
+# kernel path against the plain path 2.26e-4, each f32 path 7.6e-4 and
+# 8.1e-4 from the plain path in float64, the gap growing group by group
+# through the Mamba2 layers (f32 log-decay sums of steep decays), while
+# the shared block from one input on both paths parts by ~2e-7 of its
+# largest entry (scripts/hybrid_drift_probe.py, NVIDIA H100 80GB HBM3).
+# So each group's shared block is held to CHECK_TOL from one input, and
+# the whole model's f32 logits and SSM states on the kernel path may add
+# at most CHECK_TOL to the plain path's distance from the float64
+# evaluation.
 TRAIN_FAIL_AT = 5                # phase 13b: the injected fault's step
 TRAIN_FULL = {"batch": 2, "seq": 2048, "accum": 2, "steps": 8}
 # Adam's first steps are sign steps, each weight moving by the learning
@@ -545,14 +636,16 @@ def time_ms(fn, n: int = TIMED_LAUNCHES, warm: int = 10) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
-def device_events(prof) -> dict:
+def device_events(prof, skip=()) -> dict:
     """``{name: (count, total_us)}`` over the device-side events (kernels,
     copies, memsets) of a torch.profiler run.  Host-side ops are left out:
-    their device time repeats that of the kernels they launched."""
+    their device time repeats that of the kernels they launched; so are
+    events named in ``skip`` (the device-side marks of record_function
+    ranges)."""
     from torch.autograd import DeviceType
     out = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in skip:
             n, us = out.get(e.name, (0, 0.0))
             out[e.name] = (n + 1, us + e.time_range.elapsed_us())
     return out
@@ -566,6 +659,13 @@ def profiled(torch, fn):
     at either end can fall outside and be lost (scripts/profiler_window.py
     measures it).  PROFILE_PAD_S of host-only time at each end, outside
     the timed span, keeps every device event of ``fn`` inside."""
+    prof, wall_us = profile_run(torch, fn)
+    return device_events(prof), wall_us
+
+
+def profile_run(torch, fn):
+    """``(profiler, wall microseconds)`` of one call of ``fn``, padded as
+    ``profiled`` says."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -576,7 +676,32 @@ def profiled(torch, fn):
         torch.cuda.synchronize()
         wall_us = (time.time() - t) * 1e6
         time.sleep(PROFILE_PAD_S)
-    return device_events(prof), wall_us
+    return prof, wall_us
+
+
+def span_device_us(prof, name: str):
+    """``(device microseconds, ranges)`` of the record_function ranges
+    called ``name``: the device events (kernels, copies, memsets) linked
+    to the host operations that start inside the ranges, each counted
+    once, read off the profiler's raw events (``FunctionEvent.
+    device_time_total`` counted the Mamba2 layers at 1.0016-1.0378 of the
+    prefill's device time), and the count of ranges."""
+    from torch.autograd import DeviceType
+    raw = prof.profiler.kineto_results.events()
+    spans = sorted((e.start_ns(), e.end_ns()) for e in raw
+                   if e.name() == name and e.device_type() == DeviceType.CPU)
+    starts = [a for a, _ in spans]
+
+    def inside(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return i >= 0 and t <= spans[i][1]
+
+    ops = {e.correlation_id() for e in raw
+           if e.device_type() == DeviceType.CPU
+           and e.linked_correlation_id() == 0 and inside(e.start_ns())}
+    return (sum(e.end_ns() - e.start_ns() for e in raw
+                if e.device_type() == DeviceType.CUDA and e.name() != name
+                and e.linked_correlation_id() in ops) / 1e3, len(spans))
 
 
 def device_ops_per_call(torch, fn, calls: int, what: str, expect: int = 1):
@@ -2835,10 +2960,12 @@ def phase_lm_golden(torch, np, arch="llama3.2-3b", phase="lm_golden"):
     op = linattn if cfg.family == "rwkv" else flash_attention
     params = lm_params_from_numpy(numpy_lm_params(
         cfg, g["seed"], live_seed=g.get("live_seed")), "cuda")
+    check(g.get("min_router_margin", ROUTER_TIE) >= ROUTER_TIE,
+          f"{arch}'s golden run holds a router near-tie")
     before = op.launches
     last, _ = lm.prefill(
         params, {"tokens": torch.tensor(g["prompts"], device="cuda")}, cfg)
-    check(op.launches == before + cfg.n_layers,
+    check(op.launches == before + attention_layers(cfg),
           "the golden prefill did not run the kernel in every layer")
     last = last.cpu().numpy()
     err = float(np.abs(last - np.asarray(g["last_logits"])).max())
@@ -2851,7 +2978,15 @@ def phase_lm_golden(torch, np, arch="llama3.2-3b", phase="lm_golden"):
     emit(phase, t0, arch=g["arch"], reduced=True, dtype=cfg.dtype,
          batch=g["batch"], prompt_len=g["prompt_len"], gen=g["gen"],
          live_leaves=g.get("live_seed") is not None,
+         min_router_margin=g.get("min_router_margin"),
          max_abs_err=err, tol=LM_TOL, tokens_equal_jax=True)
+
+
+def attention_layers(cfg) -> int:
+    """The kernel's launches a prefill makes: one a layer, for a hybrid
+    model one a group (its shared attention block)."""
+    return (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+            else cfg.n_layers)
 
 
 def fan_in_attention(params, cfg) -> None:
@@ -2862,11 +2997,13 @@ def fan_in_attention(params, cfg) -> None:
     blockwise path's tile size alone moves its logits by more than 0.1), so
     no two f32 implementations of it agree at the end.  With these scales
     they agree within 1e-4 (tests/test_torch_lm.py::
-    test_deep_random_model_is_chaotic_unless_fan_in_scaled, at width 256)."""
-    a = params.tree()["blocks"]["attn"]
-    for n in ("wq", "wk", "wv"):          # [L, D, heads, hd]
-        a[n].mul_((a[n].shape[2] / cfg.d_model) ** 0.5)
-    a["wo"].mul_(a["wo"].shape[1] ** -0.5)  # [L, H, hd, D]
+    test_deep_random_model_is_chaotic_unless_fan_in_scaled, at width 256).
+    A hybrid model's projections are its shared block's."""
+    from repro_torch.convert import attention_tree
+    a = attention_tree(params.tree())
+    for n in ("wq", "wk", "wv"):          # [(L,) D, heads, hd]
+        a[n].mul_((a[n].shape[-2] / cfg.d_model) ** 0.5)
+    a["wo"].mul_(a["wo"].shape[-3] ** -0.5)  # [(L,) H, hd, D]
 
 
 def phase_serve(torch, np):
@@ -2952,16 +3089,49 @@ def phase_serve(torch, np):
     return launches
 
 
-def profile_serve(torch, phase, kernel, prefill, step) -> None:
+def profile_serve(torch, phase, kernel, prefill, step, spans=None) -> None:
     """One profiled prefill and one profiled decode step: top device
     operations, the device's busy share, the kernel's share (by the name
-    of its CUDA function, ``<kernel>_fwd``)."""
+    of its CUDA function, ``<kernel>_fwd``).  ``spans``: ``{name: (module,
+    function)}``, functions whose calls are wrapped in record_function
+    ranges of that name for the two calls, each reported by its share of
+    device time (the kernels launched inside its calls); a span that
+    records no call or no device time fails."""
+    import contextlib
+    spans = spans or {}
+
+    @contextlib.contextmanager
+    def wrapped():
+        real = {n: getattr(m, f) for n, (m, f) in spans.items()}
+
+        def ranged(n):
+            def call(*args, **kwargs):
+                with torch.profiler.record_function(n):
+                    return real[n](*args, **kwargs)
+            return call
+
+        for n, (m, f) in spans.items():
+            setattr(m, f, ranged(n))
+        try:
+            yield
+        finally:
+            for n, (m, f) in spans.items():
+                setattr(m, f, real[n])
+
     for name, fn in (("prefill", prefill), ("decode_step", step)):
         t0 = time.time()
-        dev, wall_us = profiled(torch, fn)
+        with wrapped():
+            prof, wall_us = profile_run(torch, fn)
+        dev = device_events(prof, skip=tuple(spans))
         busy_us = sum(us for _, us in dev.values())
         kernel_us = sum(us for n, (_, us) in dev.items()
                         if f"{kernel}_fwd" in n)
+        span_us, span_n = {}, {}
+        for n in spans:
+            span_us[n], span_n[n] = span_device_us(prof, n)
+            check(span_n[n] > 0 and span_us[n] > 0,
+                  f"{phase} {name}: the {n} span recorded {span_n[n]} calls "
+                  f"and {span_us[n]} us of device time")
         top = sorted(dev.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
         emit(phase, t0, what=name, wall_s=wall_us / 1e6,
              device_busy_s=busy_us / 1e6,
@@ -2970,6 +3140,10 @@ def profile_serve(torch, phase, kernel, prefill, step) -> None:
              **{f"{kernel}_device_s": kernel_us / 1e6,
                 f"{kernel}_share_of_device": kernel_us / busy_us if dev
                 else "not measured"},
+             **{f"{n}_calls": k for n, k in span_n.items()},
+             **{f"{n}_device_s": us / 1e6 for n, us in span_us.items()},
+             **{f"{n}_share_of_device": us / busy_us
+                for n, us in span_us.items()},
              top_device_us={n[:60]: us for n, (_, us) in top})
 
 
@@ -3238,6 +3412,463 @@ def phase_rwkv_serve(torch, np):
     return launches
 
 
+def routing_rule(torch, a, b, S: int, what: str):
+    """Two paths' routing of one MoE layer (``moe.recording`` entries) under
+    the f32 rule (see ROUTER_TIE): a token's experts may differ only where
+    its top-k margin is under ROUTER_TIE on both paths, and a kept slot
+    only in a dispatch group where an expert pick differs.  Returns
+    ``(tokens whose experts differ, tokens with a kept slot that differs,
+    the least margin among the differing tokens, [B, S] mask of the tokens
+    whose routing agrees)``; any other difference fails."""
+    from repro_torch.models import moe
+    nG = moe.n_groups(S)
+    picked = (a["gate_idx"] != b["gate_idx"]).any(-1)            # [B, S]
+    least = math.inf
+    if bool(picked.any()):
+        ma, mb = a["margin"][picked], b["margin"][picked]
+        check(bool((ma < ROUTER_TIE).all() and (mb < ROUTER_TIE).all()),
+              f"{what}: {int(picked.sum())} tokens routed differently, "
+              f"margins down to {float(ma.min())} and {float(mb.min())}, not "
+              f"all under {ROUTER_TIE}")
+        least = min(float(ma.min()), float(mb.min()))
+    kept = (a["kept"] != b["kept"]).any(-1)                       # [B, S]
+    Bb = kept.shape[0]
+    in_group = picked.reshape(Bb, nG, -1).any(-1, keepdim=True)
+    check(bool((~kept.reshape(Bb, nG, -1) | in_group).all()),
+          f"{what}: a kept slot differs in a dispatch group where every "
+          "expert pick agrees")
+    return int(picked.sum()), int(kept.sum()), least, ~(picked | kept)
+
+
+def moe_full_width(torch, arch: str):
+    """``arch`` at full layer width with the layers MOE_SERVE keeps, random
+    weights from seed 0 with the attention projections at their true
+    fan-in (as phase 9a) and the QK norms drawn live: ``(config, model,
+    params)``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import set_live_leaves
+    from repro_torch.models.api import get_model
+    n_layers, _ = MOE_SERVE[arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    model = get_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    fan_in_attention(params, cfg)
+    set_live_leaves(params.tree(), cfg, MOE_LIVE_SEED)
+    return cfg, model, params
+
+
+def moe_dense_check(torch, cfg, params) -> dict:
+    """Layer 0's apply_moe at full width, f32, at a capacity that drops
+    nothing, against the explicit top-k mixture of its experts (the
+    oracle of tests/test_models.py) on the same routing."""
+    import dataclasses
+    import torch.nn.functional as F
+    from repro_torch.models import lm, moe
+    from repro_torch.models.layers import apply_mlp
+    cf = dataclasses.replace(cfg, dtype="float32",
+                             capacity_factor=float(cfg.n_experts))
+    p = lm._layer(params.tree()["blocks"]["moe"], 0)
+    x = torch.randn((1, MOE_DENSE_LEN, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(2))
+    with moe.recording() as rec:
+        y, aux = moe.apply_moe(p, x, cf)
+    _, gv, gi, margin = moe.route(p, x, cf)
+    check(bool(rec[0]["kept"].all()) and torch.equal(gi, rec[0]["gate_idx"]),
+          f"{cfg.name}: the no-drop layer dropped a slot or routed twice "
+          "differently")
+    want = torch.zeros_like(x)
+    for e in range(cfg.n_experts):
+        o = (F.silu(x @ p["wg"][e]) * (x @ p["wi"][e])) @ p["wo"][e]
+        want += torch.where(gi == e, gv, 0.0).sum(-1, keepdim=True) * o
+    if cfg.n_shared_experts:
+        want += apply_mlp(p["shared"], x, cf)
+    err = float((y - want).abs().max())
+    check(bool(torch.isfinite(y).all()) and float(aux) > 0
+          and bool(torch.allclose(y, want, atol=CHECK_TOL, rtol=CHECK_TOL)),
+          f"{cfg.name}: full-width apply_moe off the top-k mixture by {err}")
+    return {"dense_tokens": MOE_DENSE_LEN, "dense_max_abs_err": err,
+            "dense_max_abs": float(want.abs().max()),
+            "dense_min_margin": float(margin.min())}
+
+
+def moe_f32_checks(torch, np, cfg, params) -> dict:
+    """Phase moe_serve (a) past the dense check: on one prompt of
+    MOE_CHECK_LEN tokens, f32, the kernel path against the plain path:
+    layer 0's attention sublayer; every layer from the plain path's input
+    to it; the whole model's last-position logits, on its own routing and
+    on the plain path's.  The routing is held to the rule of ROUTER_TIE."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import lm, moe
+    from repro_torch.models.layers import embed_tokens
+    cfg32 = dataclasses.replace(cfg, dtype="float32", use_pallas=True)
+    plain = dataclasses.replace(cfg32, use_pallas=False)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab - 1, (1, MOE_CHECK_LEN))).to("cuda")
+    tree = params.tree()
+    with torch.no_grad():
+        h = embed_tokens(tree["embed"], toks, cfg32)
+        positions = torch.arange(MOE_CHECK_LEN, device="cuda")[None]
+        lp = lm._layer(tree["blocks"], 0)
+        before = ops.flash_attention.launches
+        got, _ = lm._attention_sublayer(cfg32, lp, h, positions,
+                                        window=cfg.window)
+        check(ops.flash_attention.launches == before + 1,
+              "the attention sublayer did not launch flash")
+        want, _ = lm._attention_sublayer(plain, lp, h, positions,
+                                         window=cfg.window)
+    attn_err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, atol=CHECK_TOL, rtol=CHECK_TOL)),
+          f"{cfg.name}: f32 attention sublayer, kernel path off the plain "
+          f"path by {attn_err}")
+    o_max = float((want - h).abs().max())
+    del got, want, h
+
+    # each layer from the plain path's input to it: the experts picked
+    # and kept agree but for near-ties, the layer's output on the tokens
+    # routed alike within CHECK_TOL
+    one = {"tokens": 0, "kept": 0, "least": math.inf, "err": 0.0}
+    with torch.no_grad():
+        h = embed_tokens(tree["embed"], toks, cfg32)
+        for layer in range(cfg.n_layers):
+            lp = lm._layer(tree["blocks"], layer)
+            with moe.recording() as rk:
+                hk, _, _ = lm._block(cfg32, lp, h, positions)
+            with moe.recording() as rp:
+                hp, _, _ = lm._block(plain, lp, h, positions)
+            n_tok, n_kept, least, same = routing_rule(
+                torch, rk[0], rp[0], MOE_CHECK_LEN,
+                f"{cfg.name} layer {layer} from one input")
+            layer_err = float((hk - hp)[same].abs().max())
+            check(bool(torch.allclose(hk[same], hp[same], atol=CHECK_TOL,
+                                      rtol=CHECK_TOL)),
+                  f"{cfg.name} layer {layer}: kernel path off the plain path "
+                  f"by {layer_err} from one input")
+            one["tokens"] += n_tok
+            one["kept"] += n_kept
+            one["least"] = min(one["least"], least)
+            one["err"] = max(one["err"], layer_err)
+            h = hp
+    del h, hk, hp
+
+    # the whole model on its own routing: the rule holds at the first
+    # layer where a decision differs; a token routed to other experts
+    # there differs by O(1) after it, so the layers past it are reported,
+    # not held to the rule
+    with moe.recording() as rk:
+        free, _ = lm.prefill(params, {"tokens": toks}, cfg32)
+    with moe.recording() as rp:
+        want, _ = lm.prefill(params, {"tokens": toks}, plain)
+    first, after = None, []
+    for layer, (a, b) in enumerate(zip(rk, rp)):
+        if first is None:
+            n_tok, n_kept, least, same = routing_rule(
+                torch, a, b, MOE_CHECK_LEN, f"{cfg.name} layer {layer}")
+            if not bool(same.all()):
+                first = {"layer": layer, "tokens": n_tok, "kept": n_kept,
+                         "least_margin": least}
+        else:
+            after.append(int(((a["gate_idx"] != b["gate_idx"]).any(-1)
+                              | (a["kept"] != b["kept"]).any(-1)).sum()))
+    # and on the plain path's routing: the kernel path forced to the
+    # plain path's experts (its gates its own) is continuous in its
+    # inputs, and its logits are held to CHECK_TOL
+    with moe.forcing([r["gate_idx"] for r in rp]), moe.recording() as rf:
+        got, _ = lm.prefill(params, {"tokens": toks}, cfg32)
+    check(len(rf) == len(rp) and all(torch.equal(a["kept"], b["kept"])
+                                     for a, b in zip(rf, rp)),
+          f"{cfg.name}: the forced kernel path kept other slots")
+    got, want, free = (t.cpu().numpy() for t in (got, want, free))
+    err = float(np.abs(got - want).max())
+    free_err = float(np.abs(free - want).max())
+    check(bool(np.isfinite(got).all() and np.isfinite(free).all())
+          and got.shape == free.shape == (1, cfg.vocab),
+          f"{cfg.name}: f32 logits not finite or misshapen")
+    check(np.allclose(got, want, atol=CHECK_TOL, rtol=CHECK_TOL),
+          f"{cfg.name}: f32 logits on the plain path's routing, kernel path "
+          f"off the plain path by {err}")
+    if first is None:
+        check(np.allclose(free, want, atol=CHECK_TOL, rtol=CHECK_TOL),
+              f"{cfg.name}: f32 logits, kernel path off the plain path by "
+              f"{free_err} with the same routing")
+    return {"check_len": MOE_CHECK_LEN, "window": cfg.window,
+            "attn_max_abs_err": attn_err, "attn_max_abs_out": o_max,
+            "one_input_tokens_routed_differently": one["tokens"],
+            "one_input_kept_differently": one["kept"],
+            "one_input_least_differing_margin": one["least"]
+            if one["tokens"] else None,
+            "one_input_layer_max_abs_err": one["err"],
+            "logits_max_abs_err": err,
+            "max_abs_logit": float(np.abs(want).max()),
+            "free_logits_max_abs_err": free_err,
+            "free_logits_compared": first is None,
+            "free_argmax_equal": bool((free.argmax(-1)
+                                       == want.argmax(-1)).all()),
+            "routing_decisions": sum(r["gate_idx"].numel() for r in rk),
+            "first_differing_layer": first,
+            "tokens_differing_after_it": after,
+            "least_margin": min(float(r["margin"].min()) for r in rk)}
+
+
+def phase_moe_serve(torch, np):
+    """mixtral-8x7b and llama4-scout at full layer width, layers cut to
+    fit (MOE_SERVE): (a) the f32 checks, (b) the bf16 serve cold and warm,
+    (c) one profiled prefill and decode step."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm, moe
+    from repro_torch.sharding.rules import map_defs
+    launches = {}
+    for arch, (n_layers, spec) in MOE_SERVE.items():
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        base, model, params = moe_full_width(torch, arch)
+        init_s = time.time() - t0
+        dense = moe_dense_check(torch, base, params)
+        checks = moe_f32_checks(torch, np, base, params)
+        emit("moe_serve_check", t0, arch=arch, n_layers=n_layers,
+             n_params=model.n_params(), init_s=init_s, dtype="float32",
+             tol=CHECK_TOL, router_tie=ROUTER_TIE,
+             init_max_memory_allocated=torch.cuda.max_memory_allocated(),
+             **dense, **checks)
+
+        # (b) the bf16 serve through serve_batch, twice (cold, then warm)
+        t0 = time.time()
+        cfg = dataclasses.replace(base, use_pallas=True)
+        prompts = np.random.default_rng(0).integers(
+            1, base.vocab - 1, (spec["batch"], spec["prompt_len"]))
+        for run in ("cold", "warm"):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            with moe.recording() as rec:
+                seqs, stats = serve_batch(cfg, **spec, seed=0, params=params,
+                                          device="cuda")
+            n = ops.flash_attention.launches
+            by_route = dict(ops.flash_attention.launches_by_route)
+            check(n == n_layers and by_route == {"sm90_bf16": n_layers,
+                                                 "f32": 0},
+                  f"{arch} serve launched flash_attention {n} times by route "
+                  f"{by_route}, expected {n_layers}, all sm90_bf16")
+            out = seqs.cpu().numpy()
+            total = spec["prompt_len"] + spec["gen"]
+            check(out.shape == (spec["batch"], total)
+                  and (out[:, :spec["prompt_len"]] == prompts).all()
+                  and ((out >= 0) & (out < base.vocab)).all(),
+                  f"{arch} serve returned malformed sequences")
+            dropped = [int((~r["kept"]).sum()) for r in rec[:n_layers]]
+            check(len(rec) == n_layers * spec["gen"]
+                  and all(bool(r["kept"].all()) for r in rec[n_layers:]),
+                  f"{arch}: a decode step dropped a slot")
+            emit("moe_serve", t0, run=run, arch=arch, n_layers=n_layers,
+                 dtype=cfg.dtype, **spec, n_params=model.n_params(),
+                 flash_launches=n, flash_launches_by_route=by_route,
+                 dispatch_groups=moe.n_groups(spec["prompt_len"]),
+                 capacity=moe._capacity(spec["prompt_len"]
+                                        // moe.n_groups(spec["prompt_len"]),
+                                        base),
+                 prefill_slots_dropped_per_layer=dropped,
+                 prefill_slots=spec["batch"] * spec["prompt_len"] * base.top_k,
+                 prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+                 decode_tok_per_s=stats["decode_tok_per_s"],
+                 total_tok_per_s=stats["tok_per_s"], seconds=stats["seconds"],
+                 prefill_tok_per_s=spec["batch"] * spec["prompt_len"]
+                 / stats["prefill_s"],
+                 max_memory_allocated=torch.cuda.max_memory_allocated())
+        launches[arch] = n
+
+        # (c) one profiled prefill and one profiled decode step
+        batch = {"tokens": torch.from_numpy(prompts).to("cuda")}
+        cache = map_defs(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                               device="cuda"),
+                         model.cache_defs_fn(spec["batch"], total))
+        tok = seqs[:, spec["prompt_len"]]
+        step = lambda: lm.decode_step(params, tok, spec["prompt_len"],  # noqa: E731
+                                      cache, cfg)
+        step()                                 # warm
+        profile_serve(torch, "moe_serve_profile", "flash",
+                      lambda: lm.prefill(params, batch, cfg), step,
+                      spans={"moe": (moe, "apply_moe")})
+        ops.reset_launches()
+        del params, model, cache, batch, seqs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_full_width(torch):
+    """zamba2-2.7b at full width and depth, random weights from seed 0 with
+    the Mamba2 leaves drawn live and the shared block's projections at
+    their true fan-in: ``(config, model, params)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import set_live_leaves
+    from repro_torch.models.api import get_model
+    base = get_config("zamba2-2.7b")
+    model = get_model(base)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    set_live_leaves(params.tree(), base, HYBRID_LIVE_SEED)
+    fan_in_attention(params, base)
+    return base, model, params
+
+
+def phase_hybrid_serve(torch, np):
+    """zamba2-2.7b at full width and depth, with the Mamba2 leaves drawn
+    live and the shared block's projections at their true fan-in: (a) in
+    f32, one full-width Mamba2 layer's chunked scan against the one-step
+    recurrence, each group's shared block on the kernel path against the
+    plain path from one input, and the whole model's prefill on both paths
+    against the plain path in float64; (b) the bf16 serve cold and warm;
+    (c) one profiled prefill and decode step."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm, ssm
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.sharding.rules import map_defs
+    from repro_torch.tree import tree_map
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    base, model, params = hybrid_full_width(torch)
+    n_attn = attention_layers(base)
+
+    # (a) the chunked scan against the one-step recurrence, f32
+    cfg32 = dataclasses.replace(base, dtype="float32", use_pallas=True)
+    mp = lm._layer(lm._layer(params.tree()["mamba"], 0), 0)
+    x = torch.randn((1, CHECK_LEN, base.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    with torch.no_grad():
+        _, xin, dt, A, Bm, Cm, _ = ssm.scan_inputs(mp, x, cfg32)
+        y, fin = ssm._ssd_chunked(xin, dt, A, Bm, Cm, base.ssm_chunk)
+        st = torch.zeros_like(fin)
+        ys = []
+        for t in range(CHECK_LEN):
+            a = torch.exp(dt[:, t] * A)
+            st = a[:, :, None, None] * st + torch.einsum(
+                "bh,bhp,bn->bhpn", dt[:, t], xin[:, t], Bm[:, t])
+            ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t], st))
+        ys = torch.stack(ys, 1)
+    atol, rtol = SSD_TOL
+    scan_err = float((y - ys).abs().max())
+    state_err = float((fin - st).abs().max())
+    check(bool(torch.allclose(y, ys, atol=atol, rtol=rtol))
+          and bool(torch.allclose(fin, st, atol=atol, rtol=rtol)),
+          f"full-width chunked SSD scan off the one-step recurrence by "
+          f"{scan_err} (y) and {state_err} (state)")
+    del x, xin, dt, Bm, Cm, y, ys, fin, st
+
+    # each group from the plain path's input to it: the shared block on
+    # the kernel path against the plain path
+    tree = params.tree()
+    plain = dataclasses.replace(cfg32, use_pallas=False)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        1, base.vocab - 1, (1, CHECK_LEN))).to("cuda")
+    group_err = 0.0
+    with torch.no_grad():
+        h = embed_tokens(tree["embed"], toks, plain)
+        positions = torch.arange(CHECK_LEN, device="cuda")[None]
+        for g in range(n_attn):
+            gp = lm._layer(tree["mamba"], g)
+            for j in range(base.attn_every):
+                h = h + ssm.apply_ssm(lm._layer(gp, j), h, plain)[0]
+            hk, _, _ = lm._block(cfg32, tree["shared_attn"], h, positions)
+            hp, _, _ = lm._block(plain, tree["shared_attn"], h, positions)
+            err = float((hk - hp).abs().max())
+            check(bool(torch.allclose(hk, hp, atol=CHECK_TOL, rtol=CHECK_TOL)),
+                  f"hybrid group {g}: the shared block on the kernel path off "
+                  f"the plain path by {err} from one input")
+            group_err = max(group_err, err)
+            h = hp
+    del h, hk, hp
+
+    # the whole model's f32 prefill on both paths, each against the plain
+    # path in float64: the kernel path may add at most CHECK_TOL to the
+    # plain path's own f32 error (see HYBRID_F64)
+    before = ops.flash_attention.launches
+    got, gc = lm.prefill(params, {"tokens": toks}, cfg32)
+    check(ops.flash_attention.launches == before + n_attn,
+          "the f32 hybrid prefill did not launch flash in every group")
+    want, wc = lm.prefill(params, {"tokens": toks}, plain)
+    params64 = lm.LM(tree_map(lambda t: t.double(), tree))
+    exact, ec = lm.prefill(params64, {"tokens": toks},
+                           dataclasses.replace(plain, dtype="float64"))
+    del params64
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    errs = {"kernel_logits": float((got.double() - exact).abs().max()),
+            "plain_logits": float((want.double() - exact).abs().max()),
+            "kernel_vs_plain_logits": float((got - want).abs().max()),
+            "kernel_ssm_state_rel": rel(gc["ssm_state"], ec["ssm_state"]),
+            "plain_ssm_state_rel": rel(wc["ssm_state"], ec["ssm_state"]),
+            "kernel_vs_plain_ssm_state_rel": rel(gc["ssm_state"],
+                                                 wc["ssm_state"].double())}
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (
+        1, base.vocab), "full-width f32 hybrid prefill logits not finite or "
+          "misshapen")
+    check(errs["kernel_logits"] <= errs["plain_logits"] + CHECK_TOL
+          and errs["kernel_ssm_state_rel"]
+          <= errs["plain_ssm_state_rel"] + CHECK_TOL,
+          f"full-width f32 hybrid prefill: the kernel path adds more than "
+          f"{CHECK_TOL} to the plain path's f32 error: {errs}")
+    emit("hybrid_serve_check", t0, arch=base.name, dtype="float32",
+         n_params=model.n_params(), live_leaves=True, scan_len=CHECK_LEN,
+         scan_max_abs_err=scan_err, scan_state_max_abs_err=state_err,
+         scan_tol=SSD_TOL, prompt_len=CHECK_LEN, tol=CHECK_TOL,
+         group_max_abs_err=group_err, **errs,
+         max_abs_logit=float(exact.abs().max()),
+         argmax_equal=bool((got.argmax(-1) == want.argmax(-1)).all()))
+    del gc, wc, ec, got, want, exact
+
+    # (b) the bf16 serve through serve_batch, twice (cold, then warm)
+    t0 = time.time()
+    cfg = dataclasses.replace(base, use_pallas=True)
+    prompts = np.random.default_rng(0).integers(
+        1, base.vocab - 1, (HYBRID_SERVE["batch"], HYBRID_SERVE["prompt_len"]))
+    total = HYBRID_SERVE["prompt_len"] + HYBRID_SERVE["gen"]
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        seqs, stats = serve_batch(cfg, **HYBRID_SERVE, seed=0, params=params,
+                                  device="cuda")
+        n = ops.flash_attention.launches
+        by_route = dict(ops.flash_attention.launches_by_route)
+        check(n == n_attn and by_route == {"sm90_bf16": n_attn, "f32": 0},
+              f"hybrid serve launched flash_attention {n} times by route "
+              f"{by_route}, expected {n_attn}, all sm90_bf16")
+        out = seqs.cpu().numpy()
+        check(out.shape == (HYBRID_SERVE["batch"], total)
+              and (out[:, :HYBRID_SERVE["prompt_len"]] == prompts).all()
+              and ((out >= 0) & (out < base.vocab)).all(),
+              "hybrid serve returned malformed sequences")
+        emit("hybrid_serve", t0, run=run, arch=base.name, dtype=cfg.dtype,
+             **HYBRID_SERVE, n_params=model.n_params(), live_leaves=True,
+             head_dim=base.head_dim, flash_launches=n,
+             flash_launches_by_route=by_route,
+             prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+             decode_tok_per_s=stats["decode_tok_per_s"],
+             total_tok_per_s=stats["tok_per_s"], seconds=stats["seconds"],
+             prefill_tok_per_s=HYBRID_SERVE["batch"]
+             * HYBRID_SERVE["prompt_len"] / stats["prefill_s"],
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # (c) one profiled prefill and one profiled decode step
+    batch = {"tokens": torch.from_numpy(prompts).to("cuda")}
+    cache = map_defs(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                           device="cuda"),
+                     model.cache_defs_fn(HYBRID_SERVE["batch"], total))
+    tok = seqs[:, HYBRID_SERVE["prompt_len"]]
+    step = lambda: lm.decode_step(params, tok, HYBRID_SERVE["prompt_len"],  # noqa: E731
+                                  cache, cfg)
+    step()                                     # warm
+    profile_serve(torch, "hybrid_serve_profile", "flash",
+                  lambda: lm.prefill(params, batch, cfg), step,
+                  spans={"ssm": (ssm, "apply_ssm")})
+    ops.reset_launches()
+    return n
+
+
 class GoldenTokens:
     """The token stream of an entry of tests/data/torch_train_golden.json:
     step i serves the JAX pipeline's windows of step i as the file's host
@@ -3487,6 +4118,7 @@ PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "serving", "serving_sweep", "malleable", "malleable_sweep",
           "oracle", "window", "multicluster", "replay", "whatif", "flash",
           "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve",
+          "moe_golden", "moe_serve", "hybrid_golden", "hybrid_serve",
           "train")
 
 
@@ -3586,6 +4218,12 @@ def main(argv=None) -> int:
         "rwkv_golden": lambda: phase_lm_golden(torch, np, "rwkv6-7b",
                                                "rwkv_golden"),
         "rwkv_serve": lambda: phase_rwkv_serve(torch, np),
+        "moe_golden": lambda: [phase_lm_golden(torch, np, arch, "moe_golden")
+                               for arch in MOE_SERVE],
+        "moe_serve": lambda: phase_moe_serve(torch, np),
+        "hybrid_golden": lambda: phase_lm_golden(torch, np, "zamba2-2.7b",
+                                                 "hybrid_golden"),
+        "hybrid_serve": lambda: phase_hybrid_serve(torch, np),
         "train": lambda: phase_train(torch, np, smi)}
     out = {}
     for name in PHASES:
@@ -3623,6 +4261,9 @@ def main(argv=None) -> int:
     walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
     flash_err, flash = out["flash"]
     flash_launches = out["serve"]
+    flash_paths = {"serve": {"llama3.2-3b": flash_launches},
+                   "moe_serve": out["moe_serve"],
+                   "hybrid_serve": {"zamba2-2.7b": out["hybrid_serve"]}}
     lin_err, lin = out["linattn"]
     lin_launches = out["rwkv_serve"]
 
@@ -3735,6 +4376,7 @@ def main(argv=None) -> int:
                       "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:27",
         "launches": flash_launches,
+        "launches_by_path": flash_paths,
         "max_abs_err": flash_err,
         "ms": flash["kernel_ms"],
         "f32_ms": flash["f32_ms"],

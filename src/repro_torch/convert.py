@@ -8,8 +8,8 @@ The tests hand the identical job table and mid-run state to both engines:
 back into such dicts.  LM weights cross as numpy trees:
 :func:`lm_params_from_numpy` takes the JAX package's parameters (or the
 seeded ones of :func:`numpy_lm_params`) into the port's ``LM``, and
-:func:`set_rwkv_live_leaves` draws the rwkv leaves that the initializer
-leaves at zero.
+:func:`set_live_leaves` draws the leaves that the initializer leaves at
+zero or one (rwkv's, the Mamba2 layers', the QK norms).
 """
 
 from __future__ import annotations
@@ -89,10 +89,11 @@ def numpy_lm_params(cfg: ModelConfig, seed: int,
                     fan_in: bool = False) -> dict:
     """Seeded numpy weights over the port's ``param_defs``: each leaf drawn
     in turn (sorted key order) from ``np.random.default_rng(seed)`` and
-    scaled as ``init_from_defs`` scales; with ``live_seed``, an rwkv
-    model's zero-init leaves are then drawn by :func:`set_rwkv_live_leaves`
-    from that seed; with ``fan_in``, a dense model's attention projections
-    are then scaled to their true fan-in (:func:`scale_attention_fan_in`).
+    scaled as ``init_from_defs`` scales; with ``live_seed``, the leaves
+    that the initializer leaves at zero or one are then drawn by
+    :func:`set_live_leaves` from that seed; with ``fan_in``, the attention
+    projections are then scaled to their true fan-in
+    (:func:`scale_attention_fan_in`).
     The same tree feeds the JAX package (``jnp.asarray``
     per leaf) and, through :func:`lm_params_from_numpy`, the port: this is
     how the golden file ``tests/data/torch_lm_golden.json`` and
@@ -108,24 +109,32 @@ def numpy_lm_params(cfg: ModelConfig, seed: int,
 
     tree = map_defs(leaf, param_defs(cfg))
     if live_seed is not None:
-        set_rwkv_live_leaves(tree, cfg, live_seed)
+        set_live_leaves(tree, cfg, live_seed)
     if fan_in:
         scale_attention_fan_in(tree, cfg)
     return tree
 
 
 def scale_attention_fan_in(tree: dict, cfg: ModelConfig) -> None:
-    """Scale, in place, a dense numpy tree's attention projections from
-    the reference initializer's fan-in (the heads axis) to their true one:
+    """Scale, in place, a numpy tree's attention projections (the
+    stacked blocks', or a hybrid model's shared block's) from the
+    reference initializer's fan-in (the heads axis) to their true one:
     std ``d_model^-0.5`` for ``wq``/``wk``/``wv``, ``(H hd)^-0.5`` for
     ``wo``.  Drawn the reference's way, q and k reach ~20 and a random
     model is chaotic: two f32 implementations drift apart through its
     layers (and its training steps) by more than their rounding.  Test data,
     as ``chip_smoke.py``'s ``fan_in_attention`` is for a torch tree."""
-    a = tree["blocks"]["attn"]
-    for n in ("wq", "wk", "wv"):                          # [L, D, heads, hd]
-        a[n] = a[n] * np.float32((a[n].shape[2] / cfg.d_model) ** 0.5)
-    a["wo"] = a["wo"] * np.float32(a["wo"].shape[1] ** -0.5)   # [L, H, hd, D]
+    a = attention_tree(tree)
+    for n in ("wq", "wk", "wv"):                          # [(L,) D, heads, hd]
+        a[n] = a[n] * np.float32((a[n].shape[-2] / cfg.d_model) ** 0.5)
+    a["wo"] = a["wo"] * np.float32(a["wo"].shape[-3] ** -0.5)  # [(L,) H, hd, D]
+
+
+def attention_tree(tree: dict) -> dict:
+    """The attention projections' subtree of an LM tree: the stacked
+    blocks', or a hybrid model's shared block's."""
+    return (tree["shared_attn"] if "shared_attn" in tree
+            else tree["blocks"])["attn"]
 
 
 def _from_numpy(tree, device):
@@ -153,6 +162,69 @@ def state_to_numpy(tree):
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
+def _set_leaves(group: dict, values: dict) -> None:
+    """Write ``values`` (``{name: array}``) into ``group``, a subtree of a
+    tree with numpy or torch leaves: in place for a tensor, as a new f32
+    leaf for an array."""
+    for name, a in values.items():
+        a = np.asarray(a, dtype=np.float32)
+        if isinstance(group[name], torch.Tensor):
+            with torch.no_grad():
+                group[name].copy_(torch.from_numpy(a))
+        else:
+            group[name] = a
+
+
+def set_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
+    """Draw, in place, the leaves that ``init`` leaves at zero or one, by
+    family: rwkv's (:func:`set_rwkv_live_leaves`), the Mamba2 layers'
+    (:func:`set_ssm_live_leaves`), and the QK norms where the config has
+    them (:func:`set_qk_norm_live_leaves`)."""
+    if cfg.family == "rwkv":
+        set_rwkv_live_leaves(tree, cfg, seed)
+    if cfg.family == "hybrid":
+        set_ssm_live_leaves(tree, cfg, seed)
+    if cfg.qk_norm:
+        set_qk_norm_live_leaves(tree, cfg, seed)
+
+
+def set_ssm_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
+    """Draw, in place, the Mamba2 leaves that ``init`` leaves at zero or
+    one, so that a random hybrid model exercises what they switch on.
+    Test data, not a feature: with ``A_log = dt_bias = 0`` every step
+    decays the state by about a half, so little of it crosses a chunk, and
+    ``conv_b``, ``D_skip`` and ``norm_scale`` at 0 or 1 hide a mix-up of
+    those leaves.  Drawn here, from Mamba2's own init ranges: ``A_log``
+    in (0, log 16) (A from -1 to -16), ``dt_bias`` the inverse softplus of
+    a dt log-uniform in (1e-3, 0.1), ``conv_b`` ~ N(0, 0.1^2), ``D_skip``
+    and ``norm_scale`` in (0.5, 1.5).
+
+    ``tree`` is a parameter tree with numpy or torch leaves (an ``LM``'s
+    ``tree()``); the values come from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+    H, Cd = cfg.ssm_heads, cfg.d_inner + 2 * cfg.ssm_state
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), lead + (H,)))
+    _set_leaves(tree["mamba"], {
+        "A_log": rng.uniform(0.0, np.log(16.0), lead + (H,)),
+        "dt_bias": dt + np.log(-np.expm1(-dt)),
+        "conv_b": rng.normal(0.0, 0.1, lead + (Cd,)),
+        "D_skip": rng.uniform(0.5, 1.5, lead + (H,)),
+        "norm_scale": rng.uniform(0.5, 1.5, lead + (cfg.d_inner,))})
+
+
+def set_qk_norm_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
+    """Draw, in place, the QK-norm scales (``q_norm``, ``k_norm``: ones
+    from ``init``) in (0.5, 1.5), so that a check sees a swap of the two
+    or of their head-dim entries.  Test data; the values come from
+    ``np.random.default_rng(seed)``, after any other live leaves of the
+    family are drawn from their own generator."""
+    rng = np.random.default_rng(seed)
+    a = attention_tree(tree)
+    _set_leaves(a, {n: rng.uniform(0.5, 1.5, tuple(a[n].shape))
+                          for n in ("q_norm", "k_norm")})
+
+
 def set_rwkv_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
     """Draw, in place, the rwkv leaves that ``init`` leaves at zero, so that
     a random model exercises what they switch on.  Test data, not a
@@ -172,10 +244,4 @@ def set_rwkv_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
            ("time_mix", "u"): rng.normal(0.0, 0.5, (L, D)),
            ("time_mix", "w0"): rng.uniform(-6.0, -1.0, (L, D))}
     for (group, name), a in new.items():
-        leaf = tree["blocks"][group][name]
-        a = a.astype(np.float32)
-        if isinstance(leaf, torch.Tensor):
-            with torch.no_grad():
-                leaf.copy_(torch.from_numpy(a))
-        else:
-            tree["blocks"][group][name] = a
+        _set_leaves(tree["blocks"][group], {name: a})

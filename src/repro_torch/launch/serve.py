@@ -6,14 +6,25 @@
         --reduced --batch 2 --prompt-len 24 --gen 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
         --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --reduced --batch 2 --prompt-len 80 --gen 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-scout-17b-a16e --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --batch 4 --prompt-len 2048 --gen 32
 
-The request path: a batch of prompts -> ``prefill`` (with ``use_pallas``
-set, every layer's attention on the flash-attention CUDA kernel, or, for
-rwkv, every layer's time-mix on the linattn_scan CUDA kernel) -> its
-K/V laid into the decode cache, or for rwkv the recurrent cache it leaves
--> greedy ``decode_step`` with ring-buffer caches for sliding-window
-configs.  The JAX package's ``serve_batch`` prefills through decode steps
-instead; both give the same tokens.
+(mixtral-8x7b and llama4-scout-17b-a16e do not fit one 80 GB card at full
+depth in f32.)  The request path: a batch of prompts -> ``prefill`` (with
+``use_pallas`` set, every attention layer on the flash-attention CUDA
+kernel, or, for rwkv, every layer's time-mix on the linattn_scan CUDA
+kernel) -> its K/V laid into the decode cache (for hybrid with the SSM
+states and conv tails it leaves), or for rwkv the recurrent cache it
+leaves -> greedy ``decode_step`` with ring-buffer caches for
+sliding-window configs.  The JAX package's ``serve_batch`` prefills
+through decode steps instead.  Both give the same tokens, but for moe:
+there a full-sequence prefill routes with a capacity and may drop tokens,
+where a decode step never does, so the port's tokens are those of the JAX
+package's ``prefill`` followed by its ``decode_step``.
 """
 
 from __future__ import annotations
@@ -40,14 +51,22 @@ def _prefill_cache(model, prefilled, batch: int, prompt_len: int,
                    total_len: int, device):
     """The ``cache_defs`` cache for ``total_len`` positions, holding the
     prompt's K/V: position p in slot p, or, when a sliding-window ring is
-    shorter than the prompt, the last C positions in slot p % C."""
+    shorter than the prompt, the last C positions in slot p % C.  A hybrid
+    model's K/V sit under ``attn``, and its SSM states and conv tails are
+    taken as the prefill left them."""
+    defs = model.cache_defs_fn(batch, total_len)
+    hybrid = "attn" in defs
     cache = map_defs(lambda d: torch.zeros(d.shape, dtype=d.dtype,
                                            device=device),
-                     model.cache_defs_fn(batch, total_len))
+                     defs["attn"] if hybrid else defs)
     C = cache["k"].shape[2]
     pos = torch.arange(max(prompt_len - C, 0), prompt_len, device=device)
+    kv = prefilled["attn"] if hybrid else prefilled
     for name, t in cache.items():
-        t[:, :, pos % C] = prefilled[name][:, :, pos]
+        t[:, :, pos % C] = kv[name][:, :, pos]
+    if hybrid:
+        return {"attn": cache, "ssm_state": prefilled["ssm_state"],
+                "conv": prefilled["conv"]}
     return cache
 
 

@@ -1,1 +1,1 @@
-"""Model building blocks and the dense-family LM."""
+"""Model building blocks and the LM families: dense, moe, hybrid, rwkv."""

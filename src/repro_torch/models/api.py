@@ -1,6 +1,7 @@
-"""Family-dispatching facade over the port's models (the dense and rwkv
-families so far): counterpart of ``repro.models.api``, with ``loss_fn``
-for training and ``prefill``/``decode_step`` for serving."""
+"""Family-dispatching facade over the port's models (the dense, moe,
+hybrid and rwkv families so far): counterpart of ``repro.models.api``,
+with ``loss_fn`` for training and ``prefill``/``decode_step`` for
+serving."""
 
 from __future__ import annotations
 

@@ -1,10 +1,10 @@
-"""Decoder-only LM, dense and rwkv families: parameters, full forward,
-prefill, decode.
+"""Decoder-only LM, dense, moe, hybrid and rwkv families: parameters, full
+forward, prefill, decode.
 
-Counterpart of the dense and rwkv parts of ``repro.models.lm``.  One
-declarative ``param_defs`` tree with stacked ``[L, ...]`` layer leaves, the
-JAX package's names and shapes, held in an :class:`LM` module; the building
-blocks are plain functions on its tree:
+Counterpart of the dense, moe, hybrid and rwkv parts of
+``repro.models.lm``.  One declarative ``param_defs`` tree with stacked
+``[L, ...]`` layer leaves, the JAX package's names and shapes, held in an
+:class:`LM` module; the building blocks are plain functions on its tree:
 
     loss_fn(params, batch, cfg)                -> (loss, {"ce", "aux"})
     forward(params, batch, cfg)                -> (logits, cache or None)
@@ -16,7 +16,11 @@ projections and the unembedding are plain matrix products; attention over
 the whole sequence goes through ``attention.attend``, which runs the CUDA
 kernel when ``cfg.use_pallas`` is set, and the rwkv time-mix over the whole
 sequence through ``rwkv.apply_time_mix``, which runs the ``linattn_scan``
-CUDA kernel when it is set.
+CUDA kernel when it is set.  A moe layer's feed-forward is
+``moe.apply_moe`` (top-k routing, capacity-bounded dispatch; its balance
+loss is the layer's aux).  A hybrid (zamba2) model is groups of
+``attn_every`` Mamba2 layers (``ssm.apply_ssm``), each group followed by
+one shared attention block, the same weights every time.
 
 ``loss_fn`` is the training path: it is differentiable through the plain
 blockwise attention and ``wkv_chunked`` (the kernels have no backward
@@ -40,7 +44,9 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, apply_rope, checkpointed, chunked_lm_loss,
     compute_dtype, embed_defs, embed_tokens, logits_from_hidden, mlp_defs,
@@ -51,18 +57,18 @@ from repro_torch.sharding.rules import ParamDef
 Tree = Dict[str, Any]
 
 
-PORTED_FAMILIES = ("dense", "rwkv")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "rwkv")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """The port carries the dense and rwkv families so far; the others
-    raise."""
+    """The port carries the dense, moe, hybrid and rwkv families so far;
+    the others raise."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
-            "yet (ROADMAP Queue 1 item 10(b)-(e): moe, hybrid, vlm and "
-            "encdec come after the dense and rwkv families, whose serving "
-            "and training are ported)")
+            "yet (ROADMAP Queue 1 item 10(e)-(f): vlm and encdec, then the "
+            "sharded layout, come after the dense, moe, hybrid and rwkv "
+            "families)")
 
 
 # ---------------------------------------------------------------------------
@@ -70,32 +76,50 @@ def require_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _block_defs(cfg: ModelConfig, layers: tuple[int, ...]):
-    return {
+    d = {
         "ln1": norm_defs(cfg, layers),
         "attn": attn.attn_defs(cfg, layers),
         "ln2": norm_defs(cfg, layers),
-        "mlp": mlp_defs(cfg, layers),
     }
+    if cfg.n_experts:
+        d["moe"] = moe_mod.moe_defs(cfg, layers)
+    else:
+        d["mlp"] = mlp_defs(cfg, layers)
+    return d
+
+
+def _groups(cfg: ModelConfig) -> int:
+    """A hybrid model's groups of ``attn_every`` Mamba2 layers."""
+    return cfg.n_layers // cfg.attn_every
 
 
 def param_defs(cfg: ModelConfig) -> Tree:
     require_ported(cfg)
     L = (cfg.n_layers,)
-    if cfg.family == "rwkv":
-        blocks = {"ln1": norm_defs(cfg, L), "ln2": norm_defs(cfg, L),
-                  **rwkv_mod.rwkv_defs(cfg, L)}
+    defs = {"embed": embed_defs(cfg), "final_norm": norm_defs(cfg)}
+    if cfg.family == "hybrid":
+        defs["mamba"] = ssm_mod.ssm_defs(cfg, (_groups(cfg), cfg.attn_every))
+        defs["shared_attn"] = {"ln1": norm_defs(cfg),
+                               "attn": attn.attn_defs(cfg),
+                               "ln2": norm_defs(cfg), "mlp": mlp_defs(cfg)}
+    elif cfg.family == "rwkv":
+        defs["blocks"] = {"ln1": norm_defs(cfg, L), "ln2": norm_defs(cfg, L),
+                          **rwkv_mod.rwkv_defs(cfg, L)}
     else:
-        blocks = _block_defs(cfg, L)
-    return {"embed": embed_defs(cfg), "final_norm": norm_defs(cfg),
-            "blocks": blocks}
+        defs["blocks"] = _block_defs(cfg, L)
+    return defs
 
 
 def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> Tree:
-    """Decode-cache ParamDef tree.  Dense: per-layer K and V,
+    """Decode-cache ParamDef tree.  Dense and moe: per-layer K and V,
     ``[L, B, C, KV, hd]`` in the compute dtype, where C is ``seq`` or, for
-    a sliding-window config, at most the window (a ring buffer).  rwkv:
-    per-layer WKV state ``[L, B, H, 64, 64]`` in f32 and the two token-shift
-    inputs ``[L, B, D]`` in the compute dtype, whatever ``seq``."""
+    a sliding-window config, at most the window (a ring buffer).  Hybrid:
+    the shared block's K and V a group under ``attn`` (``[G, B, C, KV,
+    hd]``), and each Mamba2 layer's SSM state ``[G, attn_every, B, H, P,
+    N]`` and conv tail ``[G, attn_every, B, CONV_K - 1, d_inner + 2 N]``,
+    in the compute dtype.  rwkv: per-layer WKV state ``[L, B, H, 64, 64]``
+    in f32 and the two token-shift inputs ``[L, B, D]`` in the compute
+    dtype, whatever ``seq``."""
     require_ported(cfg)
     dt = compute_dtype(cfg)
     if cfg.family == "rwkv":
@@ -107,9 +131,40 @@ def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> Tree:
                                 init="zeros", dtype=torch.float32),
                 "shift_att": shift, "shift_ffn": shift}
     cache_len = min(seq, cfg.window) if cfg.window else seq
-    shape = (cfg.n_layers, batch, cache_len, cfg.kv_heads_c, cfg.head_dim)
+    n = _groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
+    shape = (n, batch, cache_len, cfg.kv_heads_c, cfg.head_dim)
     axes = ("layers", "cache_batch", "cache_seq", "kv", None)
-    return {n: ParamDef(shape, axes, init="zeros", dtype=dt) for n in ("k", "v")}
+    kv = {k: ParamDef(shape, axes, init="zeros", dtype=dt) for k in ("k", "v")}
+    if cfg.family != "hybrid":
+        return kv
+    G, K = _groups(cfg), cfg.attn_every
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    return {
+        "attn": kv,
+        "ssm_state": ParamDef((G, K, batch, H, P, N),
+                              ("layers", "layers", "cache_batch", "state",
+                               None, None), init="zeros", dtype=dt),
+        "conv": ParamDef((G, K, batch, ssm_mod.CONV_K - 1,
+                          cfg.d_inner + 2 * N),
+                         ("layers", "layers", "cache_batch", None, "mlp"),
+                         init="zeros", dtype=dt),
+    }
+
+
+class _Level(nn.Module):
+    """A tree level that holds both leaves and subtrees (a moe layer's
+    experts beside its ``shared`` expert): the leaves as parameters, the
+    subtrees as submodules, in the tree's key order."""
+
+    def __init__(self, tree: Tree):
+        super().__init__()
+        self._order = list(tree)
+        for k, x in tree.items():
+            if isinstance(x, torch.Tensor):
+                self.register_parameter(
+                    k, nn.Parameter(x, requires_grad=False))
+            else:
+                self.add_module(k, _module(x))
 
 
 def _module(tree: Tree) -> nn.Module:
@@ -117,13 +172,16 @@ def _module(tree: Tree) -> nn.Module:
         return nn.ParameterDict({
             k: nn.Parameter(x, requires_grad=False) for k, x in tree.items()})
     if any(isinstance(x, torch.Tensor) for x in tree.values()):
-        raise ValueError(f"a tree level mixes leaves and subtrees: {sorted(tree)}")
+        return _Level(tree)
     return nn.ModuleDict({k: _module(x) for k, x in tree.items()})
 
 
 def _tree(m: nn.Module) -> Tree:
     if isinstance(m, nn.ParameterDict):
         return dict(m.items())
+    if isinstance(m, _Level):
+        return {k: getattr(m, k) if k in m._parameters else _tree(getattr(m, k))
+                for k in m._order}
     return {k: _tree(x) for k, x in m.items()}
 
 
@@ -198,10 +256,18 @@ def _attention_sublayer(cfg, p, h, positions, *, cache=None, pos=None,
 
 
 def _block(cfg, p, h, positions, *, cache=None, pos=None):
+    """One transformer layer (dense, moe, and hybrid's shared block);
+    returns (h, the layer's K/V or its updated cache, the layer's aux:
+    the moe balance loss, else 0)."""
     h, new_cache = _attention_sublayer(
         cfg, p, h, positions, cache=cache, pos=pos, window=cfg.window)
     m = apply_norm(p["ln2"], h, cfg)
-    return h + apply_mlp(p["mlp"], m, cfg), new_cache
+    if "moe" in p:
+        y, aux = moe_mod.apply_moe(p["moe"], m, cfg)
+    else:
+        y = apply_mlp(p["mlp"], m, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, new_cache, aux
 
 
 def _rwkv_block(cfg, p, h, *, cache=None):
@@ -243,25 +309,63 @@ def _maybe_remat(cfg, fn):
     return lambda *args: checkpointed(fn, *args, context_fn=context_fn)
 
 
+def _stack(caches: list) -> Tree:
+    """Per-layer cache trees stacked on a new leading axis."""
+    return {n: _stack([c[n] for c in caches]) if isinstance(caches[0][n], dict)
+            else torch.stack([c[n] for c in caches]) for n in caches[0]}
+
+
 def _stack_forward(cfg, params, h, positions, collect_cache: bool):
     """The layers in turn, each under :func:`_maybe_remat`; returns (h,
-    cache tree or None)."""
+    cache tree or None, the layers' aux summed)."""
     def layer(h, lp):
         if cfg.family == "rwkv":
-            return _rwkv_block(cfg, lp, h)
+            h, c = _rwkv_block(cfg, lp, h)
+            return h, c, torch.zeros((), dtype=torch.float32, device=h.device)
         return _block(cfg, lp, h, positions)
 
     layer = _maybe_remat(cfg, layer)
     cache = None
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        h, kv = layer(h, _layer(params["blocks"], i))
+        h, kv, a = layer(h, _layer(params["blocks"], i))
+        aux = aux + a
         if collect_cache:
             if cache is None:
                 cache = {n: t.new_empty((cfg.n_layers,) + t.shape)
                          for n, t in kv.items()}
             for n, t in kv.items():
                 cache[n][i] = t
-    return h, cache
+    return h, cache, aux
+
+
+def _hybrid_forward(cfg, params, h, positions, collect_cache: bool):
+    """Each group's ``attn_every`` Mamba2 layers, each added to the
+    residual with no norm in front (as the reference), then the shared
+    block; each group under :func:`_maybe_remat`.  Returns (h, the decode
+    cache or None, the summed aux)."""
+    shared = params["shared_attn"]
+
+    def group(h, gp):
+        ssm = []
+        for j in range(cfg.attn_every):
+            o, c = ssm_mod.apply_ssm(_layer(gp, j), h, cfg)
+            h = h + o
+            ssm.append(c)
+        h, kv, a = _block(cfg, shared, h, positions)
+        return h, ((kv, _stack(ssm)) if collect_cache else None), a
+
+    group = _maybe_remat(cfg, group)
+    caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for g in range(_groups(cfg)):
+        h, c, a = group(h, _layer(params["mamba"], g))
+        aux = aux + a
+        caches.append(c)
+    if not collect_cache:
+        return h, None, aux
+    kv, ssm = _stack([c[0] for c in caches]), _stack([c[1] for c in caches])
+    return h, {"attn": kv, **ssm}, aux
 
 
 def _embed_inputs(cfg, params, batch):
@@ -274,11 +378,12 @@ def _embed_inputs(cfg, params, batch):
 
 
 def _backbone(params, batch, cfg: ModelConfig, *, collect_cache):
-    """Embed + blocks + final norm; returns (h, cache)."""
+    """Embed + blocks + final norm; returns (h, cache, aux)."""
     require_ported(cfg)
     h, positions = _embed_inputs(cfg, params, batch)
-    h, cache = _stack_forward(cfg, params, h, positions, collect_cache)
-    return apply_norm(params["final_norm"], h, cfg), cache
+    fwd = _hybrid_forward if cfg.family == "hybrid" else _stack_forward
+    h, cache, aux = fwd(cfg, params, h, positions, collect_cache)
+    return apply_norm(params["final_norm"], h, cfg), cache, aux
 
 
 def forward(params: LM, batch, cfg: ModelConfig, *, collect_cache=False,
@@ -289,7 +394,7 @@ def forward(params: LM, batch, cfg: ModelConfig, *, collect_cache=False,
     pays the [B, S, V] unembed).
     """
     params = params.tree()
-    h, cache = _backbone(params, batch, cfg, collect_cache=collect_cache)
+    h, cache, _ = _backbone(params, batch, cfg, collect_cache=collect_cache)
     if last_only:
         h = h[:, -1:]
     return logits_from_hidden(params["embed"], h, cfg), cache
@@ -297,15 +402,15 @@ def forward(params: LM, batch, cfg: ModelConfig, *, collect_cache=False,
 
 def loss_fn(params, batch, cfg: ModelConfig):
     """Mean next-token CE of ``batch["labels"]`` (``chunked_lm_loss``).
-    Returns ``(loss + 0.01 * aux, {"ce", "aux"})``; ``aux``, the MoE
-    balance loss in the reference, is 0 for the dense and rwkv families.
+    Returns ``(loss + 0.01 * aux, {"ce", "aux"})``, where ``aux`` is the
+    moe layers' balance loss summed over the layers (0 for the other
+    families).
 
     ``params`` is an ``LM`` or its tree, whose stacked layer leaves may be
     sequences of per-layer tensors."""
     params = params.tree() if isinstance(params, LM) else params
-    h, _ = _backbone(params, batch, cfg, collect_cache=False)
+    h, _, aux = _backbone(params, batch, cfg, collect_cache=False)
     loss = chunked_lm_loss(params["embed"], h, batch["labels"], cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -317,12 +422,16 @@ def loss_fn(params, batch, cfg: ModelConfig):
 def prefill(params: LM, batch, cfg: ModelConfig):
     """Process a full prompt; emit last-position logits and a cache.
 
-    Dense: the per-layer K/V of every prompt position,
-    ``[L, B, S, KV, hd]``.  rwkv: the decode cache itself (``cache_defs``),
-    the per-layer final WKV state and the last prompt position of the ln1
-    and ln2 outputs that enter the token shifts.  (The JAX package's
-    ``prefill`` returns no cache for rwkv, and its ``serve_batch`` builds
-    the cache through decode steps instead.)"""
+    Dense and moe: the per-layer K/V of every prompt position,
+    ``[L, B, S, KV, hd]``.  Hybrid: the decode cache but for the length of
+    its K/V, the shared block's K/V of every prompt position a group
+    (``{"attn": {"k", "v"}}``, ``[G, B, S, KV, hd]``) and each Mamba2
+    layer's final SSM state and conv tail.  rwkv: the decode cache itself
+    (``cache_defs``), the per-layer final WKV state and the last prompt
+    position of the ln1 and ln2 outputs that enter the token shifts.  (The
+    JAX package's ``prefill`` returns no cache for rwkv and only the K/V
+    for hybrid; its ``serve_batch`` builds the cache through decode steps
+    instead.)"""
     logits, cache = forward(params, batch, cfg, collect_cache=True,
                             last_only=True)
     return logits[:, -1], cache
@@ -337,14 +446,29 @@ def decode_step(params: LM, tokens: torch.Tensor, pos: int, cache: Tree,
     params = params.tree()
     h = embed_tokens(params["embed"], tokens[:, None], cfg)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        layer_cache = {n: t[i] for n, t in cache.items()}
-        if cfg.family == "rwkv":
-            h, new = _rwkv_block(cfg, lp, h, cache=layer_cache)
-            for n, t in new.items():      # in place, as the dense K/V
-                cache[n][i] = t
-        else:
-            h, _ = _block(cfg, lp, h, positions, cache=layer_cache, pos=pos)
+    if cfg.family == "hybrid":
+        kv = cache["attn"]
+        for g in range(_groups(cfg)):
+            gp = _layer(params["mamba"], g)
+            for j in range(cfg.attn_every):
+                o, new = ssm_mod.apply_ssm(
+                    _layer(gp, j), h, cfg,
+                    cache={n: cache[n][g, j] for n in ("ssm_state", "conv")})
+                h = h + o
+                for n, t in new.items():  # in place, as the K/V
+                    cache[n][g, j] = t
+            h, _, _ = _block(cfg, params["shared_attn"], h, positions,
+                             cache={n: t[g] for n, t in kv.items()}, pos=pos)
+    else:
+        for i in range(cfg.n_layers):
+            lp = _layer(params["blocks"], i)
+            layer_cache = {n: t[i] for n, t in cache.items()}
+            if cfg.family == "rwkv":
+                h, new = _rwkv_block(cfg, lp, h, cache=layer_cache)
+                for n, t in new.items():      # in place, as the dense K/V
+                    cache[n][i] = t
+            else:
+                h, _, _ = _block(cfg, lp, h, positions, cache=layer_cache,
+                                 pos=pos)
     h = apply_norm(params["final_norm"], h, cfg)
     return logits_from_hidden(params["embed"], h, cfg)[:, 0], cache

@@ -67,7 +67,8 @@ def _leaf_init(d: ParamDef, generator: torch.Generator) -> torch.Tensor:
     if d.init in ("normal", "embed"):
         x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * d.std()).to(d.dtype)
+        # scaled in place: a stacked expert leaf is tens of GB at full width
+        return x.mul_(d.std()).to(d.dtype)
     raise ValueError(f"unknown init {d.init!r}")
 
 

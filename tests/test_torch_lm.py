@@ -85,9 +85,12 @@ def _close_cache(port, jax_out):
 
 
 def test_registry_lists_the_ported_configs():
-    """The dense configs and rwkv6-7b, each equal to the JAX package's."""
+    """The dense, moe, hybrid and rwkv configs, each equal to the JAX
+    package's."""
     assert list_archs() == ["h2o-danube-1.8b", "llama3.2-3b",
-                            "mistral-nemo-12b", "rwkv6-7b", "stablelm-3b"]
+                            "llama4-scout-17b-a16e", "mistral-nemo-12b",
+                            "mixtral-8x7b", "rwkv6-7b", "stablelm-3b",
+                            "zamba2-2.7b"]
     for name in list_archs():
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))
@@ -97,7 +100,7 @@ def test_registry_lists_the_ported_configs():
 
 def test_other_families_raise():
     cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
-                              family="moe")
+                              family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg)
 

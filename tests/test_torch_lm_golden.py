@@ -2,19 +2,31 @@
 
 ``chip_smoke.py`` runs the port's LM on the card, where JAX is not
 installed, and holds it to ``tests/data/torch_lm_golden.json``, a list of
-two entries: for reduced llama3.2-3b and reduced rwkv6-7b in f32 with the
-seeded numpy weights of ``repro_torch.convert.numpy_lm_params`` (for
-rwkv6-7b with its zero-init leaves drawn live, from ``live_seed``), the
-JAX package's ``prefill`` last-position logits and the tokens its
-``serve_batch`` generates.  The rwkv prompt, 75 tokens, is longer than two
-of the kernel's 32-step tiles and ends in a ragged one.  These tests
-recompute the entries with JAX and fail when the file is stale, and hold
-the port on the CPU to them.
+one entry a run of ``RUNS``: for a reduced config in f32 with the seeded
+numpy weights of ``repro_torch.convert.numpy_lm_params`` (with
+``live_seed``, the leaves that the initializer leaves at zero or one drawn
+live: rwkv6-7b's, zamba2-2.7b's Mamba2 leaves, llama4-scout's QK norms),
+the JAX package's ``prefill`` last-position logits and the tokens it
+generates.  The tokens are those of its ``serve_batch``, but for moe:
+there they are those of its ``prefill`` followed by its ``decode_step``
+(``_torch_lm.jax_prefill_decode``), the port's request path, since the
+JAX ``serve_batch`` prefills through decode steps, which route with no
+capacity (``tests/test_torch_moe.py::
+test_jax_serve_batch_parts_from_its_prefill_and_decode``).  A moe entry
+records its least router margin (``min_router_margin``, over the prefill
+and decode steps), and it must be at least ``MIN_MARGIN``, so that the
+card is not asked to reproduce a near-tie.
+
+The rwkv prompt, 75 tokens, is longer than two of the kernel's 32-step
+tiles and ends in a ragged one; mixtral's, 80 tokens, is longer than its
+64-token window, so the ring and the window both bind; zamba2's, 40
+tokens, is two 16-step chunks and a ragged one.  These tests recompute the
+entries with JAX and fail when the file is stale, and hold the port on the
+CPU to them.
 
 Regenerate the file with ``PYTHONPATH=src python tests/test_torch_lm_golden.py``.
 """
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -24,10 +36,10 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import _torch_lm as tl
 import repro.launch.serve as jax_serve
 from repro.configs.base import get_config as jax_get_config
 from repro.models import lm as jax_lm
-from repro.models.api import ModelAPI
 from repro_torch.configs.base import get_config
 from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
 from repro_torch.launch.serve import serve_batch
@@ -37,30 +49,18 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "data",
 RUNS = [{"arch": "llama3.2-3b", "reduced": True, "seed": 0, "batch": 2,
          "prompt_len": 24, "gen": 8},
         {"arch": "rwkv6-7b", "reduced": True, "seed": 0, "live_seed": 1,
-         "batch": 2, "prompt_len": 75, "gen": 8}]
+         "batch": 2, "prompt_len": 75, "gen": 8},
+        {"arch": "mixtral-8x7b", "reduced": True, "seed": 0, "batch": 2,
+         "prompt_len": 80, "gen": 8},
+        {"arch": "llama4-scout-17b-a16e", "reduced": True, "seed": 0,
+         "live_seed": 1, "batch": 2, "prompt_len": 24, "gen": 8},
+        {"arch": "zamba2-2.7b", "reduced": True, "seed": 0, "live_seed": 1,
+         "batch": 2, "prompt_len": 40, "gen": 8}]
 # f32 logits: see test_torch_lm.py for why two f32 implementations of
 # the dense model may differ by up to 5e-4 (rwkv's differ by under 1e-5,
 # test_torch_rwkv.py)
 TOL = 5e-4
-
-
-@contextlib.contextmanager
-def _jax_serve_with(params):
-    """JAX's ``serve_batch`` with ``params`` in place of its own init."""
-
-    @dataclasses.dataclass(frozen=True)
-    class Fixed(ModelAPI):
-        def init(self, key):
-            return params
-
-    real = jax_serve.get_model
-    jax_serve.get_model = lambda cfg: Fixed(
-        **{f.name: getattr(real(cfg), f.name)
-           for f in dataclasses.fields(ModelAPI)})
-    try:
-        yield
-    finally:
-        jax_serve.get_model = real
+MIN_MARGIN = 1e-5
 
 
 def golden_entry(run: dict) -> dict:
@@ -71,14 +71,22 @@ def golden_entry(run: dict) -> dict:
     prompts = np.random.default_rng(run["seed"]).integers(
         1, cfg.vocab - 1, (run["batch"], run["prompt_len"])).astype(np.int32)
     last, _ = jax_lm.prefill(params, {"tokens": jnp.asarray(prompts)}, cfg)
-    with _jax_serve_with(params):
-        seqs, _ = jax_serve.serve_batch(cfg, run["batch"], run["prompt_len"],
-                                        run["gen"], seed=run["seed"])
+    extra = {}
+    if cfg.family == "moe":
+        seqs = tl.jax_prefill_decode(cfg, params, prompts, run["gen"])
+        extra["min_router_margin"] = tl.least_router_margin(
+            get_config(run["arch"]).reduced(), jax.tree.map(np.asarray, params),
+            run["batch"], run["prompt_len"], run["gen"], run["seed"])
+    else:
+        with tl.jax_serve_with(params):
+            seqs, _ = jax_serve.serve_batch(cfg, run["batch"],
+                                            run["prompt_len"], run["gen"],
+                                            seed=run["seed"])
     seqs = np.asarray(seqs)
     assert (seqs[:, :run["prompt_len"]] == prompts).all()
     return {**run, "prompts": prompts.tolist(),
             "last_logits": np.asarray(last, np.float32).tolist(),
-            "tokens": seqs.tolist()}
+            "tokens": seqs.tolist(), **extra}
 
 
 def _load() -> list:
@@ -96,6 +104,16 @@ def test_golden_entry_is_current():
         assert got["tokens"] == want["tokens"]
         np.testing.assert_allclose(got["last_logits"], want["last_logits"],
                                    rtol=1e-6, atol=1e-7)
+        if "min_router_margin" in want:
+            np.testing.assert_allclose(got["min_router_margin"],
+                                       want["min_router_margin"], rtol=1e-3)
+
+
+def test_moe_entries_keep_clear_of_router_ties():
+    moe = [g for g in _load() if get_config(g["arch"]).family == "moe"]
+    assert len(moe) == 2
+    for g in moe:
+        assert g["min_router_margin"] >= MIN_MARGIN, g["arch"]
 
 
 def test_port_on_cpu_matches_golden():

@@ -43,7 +43,7 @@ from repro_torch.launch.serve import serve_batch
 from repro_torch.models import lm, rwkv
 from repro_torch.models.api import get_model
 from repro_torch.sharding.rules import map_defs
-from test_torch_lm_golden import _jax_serve_with
+from _torch_lm import jax_serve_with as _jax_serve_with
 
 ARCH = "rwkv6-7b"
 PIECE_TOL = 1e-4
