@@ -47,8 +47,9 @@ Phases, each printing one JSON line with its wall time:
              the host clock beside the plain version, the two-call PyTorch
              form and the bound (B x T x 5 bytes), and its device
              operations (two).
-4. golden  - the engine on cuda, 10,000-job SDSC-SP2-like (six policies)
-             and DAS-2-like (fcfs, backfill) traces, each held to the JAX
+4. golden  - the engine on cuda, 5,000-job SDSC-SP2-like (six policies)
+             and DAS-2-like (fcfs, backfill) traces (10,000 until the vlm
+             and encdec phases came), each held to the JAX
              engine's n_events, makespan and start/finish digests in
              tests/data/torch_port_golden.json; per run events/s,
              queue_select and walk launches, launches per event, and the
@@ -62,7 +63,7 @@ Phases, each printing one JSON line with its wall time:
              busy-node count that never exceeds the machine; the counts of
              phase 4.
 6. profile - the card's busy share of a short backfill run.
-6b. sweep  - Fig. 4(b)'s grid through sweep: 10,000 SDSC-SP2-like jobs,
+6b. sweep  - Fig. 4(b)'s grid through sweep: phase 4's SDSC-SP2-like jobs,
              the six policies on 128 and 256 nodes, one bucket of 12
              members in lockstep; the 128-node members held to the golden
              digests, the 256-node backfill member to its solo run on the
@@ -73,8 +74,8 @@ Phases, each printing one JSON line with its wall time:
              batched launches and the member-selections a launch served.
 6c. ensemble - Fig. 5(a)'s shape: DAS-2-like backfill on 400 nodes,
              2,500 jobs (10,000 until the oracle came, 5,000 until the
-             window phases; phase 4 and phase 6b's das2 members hold the
-             10,000-job seed 0 to its digest),
+             window phases; phase 4 and phase 6b's das2 members hold
+             seed 0 to its digest at phase 4's size),
              trace seeds 0-7 as one batch of 8 and as a serial loop of
              run, member by member equal; events/s both ways and their
              ratio; B = 1 through
@@ -106,8 +107,10 @@ Phases, each printing one JSON line with its wall time:
              members in lockstep, each held to its solo run's digests;
              n_compiles, events/s against phase 6d's four solo runs of
              the grid, batched launches and member-selections a launch.
-6f. dag    - a workflow DAG on the cluster: galactic_like(256, 12, seed=0),
-             10,497 tasks and 18,944 edges, the six policies in scalar mode
+6f. dag    - a workflow DAG on the cluster: galactic_like(128, 12, seed=0),
+             5,249 tasks and 9,472 edges (galactic_like(256, ...), 10,497
+             tasks, until the vlm and encdec phases came), the six
+             policies in scalar mode
              on 128 nodes (preempt over critical-path priorities), then
              backfill/topo, fcfs/contiguous and sjf/simple on
              dragonfly(16, 8) with contention (1, 5); each run held to the
@@ -123,9 +126,9 @@ Phases, each printing one JSON line with its wall time:
              sweep: fcfs, sjf, backfill, bestfit x simple, contiguous,
              topo on dragonfly(16, 8) with contention (1, 5), one bucket
              of 12 members, each held to its digests
-             (tests/data/torch_dag_sweep_golden.json); events/s against
-             the twelve solo runs.  Then a seed axis with ragged edge
-             lists (a random layered DAG of 5,000 tasks, 10,497 until the
+             (tests/data/torch_dag_sweep_golden.json; the DAG cut with
+             phase 6f's); events/s against the three members phase 6f
+             ran solo.  Then a seed axis with ragged edge lists (a random layered DAG of 5,000 tasks, 10,497 until the
              oracle came; seeds 0-1, 0-3 until the malleable phases came;
              backfill; 128 nodes) in one
              bucket, each member equal to its solo run.
@@ -152,9 +155,10 @@ Phases, each printing one JSON line with its wall time:
              held to the JAX engine's digests (tests/data/
              torch_rel_golden.json: start, finish, ready, n_restarts,
              lost_work, aborted; on a machine the fingerprints and ev_lfb),
-             every failure stream checked untruncated: 2,000 congested
-             SDSC-SP2-like jobs on 128 nodes, backfill, MTBF 50,000 s over
-             2^19 s, requeue and abort; phase 4's 10,000 jobs at MTBF
+             every failure stream checked untruncated: 1,000 congested
+             SDSC-SP2-like jobs on 128 nodes (2,000, the figure's, until
+             the vlm and encdec phases came), backfill, MTBF 50,000 s over
+             2^19 s, requeue and abort; phase 4's 5,000 jobs at MTBF
              400,000 s over 2^22 s; the requeue model on dragonfly(16, 8)
              under backfill/simple and fcfs/contiguous, and under preempt;
              Galactic Plane under fcfs with aborts (the prefix pass, no
@@ -199,8 +203,9 @@ Phases, each printing one JSON line with its wall time:
              runs'.
 6o. oracle - card runs of rt.run held to the host oracle rt.run_ref,
              key by key (every per-job column it returns, n_events,
-             makespan), on twelve runs of about 2,000 jobs without a
-             digest, seeds 101-106: sdsc_sp2_like on 128 nodes under the
+             makespan), on twelve runs of about 1,000 jobs (2,000 until
+             the vlm and encdec phases came) without a digest, seeds
+             101-106: sdsc_sp2_like on 128 nodes under the
              six policies; DAS-2-like on mesh2d(20, 20), spread,
              contention (1, 5), backfill; a Galactic Plane DAG of 1,969
              tasks on 128 nodes under backfill and fcfs (the prefix pass,
@@ -240,7 +245,8 @@ Phases, each printing one JSON line with its wall time:
              replay_reference.  Jobs/s, events/s, rounds, peak_live, the
              flags, the oracle's and the kill/resume seconds.
 6s. whatif - the what-if service (repro_torch.service) on demo_fleet's
-             three queues at 1,000 jobs each (five times the demo's 200:
+             three queues at 500 jobs each (two and a half times the
+             demo's 200, 1,000 until the vlm and encdec phases came:
              batch, sdsc_sp2 on 128 nodes under fcfs; mesh, mesh2d(8, 16)
              under sjf/contiguous; flaky, backfill with failures at MTBF
              1e6 s) and fig_whatif.py's full query set: placement of 400 s
@@ -268,12 +274,17 @@ Phases, each printing one JSON line with its wall time:
              over 4,608 positions, and Sk = 2,049; the prefill calls of
              phases 12c and 12e at their serve shapes (mixtral-8x7b 2 x
              6,144 with its window, llama4-scout 4 x 2,048 over a GQA
-             group of 5, zamba2-2.7b 4 x 2,048 at hd 80); each call
-             counted on its dtype's route.  Then, at the serve shape, the sm90
-             kernel's time beside the f32 kernel's (in f32), the plain
-             version, F.scaled_dot_product_attention (the library
-             yardstick, never called by the port) and the compute bound,
-             and the sm90 kernel's time at the hd-80 shape.
+             group of 5, zamba2-2.7b 4 x 2,048 at hd 80) and of phases
+             12g and 12i (qwen2-vl-72b 4 x 2,048 over 64 heads of 128;
+             seamless-m4t-medium 4 x 1,024 at hd 64, causal and not, and
+             a ragged cross-attention of 1,000 queries over 777 keys);
+             each call counted on its dtype's route.  Then, at the serve
+             shape, the sm90 kernel's time beside the f32 kernel's (in
+             f32), the plain version, F.scaled_dot_product_attention (the
+             library yardstick, never called by the port) and the compute
+             bound; the sm90 kernel's time at the hd-80 shape; and at
+             seamless's hd-64 shape, causal and not, its time beside its
+             bound, the plain version and SDPA.
 8. lm_golden - reduced llama3.2-3b in f32 on the kernel path, held to the
              JAX package's prefill logits and generated tokens in
              tests/data/torch_lm_golden.json.
@@ -351,6 +362,40 @@ Phases, each printing one JSON line with its wall time:
              32 tokens, cold then warm, 9 sm90 flash launches a prefill;
              (c) one profiled prefill and decode step, the Mamba2 layers'
              share of device time beside flash's.
+12f. vlm_golden - reduced qwen2-vl-72b (a 40-position request: 10
+             patch embeddings before 30 tokens; attention at its true
+             fan-in), f32 on the kernel path, held to the JAX package's
+             prefill logits and the tokens of its prefill with the patches
+             followed by its decode_step at the positions after them; the
+             card replays the entry's prompts and patches.
+12g. vlm_serve - qwen2-vl-72b at full layer width (d 8192, 64 heads over 8,
+             d_ff 29,568, vocab 152,064), its layers cut from 80 to
+             VLM_LAYERS, the attention at its true fan-in: (a) in f32, on
+             a request of 512 positions (128 patches, 384 tokens), each
+             layer from the plain path's input to it on the kernel path
+             against the plain path, and the whole model's logits
+             reported; (b) the bf16 serve of 4 x (512 patches + 1,536
+             tokens) + 32, cold then warm, through serve_batch, one sm90
+             flash launch a layer; (c) one profiled prefill and decode
+             step.
+12h. encdec_golden - reduced seamless-m4t-medium (a 75-position request:
+             37 source frames, 38 target tokens, so the cross-attention is
+             ragged and not square; LayerNorms drawn live, attention at
+             its true fan-in), f32 on the kernel path, held to the JAX
+             package's forward logits at the last target position and the
+             tokens of its decode_step over the prompt with the cross
+             cache made from its encode; the card replays the entry's
+             prompts and source frames.
+12i. encdec_serve - seamless-m4t-medium not cut (12 + 12 layers, d 1024,
+             hd 64, vocab 256,206), LayerNorms live, its three attentions
+             at their true fan-in: (a) in f32, on a request of 511 frames
+             and 512 tokens, each encoder and decoder layer from the plain
+             path's input to it on the kernel path against the plain path,
+             and the whole model's logits reported; (b) the bf16 serve of
+             4 x (1,024 frames + 1,024 tokens) + 32, cold then warm, 36
+             sm90 flash launches a prefill (the encoder's, the decoder's
+             self- and cross-attention); (c) one profiled prefill and
+             decode step.
 13. train  - training on the card (repro_torch.runtime.Trainer):
              (a) reduced llama3.2-3b (accum=2) and reduced rwkv6-7b (int8
              gradient compression), f32, 8 steps of 4 x 32 synthetic
@@ -375,7 +420,7 @@ Each kernel's launch counter is set to 0 before each run of its main path
 its walk, phases 6b, 6c, 6e, 6g, 6j, 6l, 6n and 6q and each pass of 6s
 for their batched entries, each batch
 of phase 6h' for the batched generic entry, the serve
-of phases 9, 12c and 12e for flash_attention,
+of phases 9, 12c, 12e, 12g and 12i for flash_attention,
 the serve of phase 12 for linattn_scan) and read after it; a run that did
 not launch the kernel fails.  Phase 13 must launch none.  TF32 is off for
 matrix products and convolutions throughout.  The script catches nothing: any failed check
@@ -415,7 +460,7 @@ MC_GOLDEN = ROOT / "tests" / "data" / "torch_multicluster_golden.json"
 WHATIF_GOLDEN = ROOT / "tests" / "data" / "torch_whatif_golden.json"
 TRAIN_GOLDEN = ROOT / "tests" / "data" / "torch_train_golden.json"
 WINDOW_DAY = 86_400              # phase window (a): one simulated day
-WINDOW_DAG = 100                 # phase window (b): ~35 rounds of the DAG
+WINDOW_DAG = 100                 # phase window (b): rounds of the DAG
 MC_NODES = (144, 64, 64, 64, 64)  # DAS-2's five clusters
 MC_JOBS = 2_000
 MC_WINDOW = 3_600
@@ -424,7 +469,8 @@ REPLAY_PREFIX = 4_000
 REPLAY_WINDOW = 4_096
 REPLAY_PREFIX_WINDOW = 512
 REPLAY_NODES = 128
-WHATIF_JOBS = 1_000              # demo_fleet's queues at 5x the demo's 200
+ORACLE_JOBS = 1_000              # phase oracle's traces (2,000 before)
+WHATIF_JOBS = 500                # demo_fleet's queues at 2.5x the demo's 200
 MAL_PROFILE_EVENTS = 150         # each malleable run's profiled prefix
 PROFILE_PAD_S = 0.02             # host-only time at each end of a profile
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
@@ -491,7 +537,12 @@ FLASH_MASKS = [(True, None), (True, 96), (False, None)]
 # and Sk = 2,049 (one key past a tile), whole and after a cache; then the
 # prefill calls of phase 12c's serves: mixtral-8x7b's 32 over 8 heads with
 # its 4,096 window binding over 2,048 positions, llama4-scout's 40 over 8
-# (a GQA group of 5), and of phase 12e's: zamba2-2.7b's 32 heads of 80
+# (a GQA group of 5), and of phase 12e's: zamba2-2.7b's 32 heads of 80;
+# then phase vlm_serve's qwen2-vl-72b, 64 over 8 heads, and phase
+# encdec_serve's seamless-m4t-medium, 16 heads of 64 (the hd-64
+# instantiation, which no other serve launches): its self-attention
+# (causal) and its encoder's and cross-attention (not causal), and a
+# ragged cross-attention with more queries than keys
 FLASH_BF16_CASES = [
     ((1, 2048, 2048, 32, 32, 80), FLASH_MASKS),
     ((1, 4608, 4608, 32, 8, 80), [(True, 4096)]),
@@ -500,7 +551,11 @@ FLASH_BF16_CASES = [
     ((2, 6144, 6144, 32, 8, 128), [(True, 4096)]),
     ((4, 2048, 2048, 40, 8, 128), [(True, None)]),
     ((4, 2048, 2048, 32, 32, 80), [(True, None)]),
+    ((4, 2048, 2048, 64, 8, 128), [(True, None)]),
+    ((4, 1024, 1024, 16, 16, 64), [(True, None), (False, None)]),
+    ((2, 1000, 777, 16, 16, 64), [(False, None)]),
 ]
+FLASH_HD64 = (4, 1024, 1024, 16, 16, 64)   # timed, causal and not
 FLASH_HD80 = (1, 2048, 2048, 32, 32, 80)   # timed, causal
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as tests/test_kernels.py
 FLASH_TIMED = 50
@@ -586,6 +641,19 @@ SSD_TOL = (2e-4, 2e-3)           # atol, rtol: tests/test_models.py's scan check
 # the whole model's f32 logits and SSM states on the kernel path may add
 # at most CHECK_TOL to the plain path's distance from the float64
 # evaluation.
+# phase vlm_serve: qwen2-vl-72b at full layer width (d 8192, 64 heads over
+# 8 KV, hd 128, d_ff 29,568, vocab 152,064, tied), the layers cut to what
+# 80 GB holds in f32: 877,674,496 parameters a layer (3.511 GB), the
+# embedding and frontend_proj 1,312,555,008 (5.25 GB), so 18 layers hold
+# 68.4 GB and leave ~3 GB for a layer's bf16 copy and the activations
+VLM_LAYERS = 18
+VLM_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}  # 512 patches + 1,536
+# phase encdec_serve: seamless-m4t-medium not cut (12 + 12 layers, d 1024,
+# 16 heads of 64, vocab 256,206: 615,852,032 parameters); a request of
+# 2,048 positions is 1,024 source frames and 1,024 target tokens
+ENCDEC_SERVE = {"batch": 4, "prompt_len": 2048, "gen": 32}
+ENCDEC_CHECK_LEN = 1023          # the f32 checks: 511 frames, 512 tokens
+ENCDEC_LIVE_SEED = 7             # seamless's LayerNorm scales and biases
 TRAIN_FAIL_AT = 5                # phase 13b: the injected fault's step
 TRAIN_FULL = {"batch": 2, "seq": 2048, "accum": 2, "steps": 8}
 # Adam's first steps are sign steps, each weight moving by the learning
@@ -1387,7 +1455,8 @@ def phase_sweep(torch, rt, ops):
     t0 = time.time()
     golden = {(e["kind"], e["policy"]): e
               for e in json.loads(GOLDEN.read_text())["runs"]}
-    base = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10_000, seed=1,
+    n_jobs = golden[("sdsc_sp2", "fcfs")]["n_jobs"]
+    base = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=n_jobs, seed=1,
                                                kind="sdsc_sp2"),
                        total_nodes=128)
     grid, outs, wall, counts = run_sweep(
@@ -1403,14 +1472,15 @@ def phase_sweep(torch, rt, ops):
             solo = rt.run(base.with_(**point)).to_np()
             solo_s += time.time() - t
             check_same(out, solo, f"sweep {point}")
-    das2 = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10_000, seed=0,
-                                               kind="das2"), total_nodes=400)
+    das2 = rt.Scenario(trace=rt.SyntheticTrace(
+        n_jobs=golden[("das2", "fcfs")]["n_jobs"], seed=0, kind="das2"),
+        total_nodes=400)
     grid2, outs2, wall2, counts2 = run_sweep(
         torch, rt, ops, das2, {"policy": ("fcfs", "backfill")}, "das2 sweep")
     for point, out in zip(grid2.points, outs2):
         check_golden(out, golden[("das2", point["policy"])], "sweep ")
     ops.reset_launches()
-    emit("sweep", t0, grid="sdsc_sp2 seed 1, 10,000 jobs: policy x "
+    emit("sweep", t0, grid=f"sdsc_sp2 seed 1, {n_jobs:,} jobs: policy x "
          f"total_nodes {list(SWEEP_NODES)}", n_compiles=grid.n_compiles,
          members=len(grid), run_seconds=wall, **counts,
          solo_checked=[p for p in SWEEP_SOLO_POLICIES],
@@ -1671,7 +1741,7 @@ def dag_run(rt, ops, e, what: str = ""):
 
 
 def phase_dag(rt, ops, golden_runs=None):
-    """Galactic Plane (10,497 tasks, 18,944 edges) on the cluster, solo:
+    """Galactic Plane (5,249 tasks, 9,472 edges) on the cluster, solo:
     the six policies in scalar mode on 128 nodes (preempt over
     critical-path priorities), then backfill/topo, fcfs/contiguous and
     sjf/simple on dragonfly(16, 8) with contention (1, 5); each held to its
@@ -1687,7 +1757,7 @@ def phase_dag(rt, ops, golden_runs=None):
         launches += counts["launches"]
         walks += counts["walk_launches"]
         solo[dag_key(scn)] = (out["n_events"], wall)
-        emit("dag", t0, dag="galactic_like(256, 12, seed=0)",
+        emit("dag", t0, dag="galactic_like(128, 12, seed=0)",
              policy=e["policy"], priority=e["priority"],
              topology=e["topology"], alloc=e["alloc"],
              contention=e["contention"], n_jobs=e["n_jobs"],
@@ -1699,10 +1769,12 @@ def phase_dag(rt, ops, golden_runs=None):
              **counts, matches_jax=True)
     if golden_runs is not None:
         n_events, wall, _ = golden_runs[("sdsc_sp2", "fcfs")]
+        n_jobs = next(e for e in json.loads(GOLDEN.read_text())["runs"]
+                      if e["kind"] == "sdsc_sp2")["n_jobs"]
         emit("dag", t0, run="phase 4's scalar sdsc_sp2 fcfs of this call",
-             n_jobs=10_000, n_events=n_events, run_seconds=wall,
-             events_per_s=n_events / wall, jobs_per_s=10_000 / wall,
-             jobs_per_event=10_000 / n_events)
+             n_jobs=n_jobs, n_events=n_events, run_seconds=wall,
+             events_per_s=n_events / wall, jobs_per_s=n_jobs / wall,
+             jobs_per_event=n_jobs / n_events)
     return {"launches": launches, "walk_launches": walks, "solo": solo}
 
 
@@ -1723,6 +1795,8 @@ def phase_dag_sweep(torch, rt, ops, solo=None):
         torch, rt, ops, base, {"policy": DAG_POLICIES, "alloc": DAG_ALLOCS},
         "dag sweep")
     check(grid.n_compiles == 1, f"{grid.n_compiles} buckets, expected 1")
+    check(len(golden) == len(grid.results),
+          f"dag sweep: {len(grid.results)} members, {len(golden)} entries")
     for r, out, e in zip(grid.results, outs, golden):
         check(dag_key(r.scenario) == dag_key(dag_scenario(rt, e)),
               "dag sweep: grid order differs from the golden file")
@@ -1733,7 +1807,7 @@ def phase_dag_sweep(torch, rt, ops, solo=None):
                                                      for k in timed)
                 if timed else "not measured")
     ops.reset_launches()
-    emit("dag_sweep", t0, grid="galactic_like(256, 12), dragonfly(16, 8), "
+    emit("dag_sweep", t0, grid="galactic_like(128, 12), dragonfly(16, 8), "
          "contention (1, 5): policy x alloc", n_compiles=grid.n_compiles,
          members=len(grid), run_seconds=wall, **counts,
          solo_runs=[list(map(str, k)) for k in timed],
@@ -2001,16 +2075,16 @@ def phase_workflow_batch(torch, np, rt, ops, solo=None):
 
 
 def oracle_scenarios(rt) -> dict:
-    """About twelve runs of about 2,000 jobs, one or more from each family
-    the port runs, with seeds that appear in no golden file."""
+    """About twelve runs of about ORACLE_JOBS jobs, one or more from each
+    family the port runs, with seeds that appear in no golden file."""
     def sdsc(seed):
-        return rt.SyntheticTrace(n_jobs=2000, seed=seed, kind="sdsc_sp2",
-                                 congest=4)
+        return rt.SyntheticTrace(n_jobs=ORACLE_JOBS, seed=seed,
+                                 kind="sdsc_sp2", congest=4)
     runs = {f"sdsc_{p}": rt.Scenario(trace=sdsc(101), total_nodes=128,
                                      policy=p)
             for p in ("fcfs", "sjf", "ljf", "bestfit", "backfill", "preempt")}
     runs["das2_mesh2d_spread"] = rt.Scenario(
-        trace=rt.SyntheticTrace(n_jobs=2000, seed=102, kind="das2"),
+        trace=rt.SyntheticTrace(n_jobs=ORACLE_JOBS, seed=102, kind="das2"),
         topology=rt.Topology.mesh2d(20, 20), alloc="spread",
         contention=(1, 5), policy="backfill")
     galactic = rt.WorkflowTrace(kind="galactic", seed=103,
@@ -2923,6 +2997,30 @@ def phase_flash(torch, np):
                       FLASH_TIMED)
     hd80_flops = 4 * hd8 * B8 * H8 * (S8 * (S8 + 1) // 2)
     del q, k, v
+
+    # the hd-64 shape (phase encdec_serve's attentions), causal (the
+    # decoder's self-attention) and not (the encoder's, the cross-attention),
+    # each beside its bound and SDPA
+    B6, S6, _, H6, KV6, hd6 = FLASH_HD64
+    q, k, v = (torch.randn((B6, S6, n, hd6), device="cuda",
+                           dtype=torch.bfloat16) for n in (H6, KV6, KV6))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    hd64 = {"shape": f"B={B6} Sq=Sk={S6} H={H6} KV={KV6} hd={hd6} bf16"}
+    for name, causal in (("causal", True), ("full", False)):
+        pairs = S6 * (S6 + 1) // 2 if causal else S6 * S6
+        fl = 4 * hd6 * B6 * H6 * pairs
+        nb = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+        o_ms, b_ms = fl / BF16_FLOPS * 1e3, nb / HBM_BYTES_PER_S * 1e3
+        hd64[name] = {
+            "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                          FLASH_TIMED),
+            "plain_ms": time_ms(lambda: ref.attention_reference(
+                q, k, v, causal=causal), FLASH_TIMED),
+            "library_ms": time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal),
+                                  FLASH_TIMED),
+            "flops": fl, "bytes": nb, "bound_ms": max(o_ms, b_ms),
+            "bound_by": "operations" if o_ms >= b_ms else "bytes"}
+    del q, k, v, qt, kt, vt
     ops.reset_launches()
     timing = {"shape": f"B={B} Sq=Sk={S} H={H} KV={KV} hd={hd} bf16 causal",
               "kernel_ms": kernel_ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
@@ -2937,7 +3035,8 @@ def phase_flash(torch, np):
               "f32_tflops": flops / f32_ms / 1e9,
               "hd80_shape": "B={} Sq=Sk={} H={} KV={} hd={} bf16 causal".format(
                   B8, S8, H8, KV8, hd8),
-              "hd80_ms": hd80_ms, "hd80_tflops": hd80_flops / hd80_ms / 1e9}
+              "hd80_ms": hd80_ms, "hd80_tflops": hd80_flops / hd80_ms / 1e9,
+              "hd64": hd64}
     emit("flash", t0, checks=n_checks, launches_by_route=by_route, tf32=False,
          max_abs_err_f32=max_err["float32"],
          max_abs_err_bf16=max_err["bfloat16"], **timing)
@@ -2952,19 +3051,26 @@ def phase_lm_golden(torch, np, arch="llama3.2-3b", phase="lm_golden"):
     from repro_torch.convert import lm_params_from_numpy, numpy_lm_params
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.linattn_scan.ops import linattn
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import lm
+    from repro_torch.launch.serve import request_inputs, serve_batch
+    from repro_torch.models.api import get_model
     t0 = time.time()
     g, = [e for e in json.loads(LM_GOLDEN.read_text()) if e["arch"] == arch]
     cfg = dataclasses.replace(get_config(g["arch"]).reduced(), use_pallas=True)
     op = linattn if cfg.family == "rwkv" else flash_attention
     params = lm_params_from_numpy(numpy_lm_params(
-        cfg, g["seed"], live_seed=g.get("live_seed")), "cuda")
+        cfg, g["seed"], live_seed=g.get("live_seed"),
+        fan_in=g.get("fan_in", False)), "cuda")
     check(g.get("min_router_margin", ROUTER_TIE) >= ROUTER_TIE,
           f"{arch}'s golden run holds a router near-tie")
+    # the entry's request, replayed: its prompts and its patches or source
+    # frames (another numpy might draw others from the seed)
+    inputs = {"tokens": np.asarray(g["prompts"], np.int32),
+              **{k: np.asarray(g[k], np.float32)
+                 for k in ("patches", "src_embeds") if k in g}}
+    drawn = request_inputs(cfg, g["batch"], g["prompt_len"], g["seed"])
     before = op.launches
-    last, _ = lm.prefill(
-        params, {"tokens": torch.tensor(g["prompts"], device="cuda")}, cfg)
+    last, _ = get_model(cfg).prefill(params, {
+        k: torch.from_numpy(v).to("cuda") for k, v in inputs.items()})
     check(op.launches == before + attention_layers(cfg),
           "the golden prefill did not run the kernel in every layer")
     last = last.cpu().numpy()
@@ -2972,11 +3078,16 @@ def phase_lm_golden(torch, np, arch="llama3.2-3b", phase="lm_golden"):
     check(np.allclose(last, g["last_logits"], atol=LM_TOL, rtol=LM_TOL),
           f"golden prefill logits off by {err}")
     seqs, _ = serve_batch(cfg, g["batch"], g["prompt_len"], g["gen"],
-                          seed=g["seed"], params=params, device="cuda")
+                          seed=g["seed"], params=params, device="cuda",
+                          inputs=inputs)
     check(seqs.tolist() == g["tokens"], "golden tokens differ from JAX's")
     op.launches = 0
     emit(phase, t0, arch=g["arch"], reduced=True, dtype=cfg.dtype,
          batch=g["batch"], prompt_len=g["prompt_len"], gen=g["gen"],
+         inputs={k: list(v.shape) for k, v in inputs.items()},
+         inputs_drawn_alike=sorted(drawn) == sorted(inputs) and all(
+             np.array_equal(drawn[k], inputs[k]) for k in inputs),
+         fan_in=g.get("fan_in", False),
          live_leaves=g.get("live_seed") is not None,
          min_router_margin=g.get("min_router_margin"),
          max_abs_err=err, tol=LM_TOL, tokens_equal_jax=True)
@@ -2984,7 +3095,10 @@ def phase_lm_golden(torch, np, arch="llama3.2-3b", phase="lm_golden"):
 
 def attention_layers(cfg) -> int:
     """The kernel's launches a prefill makes: one a layer, for a hybrid
-    model one a group (its shared attention block)."""
+    model one a group (its shared attention block), for an encoder-decoder
+    one an encoder layer and two a decoder layer (self and cross)."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
     return (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
             else cfg.n_layers)
 
@@ -2998,12 +3112,13 @@ def fan_in_attention(params, cfg) -> None:
     no two f32 implementations of it agree at the end.  With these scales
     they agree within 1e-4 (tests/test_torch_lm.py::
     test_deep_random_model_is_chaotic_unless_fan_in_scaled, at width 256).
-    A hybrid model's projections are its shared block's."""
-    from repro_torch.convert import attention_tree
-    a = attention_tree(params.tree())
-    for n in ("wq", "wk", "wv"):          # [(L,) D, heads, hd]
-        a[n].mul_((a[n].shape[-2] / cfg.d_model) ** 0.5)
-    a["wo"].mul_(a["wo"].shape[-3] ** -0.5)  # [(L,) H, hd, D]
+    A hybrid model's projections are its shared block's; an
+    encoder-decoder's are its three attentions'."""
+    from repro_torch.convert import attention_trees
+    for a in attention_trees(params.tree()):
+        for n in ("wq", "wk", "wv"):          # [(L,) D, heads, hd]
+            a[n].mul_((a[n].shape[-2] / cfg.d_model) ** 0.5)
+        a["wo"].mul_(a["wo"].shape[-3] ** -0.5)  # [(L,) H, hd, D]
 
 
 def phase_serve(torch, np):
@@ -3868,6 +3983,220 @@ def phase_hybrid_serve(torch, np):
     ops.reset_launches()
     return n
 
+def modality_serve(torch, phase, model, params, spec, n_attn):
+    """Phase vlm_serve's and encdec_serve's (b) and (c): the bf16 serve
+    through serve_batch, twice (cold, then warm), flash launched
+    ``n_attn`` times on the sm90 route, then one profiled prefill and
+    decode step.  Returns the launches of the warm serve."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import (
+        _prefill_cache, request_inputs, serve_batch,
+    )
+    from repro_torch.models.api import get_model
+    base = model.cfg
+    cfg = dataclasses.replace(base, use_pallas=True)
+    model = get_model(cfg)
+    inputs = request_inputs(base, spec["batch"], spec["prompt_len"], 0)
+    T = inputs["tokens"].shape[1]
+    t0 = time.time()
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        seqs, stats = serve_batch(cfg, **spec, seed=0, params=params,
+                                  device="cuda")
+        n = ops.flash_attention.launches
+        by_route = dict(ops.flash_attention.launches_by_route)
+        check(n == n_attn and by_route == {"sm90_bf16": n_attn, "f32": 0},
+              f"{base.name} serve launched flash_attention {n} times by route "
+              f"{by_route}, expected {n_attn}, all sm90_bf16")
+        out = seqs.cpu().numpy()
+        check(out.shape == (spec["batch"], T + spec["gen"])
+              and (out[:, :T] == inputs["tokens"]).all()
+              and ((out >= 0) & (out < base.vocab)).all(),
+              f"{base.name} serve returned malformed sequences")
+        emit(phase, t0, run=run, arch=base.name, n_layers=base.n_layers,
+             enc_layers=base.enc_layers, dtype=cfg.dtype, **spec,
+             inputs={k: list(v.shape) for k, v in inputs.items()},
+             n_params=model.n_params(), head_dim=base.head_dim,
+             flash_launches=n, flash_launches_by_route=by_route,
+             prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+             decode_tok_per_s=stats["decode_tok_per_s"],
+             total_tok_per_s=stats["tok_per_s"], seconds=stats["seconds"],
+             prefill_positions_per_s=spec["batch"] * spec["prompt_len"]
+             / stats["prefill_s"],
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # (c) one profiled prefill and one profiled decode step, the decode
+    # cache as serve_batch lays it
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in inputs.items()}
+    start = T + (inputs["patches"].shape[1] if "patches" in inputs else 0)
+    _, pre = model.prefill(params, batch)
+    cache = _prefill_cache(model, pre, spec["batch"], start + spec["gen"],
+                           "cuda")
+    del pre
+    tok = seqs[:, T]
+    step = lambda: model.decode_step(params, tok, start, cache)  # noqa: E731
+    step()                                     # warm
+    profile_serve(torch, f"{phase}_profile", "flash",
+                  lambda: model.prefill(params, batch), step)
+    ops.reset_launches()
+    return n
+
+
+def layer_check(torch, what: str, ops, got_fn, want_fn, launches: int):
+    """One layer from one input on the kernel path (``got_fn``, which must
+    launch flash ``launches`` times) against the plain path: the largest
+    difference, held to CHECK_TOL."""
+    before = ops.flash_attention.launches
+    with torch.no_grad():
+        got = got_fn()
+        check(ops.flash_attention.launches == before + launches,
+              f"{what}: the kernel path launched flash "
+              f"{ops.flash_attention.launches - before} times, expected "
+              f"{launches}")
+        want = want_fn()
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and bool(torch.allclose(
+        got, want, atol=CHECK_TOL, rtol=CHECK_TOL)),
+          f"{what}: kernel path off the plain path by {err} from one input")
+    return err, want
+
+
+def whole_f32(torch, np, prefill, cfg32, plain, vocab):
+    """The whole model's f32 last-position logits on the kernel path and
+    the plain path: finite and of the vocabulary's width; their distance is
+    reported (a layer from one input is what is held to CHECK_TOL)."""
+    got, _ = prefill(cfg32)
+    want, _ = prefill(plain)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    check(bool(np.isfinite(got).all()) and got.shape == want.shape == (
+        1, vocab), "full-width f32 prefill logits not finite or misshapen")
+    return {"logits_max_abs_err": float(np.abs(got - want).max()),
+            "max_abs_logit": float(np.abs(want).max()),
+            "argmax_equal": bool((got.argmax(-1) == want.argmax(-1)).all())}
+
+
+def phase_vlm_serve(torch, np):
+    """qwen2-vl-72b at full layer width, layers cut to VLM_LAYERS, random
+    weights from seed 0 with the attention at its true fan-in: (a) in f32,
+    on a request of CHECK_LEN positions (its patches first), each layer
+    from the plain path's input to it on the kernel path against the plain
+    path; (b) the bf16 serve cold and warm; (c) one profiled prefill and
+    decode step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import request_inputs
+    from repro_torch.models import lm
+    from repro_torch.models.api import get_model
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    base = dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=VLM_LAYERS)
+    model = get_model(base)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    fan_in_attention(params, base)
+    init_s = time.time() - t0
+    cfg32 = dataclasses.replace(base, dtype="float32", use_pallas=True)
+    plain = dataclasses.replace(cfg32, use_pallas=False)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             request_inputs(base, 1, CHECK_LEN, 1).items()}
+    tree = params.tree()
+    with torch.no_grad():
+        h, positions, n_front = lm._embed_inputs(plain, tree, batch)
+    layer_err = 0.0
+    for i in range(base.n_layers):
+        lp = lm._layer(tree["blocks"], i)
+        err, h = layer_check(
+            torch, f"qwen2-vl layer {i}", ops,
+            lambda: lm._block(cfg32, lp, h, positions)[0],
+            lambda: lm._block(plain, lp, h, positions)[0], 1)
+        layer_err = max(layer_err, err)
+    del h
+    whole = whole_f32(torch, np, lambda c: lm.prefill(params, batch, c),
+                      cfg32, plain, base.vocab)
+    emit("vlm_serve_check", t0, arch=base.name, n_layers=base.n_layers,
+         n_params=model.n_params(), init_s=init_s, dtype="float32",
+         prompt_len=CHECK_LEN, patches=n_front, tol=CHECK_TOL,
+         layer_max_abs_err=layer_err, **whole,
+         init_max_memory_allocated=torch.cuda.max_memory_allocated())
+    del batch
+    n = modality_serve(torch, "vlm_serve", model, params, VLM_SERVE,
+                       base.n_layers)
+    del params, tree
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_encdec_serve(torch, np):
+    """seamless-m4t-medium at full size, random weights from seed 0 with
+    its LayerNorms drawn live and its three attentions at their true
+    fan-in: (a) in f32, on a request of ENCDEC_CHECK_LEN positions (511
+    source frames, 512 target tokens), each encoder layer and each decoder
+    layer from the plain path's input to it on the kernel path against the
+    plain path; (b) the bf16 serve cold and warm, flash on every
+    attention (36 launches a prefill); (c) one profiled prefill and decode
+    step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import set_live_leaves
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.serve import request_inputs
+    from repro_torch.models import encdec, lm
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import apply_norm, embed_tokens
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    base = get_config("seamless-m4t-medium")
+    model = get_model(base)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    set_live_leaves(params.tree(), base, ENCDEC_LIVE_SEED)
+    fan_in_attention(params, base)
+    cfg32 = dataclasses.replace(base, dtype="float32", use_pallas=True)
+    plain = dataclasses.replace(cfg32, use_pallas=False)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             request_inputs(base, 1, ENCDEC_CHECK_LEN, 1).items()}
+    tree = params.tree()
+    with torch.no_grad():
+        h, positions = encdec._frontend(tree, batch["src_embeds"], plain)
+    errs = {"encoder": 0.0, "decoder": 0.0}
+    for i in range(base.enc_layers):
+        lp = lm._layer(tree["encoder"], i)
+        err, h = layer_check(
+            torch, f"seamless encoder layer {i}", ops,
+            lambda: encdec._encoder_layer(cfg32, lp, h, positions),
+            lambda: encdec._encoder_layer(plain, lp, h, positions), 1)
+        errs["encoder"] = max(errs["encoder"], err)
+    with torch.no_grad():
+        enc_out = apply_norm(tree["enc_norm"], h, plain)
+        h = embed_tokens(tree["embed"], batch["tokens"], plain)
+        positions = torch.arange(h.shape[1], device="cuda")[None]
+    for i in range(base.n_layers):
+        lp = lm._layer(tree["decoder"], i)
+        err, h = layer_check(
+            torch, f"seamless decoder layer {i}", ops,
+            lambda: encdec._decoder_block(cfg32, lp, h, enc_out, positions)[0],
+            lambda: encdec._decoder_block(plain, lp, h, enc_out, positions)[0],
+            2)
+        errs["decoder"] = max(errs["decoder"], err)
+    del h, enc_out
+    whole = whole_f32(torch, np, lambda c: encdec.prefill(params, batch, c),
+                      cfg32, plain, base.vocab)
+    emit("encdec_serve_check", t0, arch=base.name, n_layers=base.n_layers,
+         enc_layers=base.enc_layers, n_params=model.n_params(),
+         dtype="float32", live_leaves=True,
+         src_len=int(batch["src_embeds"].shape[1]),
+         tgt_len=int(batch["tokens"].shape[1]), tol=CHECK_TOL,
+         encoder_layer_max_abs_err=errs["encoder"],
+         decoder_layer_max_abs_err=errs["decoder"], **whole)
+    del batch
+    n = modality_serve(torch, "encdec_serve", model, params, ENCDEC_SERVE,
+                       attention_layers(base))
+    del params, tree
+    torch.cuda.empty_cache()
+    return n
+
 
 class GoldenTokens:
     """The token stream of an entry of tests/data/torch_train_golden.json:
@@ -4119,6 +4448,7 @@ PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "oracle", "window", "multicluster", "replay", "whatif", "flash",
           "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve",
           "moe_golden", "moe_serve", "hybrid_golden", "hybrid_serve",
+          "vlm_golden", "vlm_serve", "encdec_golden", "encdec_serve",
           "train")
 
 
@@ -4224,6 +4554,12 @@ def main(argv=None) -> int:
         "hybrid_golden": lambda: phase_lm_golden(torch, np, "zamba2-2.7b",
                                                  "hybrid_golden"),
         "hybrid_serve": lambda: phase_hybrid_serve(torch, np),
+        "vlm_golden": lambda: phase_lm_golden(torch, np, "qwen2-vl-72b",
+                                              "vlm_golden"),
+        "vlm_serve": lambda: phase_vlm_serve(torch, np),
+        "encdec_golden": lambda: phase_lm_golden(
+            torch, np, "seamless-m4t-medium", "encdec_golden"),
+        "encdec_serve": lambda: phase_encdec_serve(torch, np),
         "train": lambda: phase_train(torch, np, smi)}
     out = {}
     for name in PHASES:
@@ -4263,7 +4599,10 @@ def main(argv=None) -> int:
     flash_launches = out["serve"]
     flash_paths = {"serve": {"llama3.2-3b": flash_launches},
                    "moe_serve": out["moe_serve"],
-                   "hybrid_serve": {"zamba2-2.7b": out["hybrid_serve"]}}
+                   "hybrid_serve": {"zamba2-2.7b": out["hybrid_serve"]},
+                   "vlm_serve": {"qwen2-vl-72b": out["vlm_serve"]},
+                   "encdec_serve": {"seamless-m4t-medium":
+                                    out["encdec_serve"]}}
     lin_err, lin = out["linattn"]
     lin_launches = out["rwkv_serve"]
 
@@ -4381,6 +4720,7 @@ def main(argv=None) -> int:
         "ms": flash["kernel_ms"],
         "f32_ms": flash["f32_ms"],
         "hd80_ms": flash["hd80_ms"],
+        "hd64": flash["hd64"],
         "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"],

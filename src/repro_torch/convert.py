@@ -9,7 +9,8 @@ back into such dicts.  LM weights cross as numpy trees:
 :func:`lm_params_from_numpy` takes the JAX package's parameters (or the
 seeded ones of :func:`numpy_lm_params`) into the port's ``LM``, and
 :func:`set_live_leaves` draws the leaves that the initializer leaves at
-zero or one (rwkv's, the Mamba2 layers', the QK norms).
+zero or one (rwkv's, the Mamba2 layers', the QK norms, an
+encoder-decoder's LayerNorms).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from repro_torch.core.jobs import (
     EDGE_FIELDS, JOB_COLUMNS, STATE_SCALARS, STATE_TENSORS, JobSet, SimState,
     machine_fields,
 )
-from repro_torch.models.lm import LM, param_defs
+from repro_torch.models.api import get_model
+from repro_torch.models.lm import LM
 from repro_torch.optim.adamw import OptState
 from repro_torch.optim.compression import CompressionState
 from repro_torch.sharding.rules import ParamDef, map_defs
@@ -87,7 +89,8 @@ def lm_params_from_numpy(tree, device) -> LM:
 def numpy_lm_params(cfg: ModelConfig, seed: int,
                     live_seed: Optional[int] = None,
                     fan_in: bool = False) -> dict:
-    """Seeded numpy weights over the port's ``param_defs``: each leaf drawn
+    """Seeded numpy weights over the port's ``param_defs`` (any family,
+    the encoder-decoder's too): each leaf drawn
     in turn (sorted key order) from ``np.random.default_rng(seed)`` and
     scaled as ``init_from_defs`` scales; with ``live_seed``, the leaves
     that the initializer leaves at zero or one are then drawn by
@@ -107,7 +110,7 @@ def numpy_lm_params(cfg: ModelConfig, seed: int,
             return np.ones(d.shape, np.float32)
         return rng.standard_normal(d.shape, dtype=np.float32) * np.float32(d.std())
 
-    tree = map_defs(leaf, param_defs(cfg))
+    tree = map_defs(leaf, get_model(cfg).param_defs)
     if live_seed is not None:
         set_live_leaves(tree, cfg, live_seed)
     if fan_in:
@@ -116,25 +119,29 @@ def numpy_lm_params(cfg: ModelConfig, seed: int,
 
 
 def scale_attention_fan_in(tree: dict, cfg: ModelConfig) -> None:
-    """Scale, in place, a numpy tree's attention projections (the
-    stacked blocks', or a hybrid model's shared block's) from the
+    """Scale, in place, a numpy tree's attention projections (every
+    subtree of :func:`attention_trees`) from the
     reference initializer's fan-in (the heads axis) to their true one:
     std ``d_model^-0.5`` for ``wq``/``wk``/``wv``, ``(H hd)^-0.5`` for
     ``wo``.  Drawn the reference's way, q and k reach ~20 and a random
     model is chaotic: two f32 implementations drift apart through its
     layers (and its training steps) by more than their rounding.  Test data,
     as ``chip_smoke.py``'s ``fan_in_attention`` is for a torch tree."""
-    a = attention_tree(tree)
-    for n in ("wq", "wk", "wv"):                          # [(L,) D, heads, hd]
-        a[n] = a[n] * np.float32((a[n].shape[-2] / cfg.d_model) ** 0.5)
-    a["wo"] = a["wo"] * np.float32(a["wo"].shape[-3] ** -0.5)  # [(L,) H, hd, D]
+    for a in attention_trees(tree):
+        for n in ("wq", "wk", "wv"):                      # [(L,) D, heads, hd]
+            a[n] = a[n] * np.float32((a[n].shape[-2] / cfg.d_model) ** 0.5)
+        a["wo"] = a["wo"] * np.float32(a["wo"].shape[-3] ** -0.5)
 
 
-def attention_tree(tree: dict) -> dict:
-    """The attention projections' subtree of an LM tree: the stacked
-    blocks', or a hybrid model's shared block's."""
-    return (tree["shared_attn"] if "shared_attn" in tree
-            else tree["blocks"])["attn"]
+def attention_trees(tree: dict) -> list:
+    """The attention projections' subtrees of an LM tree: the stacked
+    blocks', a hybrid model's shared block's, or an encoder-decoder's
+    three (the encoder's, the decoder's self- and cross-attention)."""
+    if "decoder" in tree:
+        return [tree["encoder"]["attn"], tree["decoder"]["self_attn"],
+                tree["decoder"]["cross_attn"]]
+    return [(tree["shared_attn"] if "shared_attn" in tree
+             else tree["blocks"])["attn"]]
 
 
 def _from_numpy(tree, device):
@@ -178,12 +185,15 @@ def _set_leaves(group: dict, values: dict) -> None:
 def set_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
     """Draw, in place, the leaves that ``init`` leaves at zero or one, by
     family: rwkv's (:func:`set_rwkv_live_leaves`), the Mamba2 layers'
-    (:func:`set_ssm_live_leaves`), and the QK norms where the config has
+    (:func:`set_ssm_live_leaves`), an encoder-decoder's LayerNorms
+    (:func:`set_norm_live_leaves`), and the QK norms where the config has
     them (:func:`set_qk_norm_live_leaves`)."""
     if cfg.family == "rwkv":
         set_rwkv_live_leaves(tree, cfg, seed)
     if cfg.family == "hybrid":
         set_ssm_live_leaves(tree, cfg, seed)
+    if cfg.family == "encdec":
+        set_norm_live_leaves(tree, cfg, seed)
     if cfg.qk_norm:
         set_qk_norm_live_leaves(tree, cfg, seed)
 
@@ -213,6 +223,29 @@ def set_ssm_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
         "norm_scale": rng.uniform(0.5, 1.5, lead + (cfg.d_inner,))})
 
 
+def _norms(tree: dict) -> list:
+    """Every norm subtree of a tree (a dict holding a ``scale``), in sorted
+    path order."""
+    if "scale" in tree:
+        return [tree]
+    return [x for k in sorted(tree) if isinstance(tree[k], dict)
+            for x in _norms(tree[k])]
+
+
+def set_norm_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
+    """Draw, in place, every norm's ``scale`` (ones from ``init``) in (0.5,
+    1.5) and, for a LayerNorm, its ``bias`` (zeros) from N(0, 0.1^2), in
+    sorted path order, so that a check sees a norm applied in the wrong
+    place or swapped with another.  Test data; the values come from
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    for norm in _norms(tree):
+        new = {"scale": rng.uniform(0.5, 1.5, tuple(norm["scale"].shape))}
+        if "bias" in norm:
+            new["bias"] = rng.normal(0.0, 0.1, tuple(norm["bias"].shape))
+        _set_leaves(norm, new)
+
+
 def set_qk_norm_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
     """Draw, in place, the QK-norm scales (``q_norm``, ``k_norm``: ones
     from ``init``) in (0.5, 1.5), so that a check sees a swap of the two
@@ -220,9 +253,9 @@ def set_qk_norm_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:
     ``np.random.default_rng(seed)``, after any other live leaves of the
     family are drawn from their own generator."""
     rng = np.random.default_rng(seed)
-    a = attention_tree(tree)
+    a, = attention_trees(tree)
     _set_leaves(a, {n: rng.uniform(0.5, 1.5, tuple(a[n].shape))
-                          for n in ("q_norm", "k_norm")})
+                    for n in ("q_norm", "k_norm")})
 
 
 def set_rwkv_live_leaves(tree, cfg: ModelConfig, seed: int) -> None:

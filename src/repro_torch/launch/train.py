@@ -8,12 +8,15 @@
 Fault-tolerance demo (injected fault -> checkpoint restart, identical
 stream replay): add ``--inject-failure-at 30``.  The flags are the JAX
 package's launcher's, plus ``--device`` (cuda by default; it raises
-without a card).  The dense and rwkv families train; the others raise.
+without a card).  As there, a vlm or encdec arch trains its text stack as
+a dense LM (no frontend, no encoder): the CLI's batches are token
+streams, and modality batches come from the input specs.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 
 from repro_torch.configs.base import get_config
@@ -48,6 +51,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family in ("vlm", "encdec"):
+        cfg = dataclasses.replace(cfg, family="dense", frontend=None,
+                                  enc_layers=0)
     ds = make_dataset(args.dataset, vocab=cfg.vocab, batch=args.batch,
                       seq=args.seq, path=args.data_path, seed=args.seed)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),

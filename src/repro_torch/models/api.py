@@ -1,7 +1,7 @@
-"""Family-dispatching facade over the port's models (the dense, moe,
-hybrid and rwkv families so far): counterpart of ``repro.models.api``,
-with ``loss_fn`` for training and ``prefill``/``decode_step`` for
-serving."""
+"""Family-dispatching facade over the port's models: counterpart of
+``repro.models.api``, with ``loss_fn`` for training and
+``prefill``/``decode_step`` for serving.  The encoder-decoder family is
+``models.encdec``, every other family ``models.lm``."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.sharding.rules import count_params, init_from_defs
 
 
@@ -33,7 +33,20 @@ class ModelAPI:
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    lm.require_ported(cfg)
+    if cfg.family == "encdec":
+        # the reference's cache_defs_fn: a source of half the length; its
+        # prefill returns full logits and no cache, the port's the last
+        # position's logits and the decode cache
+        return ModelAPI(
+            cfg=cfg,
+            param_defs=encdec.param_defs(cfg),
+            loss_fn=lambda p, b: encdec.loss_fn(p, b, cfg),
+            prefill=lambda p, b: encdec.prefill(p, b, cfg),
+            decode_step=lambda p, t, pos, c: encdec.decode_step(
+                p, t, pos, c, cfg),
+            cache_defs_fn=lambda batch, seq: encdec.cache_defs(
+                cfg, batch, seq, max(seq // 2, 1)),
+        )
     return ModelAPI(
         cfg=cfg,
         param_defs=lm.param_defs(cfg),

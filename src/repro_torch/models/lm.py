@@ -1,8 +1,8 @@
-"""Decoder-only LM, dense, moe, hybrid and rwkv families: parameters, full
-forward, prefill, decode.
+"""Decoder-only LM, dense, moe, hybrid, rwkv and vlm families: parameters,
+full forward, prefill, decode.
 
-Counterpart of the dense, moe, hybrid and rwkv parts of
-``repro.models.lm``.  One declarative ``param_defs`` tree with stacked
+Counterpart of ``repro.models.lm`` (the encoder-decoder family is
+``models.encdec``).  One declarative ``param_defs`` tree with stacked
 ``[L, ...]`` layer leaves, the JAX package's names and shapes, held in an
 :class:`LM` module; the building blocks are plain functions on its tree:
 
@@ -20,7 +20,10 @@ CUDA kernel when it is set.  A moe layer's feed-forward is
 ``moe.apply_moe`` (top-k routing, capacity-bounded dispatch; its balance
 loss is the layer's aux).  A hybrid (zamba2) model is groups of
 ``attn_every`` Mamba2 layers (``ssm.apply_ssm``), each group followed by
-one shared attention block, the same weights every time.
+one shared attention block, the same weights every time.  A vlm model is
+the dense stack over the projected patch embeddings (``frontend_proj``)
+followed by the text's token embeddings; the logits and the loss cover the
+text positions only.
 
 ``loss_fn`` is the training path: it is differentiable through the plain
 blockwise attention and ``wkv_chunked`` (the kernels have no backward
@@ -57,18 +60,14 @@ from repro_torch.sharding.rules import ParamDef
 Tree = Dict[str, Any]
 
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "rwkv")
+FAMILIES = ("dense", "moe", "hybrid", "rwkv", "vlm")
 
 
-def require_ported(cfg: ModelConfig) -> None:
-    """The port carries the dense, moe, hybrid and rwkv families so far;
-    the others raise."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to PyTorch "
-            "yet (ROADMAP Queue 1 item 10(e)-(f): vlm and encdec, then the "
-            "sharded layout, come after the dense, moe, hybrid and rwkv "
-            "families)")
+def _require_family(cfg: ModelConfig) -> None:
+    """This module's families; the others (encdec: ``models.encdec``)
+    raise, as the reference's ``param_defs`` does."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"lm.py does not handle family {cfg.family!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +93,7 @@ def _groups(cfg: ModelConfig) -> int:
 
 
 def param_defs(cfg: ModelConfig) -> Tree:
-    require_ported(cfg)
+    _require_family(cfg)
     L = (cfg.n_layers,)
     defs = {"embed": embed_defs(cfg), "final_norm": norm_defs(cfg)}
     if cfg.family == "hybrid":
@@ -107,11 +106,14 @@ def param_defs(cfg: ModelConfig) -> Tree:
                           **rwkv_mod.rwkv_defs(cfg, L)}
     else:
         defs["blocks"] = _block_defs(cfg, L)
+        if cfg.family == "vlm":
+            defs["frontend_proj"] = ParamDef((cfg.d_model, cfg.d_model),
+                                             ("embed_fsdp", None))
     return defs
 
 
 def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> Tree:
-    """Decode-cache ParamDef tree.  Dense and moe: per-layer K and V,
+    """Decode-cache ParamDef tree.  Dense, moe and vlm: per-layer K and V,
     ``[L, B, C, KV, hd]`` in the compute dtype, where C is ``seq`` or, for
     a sliding-window config, at most the window (a ring buffer).  Hybrid:
     the shared block's K and V a group under ``attn`` (``[G, B, C, KV,
@@ -120,7 +122,7 @@ def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> Tree:
     in the compute dtype.  rwkv: per-layer WKV state ``[L, B, H, 64, 64]``
     in f32 and the two token-shift inputs ``[L, B, D]`` in the compute
     dtype, whatever ``seq``."""
-    require_ported(cfg)
+    _require_family(cfg)
     dt = compute_dtype(cfg)
     if cfg.family == "rwkv":
         H, hd = cfg.d_model // rwkv_mod.HEAD, rwkv_mod.HEAD
@@ -185,10 +187,13 @@ def _tree(m: nn.Module) -> Tree:
     return {k: _tree(x) for k, x in m.items()}
 
 
-class LM(nn.ModuleDict):
+class LM(_Level):
     """An LM's parameters in the JAX package's tree: one submodule per dict
     level, one parameter per leaf, layers stacked on a leading ``[L]`` axis,
-    so ``state_dict()`` keys are the JAX tree's paths (``blocks.attn.wq``).
+    so ``state_dict()`` keys are the JAX tree's paths (``blocks.attn.wq``,
+    a vlm model's ``frontend_proj`` beside them, an encoder-decoder's
+    ``decoder.cross_attn.wk``).  ``lm[name]`` and ``items()`` read the top
+    level as a dict does.
 
     The leaves are created frozen: serving wants them so, and frozen
     leaves may be edited in place.  ``requires_grad_()`` makes them
@@ -197,11 +202,14 @@ class LM(nn.ModuleDict):
     differentiates its own per-layer view of the leaves
     (``runtime.trainer``)."""
 
-    def __init__(self, tree: Tree):
-        super().__init__({k: _module(x) for k, x in tree.items()})
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def items(self):
+        return [(k, self[k]) for k in self._order]
 
     def tree(self) -> Tree:
-        return {k: _tree(x) for k, x in self.items()}
+        return _tree(self)
 
 
 def _layer(tree: Tree, i: int) -> Tree:
@@ -369,21 +377,30 @@ def _hybrid_forward(cfg, params, h, positions, collect_cache: bool):
 
 
 def _embed_inputs(cfg, params, batch):
-    """Token embedding; returns (h, positions)."""
-    tokens = batch["tokens"]
-    h = embed_tokens(params["embed"], tokens, cfg)
+    """Token embedding, for vlm behind the projected ``batch["patches"]``
+    ``[B, n_front, D]`` where the batch has them; returns (h, positions,
+    n_front)."""
+    h = embed_tokens(params["embed"], batch["tokens"], cfg)
+    n_front = 0
+    if cfg.family == "vlm" and "patches" in batch:
+        dt = h.dtype
+        pat = batch["patches"].to(dt) @ params["frontend_proj"].to(dt)
+        h = torch.cat([pat, h], dim=1)
+        n_front = pat.shape[1]
     positions = torch.arange(h.shape[1], dtype=torch.int32,
                              device=h.device)[None, :]
-    return h, positions
+    return h, positions, n_front
 
 
 def _backbone(params, batch, cfg: ModelConfig, *, collect_cache):
-    """Embed + blocks + final norm; returns (h, cache, aux)."""
-    require_ported(cfg)
-    h, positions = _embed_inputs(cfg, params, batch)
+    """Embed + blocks + final norm; returns (h of the text positions,
+    cache, aux).  A vlm cache covers the patches' positions too."""
+    _require_family(cfg)
+    h, positions, n_front = _embed_inputs(cfg, params, batch)
     fwd = _hybrid_forward if cfg.family == "hybrid" else _stack_forward
     h, cache, aux = fwd(cfg, params, h, positions, collect_cache)
-    return apply_norm(params["final_norm"], h, cfg), cache, aux
+    h = apply_norm(params["final_norm"], h, cfg)
+    return h[:, n_front:], cache, aux
 
 
 def forward(params: LM, batch, cfg: ModelConfig, *, collect_cache=False,
@@ -422,9 +439,11 @@ def loss_fn(params, batch, cfg: ModelConfig):
 def prefill(params: LM, batch, cfg: ModelConfig):
     """Process a full prompt; emit last-position logits and a cache.
 
-    Dense and moe: the per-layer K/V of every prompt position,
-    ``[L, B, S, KV, hd]``.  Hybrid: the decode cache but for the length of
-    its K/V, the shared block's K/V of every prompt position a group
+    Dense, moe and vlm: the per-layer K/V of every prompt position,
+    ``[L, B, S, KV, hd]`` (for vlm S counts the patches, which come first:
+    decoding goes on at position S).  Hybrid: the decode cache but for the
+    length of its K/V, the shared block's K/V of every prompt position a
+    group
     (``{"attn": {"k", "v"}}``, ``[G, B, S, KV, hd]``) and each Mamba2
     layer's final SSM state and conv tail.  rwkv: the decode cache itself
     (``cache_defs``), the per-layer final WKV state and the last prompt
@@ -442,7 +461,7 @@ def decode_step(params: LM, tokens: torch.Tensor, pos: int, cache: Tree,
                 cfg: ModelConfig):
     """One decode step.  tokens: [B] ints; pos: the position they take;
     cache: the ``cache_defs`` tree, updated in place and returned."""
-    require_ported(cfg)
+    _require_family(cfg)
     params = params.tree()
     h = embed_tokens(params["embed"], tokens[:, None], cfg)
     positions = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)

@@ -3,7 +3,7 @@ on the card.
 
 ``chip_smoke.py`` phase 6g runs ``benchmarks/fig_workflow_cluster.py``'s
 grid at full scale through ``sweep``: the Galactic Plane DAG of
-``tests/data/torch_dag_golden.json`` (10,497 tasks) on ``dragonfly(16,
+``tests/data/torch_dag_golden.json`` (5,249 tasks) on ``dragonfly(16,
 8)`` with contention (1, 5), policies fcfs, sjf, backfill and bestfit by
 allocation strategies simple, contiguous and topo, one bucket of 12
 members.  Each member is held to its solo run's digests in

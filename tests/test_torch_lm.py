@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro.configs.base import get_config as jax_get_config
+from repro.configs.base import list_archs as jax_list_archs
 from repro.launch.serve import serve_batch as jax_serve_batch
 from repro.models import layers as jax_layers
 from repro.models import lm as jax_lm
@@ -85,12 +86,14 @@ def _close_cache(port, jax_out):
 
 
 def test_registry_lists_the_ported_configs():
-    """The dense, moe, hybrid and rwkv configs, each equal to the JAX
-    package's."""
+    """Every config of the JAX package's registry, each equal to its
+    counterpart there."""
     assert list_archs() == ["h2o-danube-1.8b", "llama3.2-3b",
                             "llama4-scout-17b-a16e", "mistral-nemo-12b",
-                            "mixtral-8x7b", "rwkv6-7b", "stablelm-3b",
+                            "mixtral-8x7b", "qwen2-vl-72b", "rwkv6-7b",
+                            "seamless-m4t-medium", "stablelm-3b",
                             "zamba2-2.7b"]
+    assert list_archs() == jax_list_archs()
     for name in list_archs():
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))
@@ -98,10 +101,18 @@ def test_registry_lists_the_ported_configs():
             dataclasses.asdict(jax_get_config(name).reduced())
 
 
-def test_other_families_raise():
+def test_every_arch_builds_and_an_unknown_family_raises():
+    """``get_model`` builds every arch of the registry, reduced, with the
+    JAX package's parameter count; an unknown family raises as the
+    reference's ``param_defs`` does."""
+    for name in list_archs():
+        m = get_model(get_config(name).reduced())
+        assert m.n_params() == jax_get_model(
+            jax_get_config(name).reduced()).n_params(), name
+        assert m.init(torch.Generator().manual_seed(0)) is not None
     cfg = dataclasses.replace(get_config("llama3.2-3b").reduced(),
-                              family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                              family="audio")
+    with pytest.raises(ValueError, match="does not handle family 'audio'"):
         get_model(cfg)
 
 

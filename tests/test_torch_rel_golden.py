@@ -9,10 +9,11 @@ a machine also of the allocation fingerprints and of the ``ev_lfb`` log).
 Each entry names its scenario as a nested spec (:func:`build` makes it
 with either package's classes), and every failure stream is untruncated.
 
-The runs are ``benchmarks/fig_reliability.py``'s at full size: 2,000
-congested SDSC-SP2-like jobs on 128 nodes, backfill, per-node MTBF 50,000
-s over a horizon of 2^19 s (about 1,300 failures) under requeue and
-abort; 10,000 SDSC-SP2-like jobs (seed 1) at MTBF 400,000 s over 2^22 s;
+The runs are ``benchmarks/fig_reliability.py``'s at half its size (the
+card's script needed the time for later phases): 1,000 congested
+SDSC-SP2-like jobs on 128 nodes, backfill, per-node MTBF 50,000 s over a
+horizon of 2^19 s under requeue and abort; 5,000 SDSC-SP2-like jobs (seed
+1) at MTBF 400,000 s over 2^22 s;
 the requeue model on ``dragonfly(16, 8)`` under backfill/simple and
 fcfs/contiguous; the requeue model under preempt; and the Galactic Plane
 DAG (10,497 tasks) under fcfs with aborts at MTBF 5,000 s.  The sweeps
@@ -40,7 +41,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "data",
 
 FIG = {"type": "FailureModel", "mtbf": 50e3, "seed": 3, "mean_repair": 600,
        "horizon": 2**19, "max_failures": 2048, "checkpoint_interval": 3600}
-FIG_TRACE = {"type": "SyntheticTrace", "n_jobs": 2000, "seed": 11,
+FIG_TRACE = {"type": "SyntheticTrace", "n_jobs": 1000, "seed": 11,
              "kind": "sdsc_sp2", "congest": 4}
 FIG_BASE = {"type": "Scenario", "trace": FIG_TRACE, "total_nodes": 128,
             "policy": "backfill", "failures": FIG}
@@ -49,7 +50,7 @@ RUNS = {
     "a_requeue": FIG_BASE,
     "a_abort": {**FIG_BASE, "failures": {**FIG, "requeue": "abort"}},
     "b_archive": {**FIG_BASE, "trace": {
-        "type": "SyntheticTrace", "n_jobs": 10_000, "seed": 1,
+        "type": "SyntheticTrace", "n_jobs": 5_000, "seed": 1,
         "kind": "sdsc_sp2"}, "failures": {
             **FIG, "mtbf": 400e3, "horizon": 2**22}},
     "c_backfill_simple": {**FIG_BASE, "total_nodes": None,

@@ -7,8 +7,9 @@ themselves (without the process's ``cache.entries`` counter), so a card
 run can name the first key that differs, and each family's compile and
 hit counts.
 
-The fleet is ``demo_fleet``'s three queues at 1,000 jobs each, five times
-the demo's 200 (about ten days of the SDSC-SP2 log's arrival rate):
+The fleet is ``demo_fleet``'s three queues at 500 jobs each, two and a
+half times the demo's 200 (about five days of the SDSC-SP2 log's arrival
+rate; 1,000 until the card's script needed the time for later phases):
 ``batch``, ``sdsc_sp2`` on 128 nodes under fcfs; ``mesh``,
 ``Topology.mesh2d(8, 16)`` under sjf with ``contiguous``; ``flaky``,
 backfill with ``FailureModel(mtbf=1e6, seed=7, max_failures=512)``.  The
@@ -39,7 +40,7 @@ from repro_torch import service
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data",
                       "torch_whatif_golden.json")
-N_JOBS = 1_000
+N_JOBS = 500
 FAMILIES = ("placement", "capacity", "reliability")
 MTBF_GRID = (500e3, 1000e3, 2000e3, 4000e3)
 
