@@ -234,6 +234,26 @@ Phases, each printing one JSON line with its wall time:
              lockstep run timed against them.  Rounds, lockstep events,
              events/s, the exchanges' host seconds, batched launches and
              member-selections a launch.
+6q2. mesh  - the simulator over a device mesh: R = max(2, cards) ranks
+             (at most 4; two ranks share the one card of a one-card
+             host), each a fresh process (spawn) on its card, over a gloo
+             group (repro_torch.launch.spawn_world), started while this
+             process makes the one-card runs.  Each rank checks
+             (a) Fig. 5's device-partitioned run, sweep(mesh=) over
+             benchmarks/fig5_scaling.py's child grid (das2, backfill, 400
+             nodes, 200 jobs, trace seeds 0-15), every member equal to the
+             one-card sweep of the grid; (b) simulate_multicluster(mesh=)
+             with migration on the das2x4 entry of tests/data/
+             torch_multicluster_golden.json (four das2 clusters of 1,000
+             jobs on 128, 64, 64 and 32 processors, window 3,600), held
+             to its JAX digests, migrating across ranks; (c)
+             simulate_alloc_sweep(mesh=) over the four strategies on
+             dragonfly(16, 8) at 500 SDSC-SP2-like jobs, equal to the
+             one-card run.  Every rank must launch the batched
+             queue_select kernel.  Rank 0 prints the line: R, each rank's
+             card and launch counts, the mesh's and the one-card wall
+             seconds of (a)-(c).  A check of the split, not a speed-up:
+             ranks sharing a card claim no scaling.
 6r. replay - half benchmarks/replay_smoke.py's smoke size (cut to fit
              the limit): a 10,000-job synthetic archive (the smoke's
              generator and arrival rate) through dump_swf and load_swf,
@@ -464,6 +484,12 @@ WINDOW_DAG = 100                 # phase window (b): rounds of the DAG
 MC_NODES = (144, 64, 64, 64, 64)  # DAS-2's five clusters
 MC_JOBS = 2_000
 MC_WINDOW = 3_600
+MESH_MAX_RANKS = 4
+MESH_FIG5 = {"n_jobs": 200, "nodes": 400, "seeds": 16}  # fig5_scaling's child
+MESH_MC_JOBS = 1_000             # phase mesh (b): das2x4's clusters
+MESH_ALLOC_JOBS = 500            # phase mesh (c)
+MESH_WORLD_LIMIT = 300           # seconds the ranks may take, spawn included
+MESH_GROUP_TIMEOUT = 120         # the gloo group's collective timeout
 REPLAY_JOBS = 10_000             # half benchmarks/replay_smoke.py's smoke
 REPLAY_PREFIX = 4_000
 REPLAY_WINDOW = 4_096
@@ -2632,6 +2658,197 @@ def phase_multicluster(rt, ops, np):
     return total
 
 
+def flat_arrays(x, prefix: str = "") -> dict:
+    """A result tree (dataclasses of tensors, lists) as ``{path: numpy}``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    if x is None:
+        return {}
+    if torch.is_tensor(x):
+        return {prefix: x.cpu().numpy()}
+    if isinstance(x, (list, np.ndarray)):
+        return {prefix: np.asarray(x)}
+    return {k: v for f in dataclasses.fields(x)
+            for k, v in flat_arrays(getattr(x, f.name), f"{prefix}.{f.name}"
+                                    if prefix else f.name).items()}
+
+
+def same_arrays(a: dict, b: dict) -> bool:
+    """Two dicts of arrays (or host scalars) with the same keys, dtypes,
+    shapes and values."""
+    import numpy as np
+
+    def same(x, y) -> bool:
+        x, y = np.asarray(x), np.asarray(y)
+        return (x.dtype == y.dtype and x.shape == y.shape
+                and np.array_equal(x, y))
+
+    return set(a) == set(b) and all(same(a[k], b[k]) for k in a)
+
+
+def same_summaries(a: dict, b: dict) -> bool:
+    import numpy as np
+    return set(a) == set(b) and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in a)
+
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_runs(rt, device, mesh=None):
+    """Phase mesh's three runs on ``device`` (over ``mesh``, or on one
+    card): ``({run: result}, {run: wall seconds})``, (a) as each member's
+    ``(to_np(), summary())``, (b) as ``multicluster_result_np``, (c) as
+    :func:`flat_arrays`."""
+    import torch
+    from repro_torch.api.run import build_jobset, multicluster_args
+    from repro_torch.core import parallel
+    out, wall = {}, {}
+    t = time.time()
+    base = rt.Scenario(trace=rt.SyntheticTrace(
+        n_jobs=MESH_FIG5["n_jobs"], seed=0, kind="das2"),
+        total_nodes=MESH_FIG5["nodes"], policy="backfill")
+    grid = rt.sweep(base, {"trace.seed": list(range(MESH_FIG5["seeds"]))},
+                    mesh=mesh, device=device)
+    out["fig5"] = [(r.to_np(), r.summary()) for r in grid.results]
+    sync(torch, device)
+    wall["fig5"] = time.time() - t
+    e = mesh_mc_golden()
+    scn = rt.Scenario(trace=tuple(
+        rt.SyntheticTrace(kind="das2", n_jobs=MESH_MC_JOBS, seed=50 + c)
+        for c in range(len(e["nodes"]))), total_nodes=tuple(e["nodes"]),
+        capacity=e["capacity"], policy=e["policy"],
+        multicluster=rt.Multicluster(window=e["window"]))
+    t = time.time()
+    jobs_c, policy, nodes_c, kw = multicluster_args(scn, device)
+    res = parallel.simulate_multicluster(jobs_c, policy, nodes_c, mesh=mesh,
+                                         device=device, **kw)
+    out["das2x4"] = parallel.multicluster_result_np(res)
+    sync(torch, device)
+    wall["das2x4"] = time.time() - t
+    t = time.time()
+    topo = rt.Topology.dragonfly(16, 8)
+    scn = rt.Scenario(trace=rt.SyntheticTrace(
+        n_jobs=MESH_ALLOC_JOBS, seed=1, kind="sdsc_sp2"), topology=topo,
+        policy="backfill")
+    res = parallel.simulate_alloc_sweep(
+        build_jobset(scn, device=device), "backfill", topo.n_nodes,
+        topo.build(device), ALLOCS, mesh=mesh, device=device)
+    out["alloc"] = flat_arrays(res)
+    sync(torch, device)
+    wall["alloc"] = time.time() - t
+    return out, wall
+
+
+def mesh_mc_golden() -> dict:
+    return next(e for e in json.loads(MC_GOLDEN.read_text())["runs"]
+                if e["run"] == "das2x4")
+
+
+def mesh_rank(mesh, handoff, t0: float) -> dict:
+    """One rank of phase mesh (a spawned process): once the parent's
+    one-card runs are in ``handoff`` (``(results, wall seconds)``, or
+    ``None`` when they failed), the three runs over ``mesh`` with the
+    kernels' counts set to 0 before and read after, each held to the
+    one-card run or the JAX digests; every rank's card and counts
+    gathered, and rank 0 prints the phase line."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch as rt
+    from repro_torch.core import parallel
+    from repro_torch.kernels.queue_select import ops
+    from repro_torch.launch import mesh_device
+    rank, R = dist.get_rank(), mesh.size(0)
+    payload = handoff.get(timeout=MESH_WORLD_LIMIT)
+    check(payload is not None, "mesh: the one-card runs failed")
+    refs, one_card = payload
+    device = mesh_device(mesh)
+    ops.reset_launches()
+    parallel.reset_counters()
+    out, wall = mesh_runs(rt, device, mesh)
+    counts = launch_counts(ops)
+    for i, ((o, s), (ro, rs)) in enumerate(zip(out["fig5"], refs["fig5"])):
+        check(same_arrays(o, ro) and same_summaries(s, rs),
+              f"mesh (a): rank {rank}: member {i} differs from the "
+              "one-card sweep")
+    check(len(out["fig5"]) == len(refs["fig5"]) == MESH_FIG5["seeds"],
+          f"mesh (a): {len(out['fig5'])} members")
+    check_mc_golden(out["das2x4"], mesh_mc_golden(), f"mesh rank {rank}")
+    check(out["das2x4"]["migrated"] > 0
+          and parallel.counters["cross_rank_migrations"] > 0,
+          f"mesh (b): rank {rank}: no migration crossed ranks "
+          f"({parallel.counters})")
+    check(same_arrays(out["alloc"], refs["alloc"]),
+          f"mesh (c): rank {rank}: the alloc sweep differs from the "
+          "one-card run")
+    check(counts["batch_launches"] > 0,
+          f"mesh: rank {rank} launched no batched queue_select")
+    mine = {"rank": rank, "device": str(device),
+            "device_name": (torch.cuda.get_device_name(device)
+                            if device.type == "cuda" else "cpu"), **counts,
+            **parallel.counters, "mesh_seconds": wall}
+    ranks = [None] * R
+    dist.all_gather_object(ranks, mine, group=mesh.get_group(0))
+    if rank == 0:
+        emit("mesh", t0, ranks=R, cards=torch.cuda.device_count(),
+             shares_card=R > torch.cuda.device_count(), per_rank=ranks,
+             mesh_seconds={k: max(r["mesh_seconds"][k] for r in ranks)
+                           for k in wall},
+             one_card_seconds=one_card,
+             fig5_members=MESH_FIG5["seeds"], fig5_equal=True,
+             das2x4_migrated=out["das2x4"]["migrated"],
+             das2x4_matches_jax=True, alloc_equal=True,
+             note="ranks sharing a card: a check of the split, no scaling "
+                  "claimed")
+    return mine
+
+
+def phase_mesh(torch, rt):
+    """Phase 6q2 (module doc): the ranks, each a spawned process, start
+    (import torch, reach the card) while this process makes the one-card
+    runs, and wait for them before their own."""
+    import multiprocessing
+    import threading
+
+    from repro_torch.launch import spawn_world
+    t0 = time.time()
+    R = max(2, min(MESH_MAX_RANKS, torch.cuda.device_count()))
+    handoff = multiprocessing.get_context("spawn").Queue()
+    world = {}
+
+    def ranks_main():
+        try:
+            world["ranks"] = spawn_world(
+                mesh_rank, R, args=(handoff, t0), device_type="cuda",
+                timeout=MESH_WORLD_LIMIT, group_timeout=MESH_GROUP_TIMEOUT)
+        except BaseException as e:   # raised again by the caller below
+            world["error"] = e
+
+    thread = threading.Thread(target=ranks_main)
+    thread.start()
+    payload = None
+    try:
+        refs, one_card = mesh_runs(rt, "cuda")
+        check_mc_golden(refs["das2x4"], mesh_mc_golden(),
+                        "das2x4 on one card")
+        payload = (refs, one_card)
+    finally:
+        for _ in range(R):
+            handoff.put(payload)
+        thread.join()
+    if "error" in world:
+        raise world["error"]
+    ranks = world["ranks"]
+    emit("mesh", t0, run="the ranks ended", ranks=R)
+    return {k: sum(r[k] for r in ranks) for k in (
+        "launches", "walk_launches", "batch_launches", "batch_selections",
+        "walk_batch_launches")} | {"ranks": len(ranks)}
+
+
 def phase_replay(rt, ops, np):
     """Half benchmarks/replay_smoke.py's smoke size on the card: a
     10,000-job synthetic archive written by dump_swf and read back by
@@ -4445,7 +4662,8 @@ PHASES = ("kernel", "fused", "batched", "golden", "archive", "profile",
           "sweep", "ensemble", "alloc", "alloc_sweep", "dag", "dag_sweep",
           "workflow", "workflow_batch", "reliability", "reliability_sweep",
           "serving", "serving_sweep", "malleable", "malleable_sweep",
-          "oracle", "window", "multicluster", "replay", "whatif", "flash",
+          "oracle", "window", "multicluster", "mesh", "replay", "whatif",
+          "flash",
           "lm_golden", "serve", "linattn", "rwkv_golden", "rwkv_serve",
           "moe_golden", "moe_serve", "hybrid_golden", "hybrid_serve",
           "vlm_golden", "vlm_serve", "encdec_golden", "encdec_serve",
@@ -4539,6 +4757,7 @@ def main(argv=None) -> int:
         "window": lambda: phase_window(
             rt, ops, out["golden"][2] if "golden" in out else None),
         "multicluster": lambda: phase_multicluster(rt, ops, np),
+        "mesh": lambda: phase_mesh(torch, rt),
         "replay": lambda: phase_replay(rt, ops, np),
         "whatif": lambda: phase_whatif(torch, rt, ops),
         "flash": lambda: phase_flash(torch, np),
@@ -4591,7 +4810,7 @@ def main(argv=None) -> int:
     batch_err, batch_timing, generic_batch = out["batched"]
     batch_runs = [*out["sweep"], out["ensemble"], out["alloc_sweep"],
                   *out["dag_sweep"], *stream_sweeps, *mal_sweeps,
-                  out["multicluster"], out["whatif"]]
+                  out["multicluster"], out["mesh"], out["whatif"]]
     batch_launches = sum(c["batch_launches"] for c in batch_runs)
     batch_selections = sum(c["batch_selections"] for c in batch_runs)
     walk_batch_launches = sum(c["walk_batch_launches"] for c in batch_runs)
@@ -4656,6 +4875,7 @@ def main(argv=None) -> int:
         "window_mode": {phase: out[phase] for phase in (
             "window", "multicluster", "replay")},
         "whatif_mode": out["whatif"],
+        "mesh_mode": out["mesh"],
         "malleable_mode": {
             "launches": mal["launches"],
             "walk_launches": mal["walk_launches"],

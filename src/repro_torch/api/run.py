@@ -168,10 +168,12 @@ def _default_horizon(traces, nodes_c, window: int) -> int:
     return worst + 2 * window
 
 
-def _run_multicluster(scenario: Scenario, device) -> Result:
-    """One multicluster scenario: the clusters' tables at one capacity,
-    stacked (a table without edges gets pad edges when another has some),
-    through ``simulate_multicluster``."""
+def multicluster_args(scenario: Scenario, device) -> tuple:
+    """The arguments ``run`` gives ``simulate_multicluster`` for a
+    multicluster scenario: ``(jobs_c, policy, nodes_c, kwargs)``, the
+    clusters' tables at one capacity, stacked (a table without edges gets
+    pad edges when another has some), on ``device``.  A caller adds
+    ``mesh=`` to shard the clusters."""
     if scenario.topology is not None:
         raise ValueError(
             "multicluster scenarios run scalar-counter clusters; "
@@ -188,10 +190,15 @@ def _run_multicluster(scenario: Scenario, device) -> Result:
     horizon = mc.horizon
     if horizon is None:
         horizon = _default_horizon(traces, nodes_c, int(mc.window))
-    res = simulate_multicluster(
-        stack_jobsets(jobsets), scenario.policy, nodes_c,
-        window=int(mc.window), horizon=horizon, migrate=mc.migrate,
-        max_export=mc.max_export, latency=mc.latency,
-        load_imbalance_threshold=mc.load_imbalance_threshold,
-        max_events=scenario.max_events, device=device)
+    return (stack_jobsets(jobsets), scenario.policy, nodes_c,
+            dict(window=int(mc.window), horizon=horizon, migrate=mc.migrate,
+                 max_export=mc.max_export, latency=mc.latency,
+                 load_imbalance_threshold=mc.load_imbalance_threshold,
+                 max_events=scenario.max_events))
+
+
+def _run_multicluster(scenario: Scenario, device) -> Result:
+    """One multicluster scenario through ``simulate_multicluster``."""
+    jobs_c, policy, nodes_c, kw = multicluster_args(scenario, device)
+    res = simulate_multicluster(jobs_c, policy, nodes_c, device=device, **kw)
     return Result(scenario=scenario, raw=res, backend="multicluster")

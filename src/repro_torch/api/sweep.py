@@ -28,6 +28,14 @@ A multicluster scenario's every setting is static (the clusters' node
 counts too), so its buckets run point by point through ``run``, as the
 reference's do.
 
+**Over a mesh** (``mesh=``, ``core.parallel``'s module doc) each bucket is
+padded to a multiple of the size ``R`` of the mesh's first axis with
+copies of its last point, as the reference pads it; rank ``r`` builds and
+runs only its block of the padded bucket, on its own device, and the
+blocks' results are gathered, so every rank's ``SweepResult`` is whole and
+equal to the ``mesh=None`` one.  The pads never reach a result.
+Multicluster points run whole on every rank, as in the reference.
+
 **What "compile once" means here.**  PyTorch runs eagerly, so there is no
 executable to compile: a static bucket is one batched ``simulate_ensemble``
 call, whatever its number of points, and ``SweepResult.n_compiles`` counts
@@ -37,7 +45,9 @@ the same grid.  The CUDA kernels are built once a process
 execution against its signature, as the reference logs its executions
 against its compile signature: the bucket key, the policy and the strategy
 when every point of the bucket shares one (the reference bakes such a
-value into its executable), and the stacked tensors' shapes and dtypes.  A
+value into its executable), the mesh's size (the reference's executable
+holds its mesh), and the stacked tensors' shapes and dtypes (over a mesh,
+the padded bucket's).  A
 new signature counts as a ``compile``, a seen one as a ``hit``, so that the
 what-if service (``repro_torch.service``) can assert that a repeated query
 reuses its bucket.  No CUDA
@@ -61,7 +71,9 @@ from repro_torch.api.run import (
 from repro_torch.api.scenario import Scenario
 from repro_torch.core import engine
 from repro_torch.core.jobs import JOB_FIELDS, JobSet, resolve_device
-from repro_torch.core.parallel import simulate_ensemble, stack_jobsets
+from repro_torch.core.parallel import (
+    Shard, concat, mesh_shard, simulate_ensemble, stack_jobsets, to_host,
+)
 
 
 def _static_key(scenario: Scenario) -> tuple:
@@ -135,14 +147,12 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence[Any]], *,
                        "total_nodes": (128, 256),
                        "trace.seed": (0, 1)})
 
-    ``device=None`` runs on ``cuda`` and raises without one.  ``mesh``
-    (sharding the buckets over several cards) is not ported yet.
+    ``device=None`` runs on ``cuda`` and raises without one; with ``mesh``
+    (module doc) each rank runs on its own device, which ``device`` may
+    only name.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sweep(mesh=...) is not ported yet: ROADMAP Queue 1 item 12 "
-            "(ensembles over several cards)")
-    device = resolve_device(device)
+    shard = None if mesh is None else mesh_shard(mesh, device)
+    device = resolve_device(device) if shard is None else shard.device
     axes = {k: list(v) for k, v in axes.items()}
     if not axes:
         return SweepResult(axes={}, points=[{}],
@@ -167,7 +177,7 @@ def sweep(scenario: Scenario, axes: Dict[str, Sequence[Any]], *,
             for i, scn in zip(indices, bucket):
                 results[i] = run(scn, device=device)
             continue
-        for i, res in zip(indices, _run_bucket(key, bucket, device)):
+        for i, res in zip(indices, _run_bucket(key, bucket, device, shard)):
             results[i] = res
     return SweepResult(axes=axes, points=points, results=results,
                        n_compiles=len(buckets))
@@ -219,12 +229,16 @@ def _uniform(values):
 
 
 def _log_bucket_execution(key: tuple, bucket: List[Scenario],
-                          jobs_b: JobSet) -> None:
+                          jobs_b: JobSet, B: int,
+                          shard: Optional[Shard]) -> None:
+    """Log one execution of a bucket whose stack (``jobs_b``, or over a
+    mesh this rank's block of it) has ``B`` rows in all."""
     pols = [engine.policies_id(s.policy) for s in bucket]
     allocs = ([_alloc.canonical_id(s.alloc) for s in bucket]
               if bucket[0].topology is not None else [None])
-    sig = (key, _uniform(pols), _uniform(allocs),
-           tuple((f, tuple(getattr(jobs_b, f).shape),
+    sig = (key, None if shard is None else shard.R, _uniform(pols),
+           _uniform(allocs),
+           tuple((f, (B,) + tuple(getattr(jobs_b, f).shape[1:]),
                   str(getattr(jobs_b, f).dtype)) for f in JOB_FIELDS
                  if getattr(jobs_b, f) is not None))
     if sig in _SEEN_SIGNATURES:
@@ -234,37 +248,68 @@ def _log_bucket_execution(key: tuple, bucket: List[Scenario],
         _CACHE_LOG["compiles"] += 1
 
 
-def _run_bucket(key: tuple, bucket: List[Scenario], device) -> List[Result]:
+def _run_bucket(key: tuple, bucket: List[Scenario], device,
+                shard: Optional[Shard] = None) -> List[Result]:
     """One batched ``simulate_ensemble`` call for all scenarios of a static
-    bucket."""
-    jobs_cache: Dict[tuple, JobSet] = {}
-    jobsets = []
-    for scn in bucket:
-        spec = scn.trace_specs()[0]
-        # key on the full spec (every spec is hashable; ArrayTrace by
-        # identity): two points of one bucket may still differ in trace
-        # data (the seed), and node requests are clamped to total_nodes
-        cache_key = (spec, int(scn.total_nodes))
-        if cache_key not in jobs_cache:
-            jobs_cache[cache_key] = build_jobset(scn, device=device)
-        jobsets.append(jobs_cache[cache_key])
-    jobs_b = stack_jobsets(jobsets)
-    _log_bucket_execution(key, bucket, jobs_b)
+    bucket; over a mesh, for this rank's block of the padded bucket, whose
+    results every rank gathers."""
+    n = len(bucket)
+    padded = bucket + [bucket[-1]] * (0 if shard is None else -n % shard.R)
+    rows = slice(None) if shard is None else shard.block(len(padded))
+    block = padded[rows]
+    jobsets: List[JobSet] = []
+
+    def build() -> tuple:
+        """This rank's job tables; whether they carry edges, and their
+        widest edge list."""
+        jobs_cache: Dict[tuple, JobSet] = {}
+        for scn in block:
+            spec = scn.trace_specs()[0]
+            # key on the full spec (every spec is hashable; ArrayTrace by
+            # identity): two points of one bucket may still differ in
+            # trace data (the seed), and node requests are clamped to
+            # total_nodes
+            cache_key = (spec, int(scn.total_nodes))
+            if cache_key not in jobs_cache:
+                jobs_cache[cache_key] = build_jobset(scn, device=device)
+            jobsets.append(jobs_cache[cache_key])
+        return (any(j.dep_dst is not None for j in jobsets),
+                max(j.edge_capacity for j in jobsets))
+
+    if shard is None:
+        build()
+        jobs_b = stack_jobsets(jobsets)
+    else:
+        # every block at the whole stack's edge width
+        widths = shard.gather(build)
+        jobs_b = stack_jobsets(jobsets, max(w for _, w in widths)
+                               if any(e for e, _ in widths) else None)
+    _log_bucket_execution(key, bucket, jobs_b, len(padded), shard)
     machine = build_machine(bucket[0], device)
     kw = {}
     if machine is not None:
         kw = {"machine": machine,
-              "alloc_b": [s.alloc for s in bucket],
-              "contention": [s.contention for s in bucket]}
+              "alloc_b": [s.alloc for s in block],
+              "contention": [s.contention for s in block]}
     if bucket[0].failures is not None:
-        kw["failures_b"] = [_failure_trace(s) for s in bucket]
+        kw["failures_b"] = [_failure_trace(s) for s in block]
     if _service_plan(bucket[0]) is not None:
-        kw["service_b"] = [_service_plan(s) for s in bucket]
+        kw["service_b"] = [_service_plan(s) for s in block]
     if bucket[0].malleable is not None:
-        kw["malleable_b"] = [_mal_plan(s) for s in bucket]
-    batched = simulate_ensemble(
-        jobs_b, [s.policy for s in bucket],
-        [int(s.total_nodes) for s in bucket],
-        max_events=bucket[0].max_events, device=device, **kw)
+        kw["malleable_b"] = [_mal_plan(s) for s in block]
+
+    def simulate():
+        return simulate_ensemble(
+            jobs_b, [s.policy for s in block],
+            [int(s.total_nodes) for s in block],
+            max_events=bucket[0].max_events, device=device, **kw)
+
+    if shard is None:
+        batched = simulate()
+    else:
+        parts = shard.gather(lambda: (to_host(simulate()),
+                                      to_host(jobs_b)))
+        batched = concat([p[0] for p in parts], device)
+        jobs_b = concat([p[1] for p in parts], device)
     return [Result(scenario=scn, raw=batched.member(b), jobs=jobs_b.member(b))
             for b, scn in enumerate(bucket)]

@@ -28,8 +28,18 @@ packets with ``all_gather`` over a device mesh; on one card the exchange
 is one host step a round, as the reference's ``mesh=None`` path, where the
 gather is the identity.
 
-Not ported yet: sharding over several cards (``mesh``: ROADMAP Queue 1
-item 12).
+**Over a mesh** (``mesh=``, a ``torch.distributed`` ``DeviceMesh``:
+``launch.mesh.make_local_mesh``) every entry is SPMD: each rank calls it
+with the same arguments, takes the contiguous block of members or
+clusters of its place on the mesh's first axis (the reference's
+``P(axis)``), runs that block on its own device in lockstep
+(``engine._BatchRun``), and returns the whole result, gathered in rank
+order, equal field by field to the ``mesh=None`` result.  An ensemble's
+ranks do not communicate until that gather; a multicluster round gathers
+the clusters' loads and then the migration packets (:func:`_exchange`).
+The collectives move host objects over the mesh's gloo group.  A rank
+that raises before a gather makes every rank raise there; one that raises
+elsewhere makes the others fail at the group's timeout.
 """
 
 from __future__ import annotations
@@ -51,12 +61,8 @@ from repro_torch.malleable.model import make_mal_ctx
 from repro_torch.reliability.model import make_fail_ctx
 from repro_torch.serving.model import make_svc_ctx
 
-_NOT_PORTED = {
-    "mesh": "ROADMAP Queue 1 item 12 (ensembles over several cards)",
-}
-
-
-def stack_jobsets(jobsets: list[JobSet]) -> JobSet:
+def stack_jobsets(jobsets: list[JobSet],
+                  edge_capacity: Optional[int] = None) -> JobSet:
     """Stack equally sized job tables into one with ``[B, J]`` columns.
 
     Every member must have the same capacity and lie on one device.  When
@@ -64,7 +70,9 @@ def stack_jobsets(jobsets: list[JobSet]) -> JobSet:
     padded to the longest with pad edges (index ``capacity``, as
     ``make_jobset`` pads), a member without edges getting pad edges only,
     so the stack's ``dep_dst``/``dep_src`` are ``[B, E]``; pad edges count
-    into a slot that is cut off, so no member's schedule changes."""
+    into a slot that is cut off, so no member's schedule changes.  An
+    ``edge_capacity`` pads every member to that width, edges or not (a
+    block of a stack whose other blocks carry edges)."""
     jobsets = list(jobsets)
     if not jobsets:
         raise ValueError("stack_jobsets needs at least one job table")
@@ -79,8 +87,14 @@ def stack_jobsets(jobsets: list[JobSet]) -> JobSet:
         raise ValueError(f"stack_jobsets needs one device, got {devices}")
     cols = {f: torch.stack([getattr(j, f) for j in jobsets])
             for f in JOB_COLUMNS}
-    if any(j.dep_dst is not None for j in jobsets):
+    if edge_capacity is not None or any(j.dep_dst is not None
+                                        for j in jobsets):
         E = max(j.edge_capacity for j in jobsets)
+        if edge_capacity is not None:
+            if edge_capacity < E:
+                raise ValueError(f"edge_capacity {edge_capacity} is below "
+                                 f"a member's {E} edges")
+            E = edge_capacity
         for f in EDGE_FIELDS:
             cols[f] = torch.stack([torch.nn.functional.pad(
                 torch.zeros(0, dtype=torch.int32, device=j.device)
@@ -88,6 +102,120 @@ def stack_jobsets(jobsets: list[JobSet]) -> JobSet:
                 (0, E - j.edge_capacity), value=j.capacity)
                 for j in jobsets])
     return JobSet(**cols)
+
+
+# ---------------------------------------------------------------------------
+# a device mesh's first axis
+# ---------------------------------------------------------------------------
+
+# host counters of the mesh runs: multicluster exchanges that moved jobs,
+# and the migrated jobs whose source and destination clusters lie on
+# different ranks (every rank counts every rank's)
+counters = {"exchanges": 0, "cross_rank_migrations": 0}
+
+
+def reset_counters() -> None:
+    for k in counters:
+        counters[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """This rank's place on a mesh's first axis (the reference's ``sim``
+    axis): the axis's gloo group, its size ``R``, this rank's index ``r``
+    on it and its device."""
+
+    group: object
+    R: int
+    r: int
+    device: torch.device
+
+    def block(self, n: int) -> slice:
+        """This rank's rows of ``n`` (a multiple of ``R``), as ``P(axis)``
+        lays them out: ``[r n / R, (r + 1) n / R)``."""
+        k = n // self.R
+        return slice(self.r * k, (self.r + 1) * k)
+
+    def gather(self, fn) -> list:
+        """``fn()`` on this rank, and every rank's value (a host object)
+        in rank order.  When a rank's ``fn`` raised, every rank raises
+        here: that rank its own exception, the others a ``RuntimeError``
+        naming it."""
+        import torch.distributed as dist
+        try:
+            mine, err = ("ok", fn()), None
+        except Exception as e:
+            mine, err = ("err", f"{type(e).__name__}: {e}"), e
+        parts = [None] * self.R
+        dist.all_gather_object(parts, mine, group=self.group)
+        if err is not None:
+            raise err
+        bad = [f"rank {q} of the mesh failed: {v}"
+               for q, (k, v) in enumerate(parts) if k == "err"]
+        if bad:
+            raise RuntimeError("; ".join(bad))
+        return [v for _, v in parts]
+
+
+def mesh_shard(mesh, device=None) -> Shard:
+    """The :class:`Shard` of this rank on ``mesh``'s first axis; ``device``
+    must agree with the mesh (``launch.mesh.mesh_device``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import mesh_device
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError("mesh must be a torch.distributed DeviceMesh "
+                        "(repro_torch.launch.make_local_mesh), got "
+                        f"{type(mesh).__name__}")
+    group = mesh.get_group(0)
+    backend = str(dist.get_backend(group))
+    if "gloo" not in backend:
+        raise ValueError(
+            f"the mesh's first axis runs on {backend!r}: the simulator's "
+            "collectives move host objects and need a gloo process group "
+            "(init_process_group(backend='gloo'))")
+    return Shard(group, mesh.size(0), mesh.get_local_rank(0),
+                 mesh_device(mesh, device))
+
+
+def to_host(x):
+    """A result tree (dataclasses and dicts of tensors, arrays, lists) with
+    every tensor on the CPU, to cross ranks."""
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: to_host(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return type(x)(**{f.name: to_host(getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
+    return x
+
+
+def concat(parts: list, device):
+    """The blocks of a result tree joined along their leading dim, in
+    order, tensors on ``device``: the whole result of a sharded run."""
+    x = parts[0]
+    if x is None:
+        return None
+    if torch.is_tensor(x):
+        return torch.cat(parts).to(device)
+    if isinstance(x, np.ndarray):
+        return np.concatenate(parts)
+    if isinstance(x, list):
+        return [v for p in parts for v in p]
+    if isinstance(x, dict):
+        return {k: concat([p[k] for p in parts], device) for k in x}
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: concat([getattr(p, f.name) for p in parts],
+                                         device)
+                          for f in dataclasses.fields(x)})
+    raise TypeError(f"cannot join blocks of {type(x).__name__}")
+
+
+def take_rows(jobs: JobSet, rows: slice) -> JobSet:
+    """Rows ``rows`` of a stacked table, its edge width kept."""
+    return jobs._map(lambda t: t[rows])
 
 
 def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
@@ -117,20 +245,26 @@ def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
     member's event count (default ``6 * capacity + 8``, as in the
     reference, plus the streams' share).  ``device=None`` runs on ``cuda``
     (and raises without one); the table and the machine move there if they
-    lie elsewhere.  The reference's mesh argument raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it."""
-    given = {"mesh": mesh}
-    for name, item in _NOT_PORTED.items():
-        if given[name] is not None:
-            raise NotImplementedError(
-                f"simulate_ensemble({name}=...) is not ported yet: {item}")
+    lie elsewhere.
+
+    With ``mesh`` (module doc) ``B`` must divide by the size ``R`` of the
+    mesh's first axis; rank ``r`` runs members ``[r B / R, (r + 1) B /
+    R)`` of the table (kept at its edge width) on its own device, which
+    ``device`` may only name, and every rank returns the whole result on
+    its device, equal to the ``mesh=None`` result.  The default event cap
+    is a member's, whatever ``R``."""
     if jobs_b.batch is None:
         raise ValueError("simulate_ensemble needs a stacked table "
                          "(stack_jobsets)")
-    device = resolve_device(device)
-    if jobs_b.device != device:
-        jobs_b = jobs_b.to(device)
+    shard = None if mesh is None else mesh_shard(mesh, device)
+    device = resolve_device(device) if shard is None else shard.device
     B = jobs_b.batch
+    if shard is not None and B % shard.R:
+        raise ValueError(f"an ensemble of {B} members does not divide over "
+                         f"the {shard.R} ranks of the mesh's first axis")
+    if shard is None and jobs_b.device != device:
+        jobs_b = jobs_b.to(device)
+    pols = list(policies_b)
     total_nodes_b = [int(t) for t in total_nodes_b]
     strategies = contentions = None
     if machine is None:
@@ -158,11 +292,37 @@ def simulate_ensemble(jobs_b: JobSet, policies_b, total_nodes_b, *,
     svcs = _per_member(service_b, B, make_svc_ctx, total_nodes_b)
     mals = _per_member(malleable_b, B,
                        lambda s, n_nodes: make_mal_ctx(s), total_nodes_b)
-    return engine.simulate_batch(jobs_b, list(policies_b), total_nodes_b,
-                                 machine=machine, alloc_b=strategies,
-                                 contention_b=contentions, failures_b=fails,
-                                 service_b=svcs, malleable_b=mals,
-                                 max_events=max_events)
+    if shard is None:
+        return engine.simulate_batch(jobs_b, pols, total_nodes_b,
+                                     machine=machine, alloc_b=strategies,
+                                     contention_b=contentions,
+                                     failures_b=fails, service_b=svcs,
+                                     malleable_b=mals, max_events=max_events)
+    # what simulate_batch refuses, refused for the whole ensemble on every
+    # rank alike, and the whole ensemble's event cap
+    J = jobs_b.capacity
+    if len(pols) != B or len(total_nodes_b) != B:
+        raise ValueError(f"{len(pols)} policies and {len(total_nodes_b)} "
+                         f"node counts for {B} members")
+    engine._check_streams(machine, fails, svcs, J)
+    engine._check_malleable(mals, J,
+                            any(c.enabled for c in contentions or ()),
+                            [engine.policies_id(p) for p in pols])
+    if max_events is None:
+        max_events = engine._event_cap(J, *(None if c is None else c[0]
+                                            for c in (fails, svcs, mals)))
+    rows = shard.block(B)
+
+    def cut(xs):
+        return None if xs is None else xs[rows]
+
+    block = take_rows(jobs_b, rows).to(device)
+    parts = shard.gather(lambda: to_host(engine.simulate_batch(
+        block, pols[rows], total_nodes_b[rows], machine=machine,
+        alloc_b=cut(strategies), contention_b=cut(contentions),
+        failures_b=cut(fails), service_b=cut(svcs), malleable_b=cut(mals),
+        max_events=max_events)))
+    return concat(parts, device)
 
 
 def _per_member(spec, B: int, make, total_nodes_b) -> Optional[list]:
@@ -186,7 +346,8 @@ def simulate_alloc_sweep(jobs: JobSet, policy, total_nodes: int, machine,
 
     ``sweep(scenario, axes={"alloc": strategies})`` is the general form and
     gives the same members.  Returns a ``SimResult`` with a leading dim of
-    ``len(strategies)``, in the order given."""
+    ``len(strategies)``, in the order given.  With ``mesh`` the strategies
+    are sharded as ``simulate_ensemble``'s members are."""
     B = len(strategies)
     return simulate_ensemble(
         stack_jobsets([jobs] * B), [int(engine.policies_id(policy))] * B,
@@ -336,22 +497,41 @@ def _imbalance(loads: list, threshold: float) -> tuple:
 
 
 def _exchange(run, t_hi: int, latency: int, max_export: int,
-              threshold: float) -> tuple:
-    """One round's migration over the lockstep run ``run``: the clusters'
-    queue loads (one read), the host's float32 imbalance test in the
-    reference's order, the exports of the overloaded clusters to the least
-    loaded one (the first on ties), and its imports.  Rebinds ``run`` to
-    the new table.  Returns each cluster's exported and dropped counts."""
+              threshold: float, loads: list,
+              shard: Optional[Shard] = None) -> tuple:
+    """One round's migration over the lockstep run ``run``, from every
+    cluster's queue load (``loads``, in cluster order): the host's float32
+    imbalance test in the reference's order, the exports of the overloaded
+    clusters to the least loaded one (the first on ties), and its imports.
+    Rebinds ``run`` to the new table.  Returns each cluster's exported and
+    dropped counts.
+
+    With ``shard``, ``run`` holds this rank's block of clusters: every rank
+    takes the same decision from the gathered ``loads``, exports from its
+    own clusters, gathers every rank's packets (rank-major, then cluster,
+    then slot: the single-device order) and imports those bound for its
+    own clusters."""
     jobs, state = run.jobs, run.state
-    C = jobs.batch
-    dest, over = _imbalance(_queue_load(jobs, state).tolist(), threshold)
+    Cl = jobs.batch
+    lo = 0 if shard is None else shard.r * Cl
+    dest, over = _imbalance(loads, threshold)
     if not any(over):
-        return [0] * C, [0] * C
-    enable = torch.tensor(over).to(jobs.device)
-    jobs, pkt = _export_jobs(jobs, state, t_hi, latency, max_export, enable)
+        return [0] * Cl, [0] * Cl
+    mine = over[lo:lo + Cl]
+    jobs, pkt = _export_jobs(jobs, state, t_hi, latency, max_export,
+                             torch.tensor(mine).to(jobs.device))
     flat = {f: v.reshape(-1) for f, v in pkt.items()}
-    to_dest = torch.zeros(C, dtype=torch.bool, device=jobs.device)
-    to_dest[dest] = True
+    if shard is not None:
+        parts = shard.gather(lambda: to_host(flat))
+        flat = concat(parts, jobs.device)
+        ok = flat["ok"].cpu().reshape(shard.R, -1)   # every packet: dest
+        counters["exchanges"] += 1
+        counters["cross_rank_migrations"] += int(ok.sum()
+                                                 - ok[dest // Cl].sum())
+        if not (any(mine) or lo <= dest < lo + Cl):   # nothing moves here
+            return [0] * Cl, [0] * Cl
+    to_dest = torch.tensor([lo + c == dest for c in range(Cl)]).to(
+        jobs.device)
     flat["ok"] = flat["ok"][None, :] & to_dest[:, None]
     jobs, dropped = _import_jobs(jobs, state, flat)
     sent, dropped = torch.stack([torch.sum(pkt["ok"], dim=-1),
@@ -380,19 +560,22 @@ def simulate_multicluster(jobs_c: JobSet, policy, nodes_c, *, window: int,
     are ``ceil(horizon / window) + 1`` rounds and then a drain at
     ``INF_TIME`` with no migration.  The event cap (default ``2 J + 8``)
     is each cluster's total over the run.  ``device=None`` runs on
-    ``cuda`` (and raises without one).  ``mesh`` (sharding the clusters
-    over several cards) raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "simulate_multicluster(mesh=...) is not ported yet: ROADMAP "
-            "Queue 1 item 12 (multicluster over several cards)")
+    ``cuda`` (and raises without one).
+
+    With ``mesh`` (module doc) ``C`` must divide by the size ``R`` of the
+    mesh's first axis; rank ``r`` runs clusters ``[r C / R, (r + 1) C /
+    R)`` on its own device and each round's exchange gathers the loads
+    and the packets across the ranks (:func:`_exchange`); every rank
+    returns the whole result, equal to the ``mesh=None`` result."""
     if jobs_c.batch is None:
         raise ValueError("simulate_multicluster needs a stacked [C, J] "
                          "table (stack_jobsets)")
-    device = resolve_device(device)
-    if jobs_c.device != device:
-        jobs_c = jobs_c.to(device)
+    shard = None if mesh is None else mesh_shard(mesh, device)
+    device = resolve_device(device) if shard is None else shard.device
     C, J = jobs_c.batch, jobs_c.capacity
+    if shard is not None and C % shard.R:
+        raise ValueError(f"{C} clusters do not divide over the {shard.R} "
+                         "ranks of the mesh's first axis")
     latency = int(latency if latency is not None else window)
     if latency < window:
         raise ValueError("migration latency must be >= window for "
@@ -401,23 +584,49 @@ def simulate_multicluster(jobs_c: JobSet, policy, nodes_c, *, window: int,
     n_rounds = math.ceil(horizon / window) + 1
     cap = max_events if max_events is not None else 2 * J + 8
     pol = engine.policies_id(policy)
-    run = engine._BatchRun(jobs_c, [pol] * C, nodes_c, cap)
-    mig, drop, sat = [0] * C, [0] * C, [False] * C
+    rows = slice(None) if shard is None else shard.block(C)
+    jobs = jobs_c if shard is None else take_rows(jobs_c, rows)
+    if jobs.device != device:
+        jobs = jobs.to(device)
+    Cl = jobs.batch
+    run = engine._BatchRun(jobs, [pol] * Cl, nodes_c[rows], cap)
+    mig, drop, sat = [0] * Cl, [0] * Cl, [False] * Cl
+
+    def window_round(t_hi: int):
+        """The round's window and, with migration, the clusters' loads
+        (one read)."""
+        sat_r = engine.simulate_window_batch(run, t_hi, cap)
+        return sat_r, (_queue_load(run.jobs, run.state).tolist()
+                       if migrate else None)
+
     for r in range(n_rounds):
         t_hi = _i32((r + 1) * int(window))
-        sat_r = engine.simulate_window_batch(run, t_hi, cap)
+        if shard is not None and migrate:
+            # the round's agreement: a rank that failed its window fails
+            # every rank here
+            parts = shard.gather(lambda: window_round(t_hi))
+            sat_r = parts[shard.r][0]
+            loads = [x for _, block in parts for x in block]
+        else:
+            sat_r, loads = window_round(t_hi)
         sat = [a or b for a, b in zip(sat, sat_r)]
         if migrate:
             sent, lost = _exchange(run, t_hi, latency, max_export,
-                                   load_imbalance_threshold)
+                                   load_imbalance_threshold, loads, shard)
             mig = [a + b for a, b in zip(mig, sent)]
             drop = [a + b for a, b in zip(drop, lost)]
-    sat_d = engine.simulate_window_batch(run, INF_TIME, cap)
-    return MulticlusterResult(
-        jobs=run.jobs, state=run.state,
-        migrated=np.array(mig, dtype=np.int32),
-        dropped=np.array(drop, dtype=np.int32),
-        saturated=np.array([a or b for a, b in zip(sat, sat_d)]))
+
+    def drain() -> MulticlusterResult:
+        sat_d = engine.simulate_window_batch(run, INF_TIME, cap)
+        return MulticlusterResult(
+            jobs=run.jobs, state=run.state,
+            migrated=np.array(mig, dtype=np.int32),
+            dropped=np.array(drop, dtype=np.int32),
+            saturated=np.array([a or b for a, b in zip(sat, sat_d)]))
+
+    if shard is None:
+        return drain()
+    return concat(shard.gather(lambda: to_host(drain())), device)
 
 
 def multicluster_result_np(res: MulticlusterResult) -> dict:

@@ -7,7 +7,8 @@ package, on the CPU.
   conserves jobs, and migration helps an imbalanced load;
 - ``tests/test_multicluster_sharded.py``'s configuration (C 4, J 120,
   backfill, window 4,000, ``max_export`` 4) equal to JAX's vmapped run
-  field by field, and ``mesh=`` raising;
+  field by field, and a ``mesh=`` that is no ``DeviceMesh`` refused (the
+  mesh runs are tests/test_torch_mesh.py's);
 - ``tests/test_workflow_cluster.py``'s multicluster DAG tests (pinned
   edges keep DAG clusters independent; a DAG cluster beside a plain one);
 - ``tests/test_api.py``'s multicluster tests (a static sweep axis, the
@@ -142,7 +143,7 @@ def test_sharded_configuration_and_mesh_refused():
     assert a.migrated.tolist() == np.asarray(b.migrated).tolist()
     assert out["dropped"] == 0 and out["done"].sum() == 480
     pc, _ = stacks(traces, 96, 152)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         parallel.simulate_multicluster(pc, "backfill", [96] * 4,
                                        mesh=object(), device="cpu", **kw)
 

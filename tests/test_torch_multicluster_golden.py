@@ -11,8 +11,16 @@ and ``makespan``.  The runs: DAS-2's five clusters (144, 64, 64, 64 and
 seed=50 + c)``, backfill, ``Multicluster(window=3600)``; and the mixed
 grid, whose first cluster runs the Galactic Plane DAG ``WorkflowTrace(
 kind="galactic", params=(("tiles", 16), ("width", 12)))`` (657 tasks)
-in place of seed 50.  These tests recompute every entry with
-``repro.api.run`` and fail when the file is stale.
+in place of seed 50; and ``das2x4``, the mesh's run (``chip_smoke.py``
+phase ``mesh`` shards its clusters over two ranks): four clusters of 128,
+64, 64 and 32 processors, each ``SyntheticTrace(kind="das2",
+n_jobs=1000, seed=50 + c)``, backfill, ``Multicluster(window=3600)``,
+1,280 rows a cluster (the default 1,064 leaves too few free rows: 72
+imports are dropped).
+These tests recompute every entry with ``repro.api.run`` (the JAX
+package's ``simulate_multicluster(mesh=None)``, which
+``tests/test_multicluster_sharded.py`` holds its mesh run to) and fail
+when the file is stale.
 
 Regenerate the file with
 ``PYTHONPATH=src python tests/test_torch_multicluster_golden.py``.
@@ -33,7 +41,11 @@ NODES = (144, 64, 64, 64, 64)
 WINDOW = 3600
 N_JOBS = 2000
 GALACTIC = {"kind": "galactic", "tiles": 16, "width": 12}
-RUNS = ("das2", "mixed")
+RUNS = ("das2", "mixed", "das2x4")
+# each run's clusters' processors, jobs a das2 cluster and row capacity
+# (None: the default)
+SHAPES = {"das2": (NODES, N_JOBS, None), "mixed": (NODES, N_JOBS, None),
+          "das2x4": ((128, 64, 64, 32), 1000, 1280)}
 
 
 def digest(a) -> str:
@@ -44,8 +56,9 @@ def digest(a) -> str:
 
 def traces(mod, kind: str) -> tuple:
     """The clusters' trace specs of a run, in ``mod``'s classes."""
-    das2 = [mod.SyntheticTrace(kind="das2", n_jobs=N_JOBS, seed=50 + c)
-            for c in range(len(NODES))]
+    nodes, n_jobs, _ = SHAPES[kind]
+    das2 = [mod.SyntheticTrace(kind="das2", n_jobs=n_jobs, seed=50 + c)
+            for c in range(len(nodes))]
     if kind == "mixed":
         das2[0] = mod.WorkflowTrace(kind="galactic", params=(
             ("tiles", GALACTIC["tiles"]), ("width", GALACTIC["width"])))
@@ -53,7 +66,9 @@ def traces(mod, kind: str) -> tuple:
 
 
 def scenario(mod, kind: str, migrate: bool = True):
-    return mod.Scenario(trace=traces(mod, kind), total_nodes=NODES,
+    return mod.Scenario(trace=traces(mod, kind),
+                        total_nodes=SHAPES[kind][0],
+                        capacity=SHAPES[kind][2],
                         policy="backfill",
                         multicluster=mod.Multicluster(window=WINDOW,
                                                       migrate=migrate))
@@ -61,7 +76,10 @@ def scenario(mod, kind: str, migrate: bool = True):
 
 def golden_entry(kind: str) -> dict:
     out = api.run(scenario(api, kind)).to_np()
-    e = {"run": kind, "nodes": list(NODES), "n_jobs": int(out["valid"].sum()),
+    nodes, _, capacity = SHAPES[kind]
+    e = {"run": kind, "nodes": list(nodes),
+         **({} if capacity is None else {"capacity": capacity}),
+         "n_jobs": int(out["valid"].sum()),
          "policy": "backfill", "window": WINDOW,
          "migrated": out["migrated"], "dropped": out["dropped"],
          "saturated": out["saturated"], "makespan": out["makespan"]}
@@ -78,8 +96,10 @@ def _load():
 def test_golden_file_lists_every_run():
     entries = _load()
     assert [e["run"] for e in entries] == list(RUNS)
-    assert [e["n_jobs"] for e in entries] == [5 * N_JOBS, 4 * N_JOBS + 657]
+    assert [e["n_jobs"] for e in entries] == [5 * N_JOBS, 4 * N_JOBS + 657,
+                                              4000]
     assert all(e["dropped"] == 0 and not e["saturated"] for e in entries)
+    assert all(e["migrated"] > 0 for e in entries)
 
 
 @pytest.mark.parametrize("kind", RUNS)

@@ -111,13 +111,14 @@ def test_ensemble_counts_walks_per_event():
 
 @pytest.mark.parametrize("arg", ("failures_b", "mesh"))
 def test_unported_arguments_raise(arg):
-    """``mesh`` is still refused; ``failures_b``, refused before the
-    reliability slice, runs, each member equal to its JAX run, and a value
-    that is no failure spec is refused."""
+    """``mesh``, refused before the mesh slice, must be a ``DeviceMesh``
+    (its runs are tests/test_torch_mesh.py's); ``failures_b``, refused
+    before the reliability slice, runs, each member equal to its JAX run,
+    and a value that is no failure spec is refused."""
     scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10), total_nodes=8)
     jobs = stack_jobsets([build_jobset(scn, device="cpu")] * 2)
     if arg == "mesh":
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             simulate_ensemble(jobs, ["fcfs"] * 2, [8] * 2, device="cpu",
                               mesh=object())
         return

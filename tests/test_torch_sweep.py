@@ -194,7 +194,8 @@ def test_scenario_with_and_trace_keys_match_jax():
 
 def test_unported_sweep_arguments_raise():
     scn = rt.Scenario(trace=rt.SyntheticTrace(n_jobs=10), total_nodes=8)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a mesh must be a DeviceMesh (the mesh runs: tests/test_torch_mesh.py)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         rt.sweep(scn, axes={"policy": ("fcfs",)}, mesh=object(), device="cpu")
     # the failures axis, refused before the reliability slice, runs; a
     # value that is no FailureModel is refused as in the reference
