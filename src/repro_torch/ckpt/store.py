@@ -13,9 +13,12 @@ The port's copy of ``repro.ckpt.store`` (numpy and host threads): the
 streaming replay runner's template-free :func:`load_checkpoint_raw`, and
 the trainer's :func:`load_checkpoint` into a template's structure and
 devices.  Trees are those of ``repro_torch.tree``: dicts, lists, tuples
-and dataclasses, keys joined by ``/``.  Leaves are stored whole; the
-sharded restore of the reference (``shardings``) waits for the sharded
-layout (ROADMAP Queue 1 item 10(f)).
+and dataclasses, keys joined by ``/``.  Leaves are stored whole: a DTensor
+leaf (the sharded layout) is gathered on every rank and written by the
+mesh's first rank only (``CheckpointManager(mesh=)``), and a template's
+DTensor leaf is restored into each rank's shard of its placements; so a
+checkpoint written over a mesh restores on one device, and the other way
+round.
 """
 
 from __future__ import annotations
@@ -30,13 +33,17 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.sharding.rules import all_reduce_mesh, distribute, mesh_of
 from repro_torch.tree import tree_items, tree_map, tree_map_with_path
 
 
 def _host(leaf) -> np.ndarray:
     """A host copy of a leaf, never a view of memory the caller may
-    update in place."""
+    update in place; a DTensor gathered whole (a collective: every rank of
+    its mesh calls it)."""
     if isinstance(leaf, torch.Tensor):
+        if mesh_of(leaf) is not None:
+            leaf = leaf.full_tensor()
         return np.array(leaf.detach().cpu())
     return np.array(leaf)
 
@@ -133,7 +140,10 @@ def load_checkpoint(ckpt_dir: str, template: Any, *,
                 f"expects {tuple(np.shape(tmpl))}: wrong model/config for "
                 "this checkpoint directory?")
         if isinstance(tmpl, torch.Tensor):
-            return torch.from_numpy(arr).to(tmpl.device)
+            full = torch.from_numpy(arr).to(tmpl.device)
+            mesh = mesh_of(tmpl)
+            return full if mesh is None else distribute(full, mesh,
+                                                        tmpl.placements)
         return arr
 
     tree = tree_map_with_path(restore, template)
@@ -141,13 +151,18 @@ def load_checkpoint(ckpt_dir: str, template: Any, *,
 
 
 class CheckpointManager:
-    """keep-last-k manager with optional async writes."""
+    """keep-last-k manager with optional async writes.  Over a ``mesh``
+    (a directory every rank reads) each rank gathers the tree, the mesh's
+    first rank writes it, and :meth:`wait` holds every rank until the
+    write is published."""
 
     def __init__(self, ckpt_dir: str, *, keep: int = 3,
-                 async_save: bool = False):
+                 async_save: bool = False, mesh=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
         self.async_save = async_save
+        self.mesh = mesh
+        self._writes = mesh is None or not any(mesh.get_coordinate())
         self._thread: Optional[threading.Thread] = None
         self.last_saved: Optional[int] = None
 
@@ -155,10 +170,15 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None:       # a barrier over the mesh
+            all_reduce_mesh(torch.zeros(1), self.mesh)
 
     def save(self, step: int, tree: Any, *, extra: Optional[dict] = None):
         host_tree = tree_map(_host, tree)          # snapshot
         self.wait()
+        self.last_saved = step
+        if not self._writes:            # another rank of the mesh writes
+            return
         if self.async_save:
             self._thread = threading.Thread(
                 target=save_checkpoint, args=(self.ckpt_dir, step, host_tree),
@@ -167,7 +187,6 @@ class CheckpointManager:
         else:
             save_checkpoint(self.ckpt_dir, step, host_tree, extra=extra,
                             keep=self.keep)
-        self.last_saved = step
 
     def restore(self, template: Any, *, step: Optional[int] = None):
         return load_checkpoint(self.ckpt_dir, template, step=step)

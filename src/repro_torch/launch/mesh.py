@@ -72,31 +72,79 @@ def _world() -> tuple:
     return dist.get_rank(), dist.get_world_size()
 
 
-def make_local_mesh(axes=("data", "model"), device_type: str = "cuda"):
-    """Every rank of the initialised process group on the first axis, the
-    other axes of size 1 (the tests' and examples' mesh).  The first axis
+_ALL_GATHER_LIB = None
+
+
+def _all_gather_into_tensor(input, group_size, group_name):
+    """``_c10d_functional.all_gather_into_tensor`` on CUDA tensors through
+    the group's own ``all_gather_into_tensor``, completed before it
+    returns.  The functional op's own kernel goes through the group's
+    coalesced all-gather, which a gloo group cannot run on CUDA tensors
+    (its process dies of a segmentation fault: ``scripts/
+    shard_gloo_probe.py``); DTensor gathers a shard with it."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    out = input.new_empty((input.shape[0] * group_size,)
+                          + tuple(input.shape[1:]))
+    dist.all_gather_into_tensor(out, input.contiguous(),
+                                group=_resolve_process_group(group_name))
+    return out
+
+
+def route_cuda_all_gather() -> None:
+    """Register :func:`_all_gather_into_tensor` as the CUDA kernel of the
+    functional all-gather, once a process (a mesh of cards over gloo needs
+    it before DTensor gathers a shard).  It holds for the whole process:
+    every group's functional all-gather then blocks, NCCL's too, so only
+    a process whose groups are gloo's registers it."""
+    global _ALL_GATHER_LIB
+    if _ALL_GATHER_LIB is None:
+        _ALL_GATHER_LIB = torch.library.Library("_c10d_functional", "IMPL")
+        _ALL_GATHER_LIB.impl("all_gather_into_tensor",
+                             _all_gather_into_tensor, "CUDA")
+
+
+def make_local_mesh(axes=("data", "model"), device_type: str = "cuda",
+                    shape=None):
+    """The ranks of the initialised process group as a mesh of ``axes``
+    and ``shape`` (its product the world size; by default every rank on
+    the first axis, the other axes of size 1: the tests' and examples'
+    mesh), ranks in row-major order.  An axis that spans the whole world
     is the world's own group, so it keeps the caller's backend and
-    timeout.  On cuda each rank's current device is set to its card
-    first."""
+    timeout; the others are subgroups of the same backend.  On cuda each
+    rank's current device is set to its card first, and over a gloo group
+    DTensor's all-gather is routed around gloo's coalesced one
+    (:func:`route_cuda_all_gather`; another backend keeps its own)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
     rank, world = _world()
     dev = rank_device(device_type, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+        if dist.get_backend() == "gloo":
+            route_cuda_all_gather()
     axes = tuple(axes)
+    shape = (world,) + (1,) * (len(axes) - 1) if shape is None else tuple(
+        shape)
+    if len(shape) != len(axes) or math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {shape} over axes {axes} does "
+                         f"not hold the world's {world} ranks")
+    layout = torch.arange(world).reshape(shape)
     if len(axes) == 1:
         return DeviceMesh.from_group(dist.group.WORLD, device_type,
                                      mesh_dim_names=axes)
-    # a size-1 group a rank for each further axis, made by every rank in
-    # rank order as new_group requires
+    # each axis's groups (the ranks along it, the other coordinates fixed),
+    # made by every rank in the same order as new_group requires
     own = []
-    for _ in axes[1:]:
-        groups = [dist.new_group([r]) for r in range(world)]
-        own.append(groups[rank])
-    layout = torch.arange(world).reshape((world,) + (1,) * (len(axes) - 1))
-    return DeviceMesh.from_group([dist.group.WORLD, *own], device_type,
-                                 mesh=layout, mesh_dim_names=axes)
+    for d in range(len(axes)):
+        if shape[d] == world:
+            own.append(dist.group.WORLD)
+            continue
+        lines = layout.movedim(d, -1).reshape(-1, shape[d]).tolist()
+        groups = [(ranks, dist.new_group(ranks)) for ranks in lines]
+        own.append(next(g for ranks, g in groups if rank in ranks))
+    return DeviceMesh.from_group(own, device_type, mesh=layout,
+                                 mesh_dim_names=axes)
 
 
 def make_production_mesh(*, multi_pod: bool = False):

@@ -8,6 +8,11 @@ key-validity mask.  ``attend`` takes the CUDA kernel
 as the JAX package takes its Pallas kernel, and ``blockwise_attention``
 otherwise.  ``decode_attention`` is plain tensor code in both packages.
 
+Under a mesh (DTensor inputs) ``attend`` and ``decode_attention`` run on
+each rank's local shard (``sharding.rules.on_local_heads``): its batch rows and its
+query heads with their KV heads; neither the kernel nor the blockwise
+loop ever receives a DTensor.
+
 ``blockwise_attention`` is differentiable, and training takes it: while
 autograd records, each KV tile's step is checkpointed (recomputed in the
 backward pass), as the reference checkpoints its tile.  The CUDA kernel
@@ -25,7 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import checkpointed
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.sharding.rules import ParamDef, mesh_of, on_local_heads
 
 NEG_INF = -1e30
 
@@ -143,6 +148,14 @@ def blockwise_attention(
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
+def _local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` over ``[B, S, heads, hd]`` tensors on each rank's
+    batch rows and whole heads (``sharding.rules.on_local_heads``)."""
+    return on_local_heads(fn, (q, k, v), ((0, 2),) * 3,
+                          (((0, 2), q.shape[:3] + v.shape[3:]),),
+                          (q.shape[2], k.shape[2]))
+
+
 def decode_attention(
     q: torch.Tensor,              # [B, 1, H, hd]
     k_cache: torch.Tensor,        # [B, S, KV, hd]
@@ -152,6 +165,9 @@ def decode_attention(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """Single-token decode: scores fit in memory; one fused softmax."""
+    if mesh_of(q) is not None:
+        return _local_heads(lambda *a: decode_attention(
+            *a, pos=pos, window=window), q, k_cache, v_cache)
     B, S, KV, hd = k_cache.shape
     H = q.shape[2]
     G = H // KV
@@ -173,6 +189,10 @@ def attend(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     *, causal: bool, window=None, q_offset=0, k_valid=None,
 ) -> torch.Tensor:
+    if mesh_of(q) is not None:
+        return _local_heads(lambda *a: attend(
+            cfg, *a, causal=causal, window=window, q_offset=q_offset,
+            k_valid=k_valid), q, k, v)
     if cfg.use_pallas:
         return flash_attention(
             q, k, v, causal=causal, window=window, q_offset=q_offset,

@@ -38,10 +38,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, apply_rope, checkpointed, chunked_lm_loss,
     compute_dtype, embed_defs, embed_tokens, logits_from_hidden, mlp_defs,
-    norm_defs,
+    mm, norm_defs,
 )
 from repro_torch.models.lm import LM, _layer, _proj, _stack
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.sharding.rules import (
+    TRAIN_RULES, ParamDef, ShardingRules, constrain, like,
+)
 
 Tree = dict
 
@@ -97,7 +99,7 @@ def _proj_qkv(cfg, p, x, positions=None):
 
 def _out(p, o):
     """``einsum("bshk,hkd->bsd")`` as one matrix product."""
-    return o.flatten(2) @ p["wo"].reshape(-1, p["wo"].shape[-1]).to(o.dtype)
+    return mm(o.flatten(2), p["wo"].reshape(-1, p["wo"].shape[-1]).to(o.dtype))
 
 
 def _remat(cfg, fn):
@@ -106,38 +108,48 @@ def _remat(cfg, fn):
     return (lambda *a: checkpointed(fn, *a)) if cfg.remat else fn
 
 
-def _positions(n: int, device) -> torch.Tensor:
-    return torch.arange(n, dtype=torch.int32, device=device)[None]
+def _positions(h: torch.Tensor) -> torch.Tensor:
+    """``[1, S]`` positions of ``h``'s sequence (replicated on its mesh)."""
+    return like(torch.arange(h.shape[1], dtype=torch.int32,
+                             device=h.device)[None], h)
 
 
-def _encoder_layer(cfg, lp, h, positions):
+def _act(h, rules, mesh):
+    return constrain(h, ("act_batch", "act_seq", "act_embed"), rules, mesh)
+
+
+def _encoder_layer(cfg, lp, h, positions, rules, mesh):
     """One encoder layer: bidirectional self-attention, then the MLP."""
     a = apply_norm(lp["ln1"], h, cfg)
     q, k, v = _proj_qkv(cfg, lp["attn"], a, positions)
     h = h + _out(lp["attn"], attn.attend(cfg, q, k, v, causal=False))
     m = apply_norm(lp["ln2"], h, cfg)
-    return h + apply_mlp(lp["mlp"], m, cfg)
+    return _act(h + apply_mlp(lp["mlp"], m, cfg), rules, mesh)
 
 
-def _frontend(params: Tree, src_embeds: torch.Tensor, cfg: ModelConfig):
+def _frontend(params: Tree, src_embeds: torch.Tensor, cfg: ModelConfig,
+              rules, mesh):
     """The projected source frames, the encoder's input, and their
     positions."""
     dt = compute_dtype(cfg)
-    h = src_embeds.to(dt) @ params["frontend_proj"].to(dt)
-    return h, _positions(h.shape[1], h.device)
+    src = like(src_embeds, params["frontend_proj"])
+    h = _act(mm(src.to(dt), params["frontend_proj"].to(dt)), rules, mesh)
+    return h, _positions(h)
 
 
-def encode(params: Tree, src_embeds: torch.Tensor, cfg: ModelConfig):
+def encode(params: Tree, src_embeds: torch.Tensor, cfg: ModelConfig, *,
+           rules: ShardingRules = TRAIN_RULES, mesh=None):
     """The encoder's output ``[B, S_src, D]`` after ``enc_norm``."""
     params = params.tree() if isinstance(params, LM) else params
-    h, positions = _frontend(params, src_embeds, cfg)
-    body = _remat(cfg, lambda hh, lp: _encoder_layer(cfg, lp, hh, positions))
+    h, positions = _frontend(params, src_embeds, cfg, rules, mesh)
+    body = _remat(cfg, lambda hh, lp: _encoder_layer(cfg, lp, hh, positions,
+                                                     rules, mesh))
     for i in range(cfg.enc_layers):
         h = body(h, _layer(params["encoder"], i))
     return apply_norm(params["enc_norm"], h, cfg)
 
 
-def _decoder_block(cfg, lp, h, enc_out, positions):
+def _decoder_block(cfg, lp, h, enc_out, positions, rules, mesh):
     """One decoder layer over the whole target; returns (h, its self K/V,
     its cross K/V)."""
     a = apply_norm(lp["ln1"], h, cfg)
@@ -149,18 +161,27 @@ def _decoder_block(cfg, lp, h, enc_out, positions):
         enc_out, pc["wv"])
     h = h + _out(pc, attn.attend(cfg, xq, xk, xv, causal=False))
     m = apply_norm(lp["ln2"], h, cfg)
-    return h + apply_mlp(lp["mlp"], m, cfg), {"k": k, "v": v}, {
-        "k": xk, "v": xv}
+    h = _act(h + apply_mlp(lp["mlp"], m, cfg), rules, mesh)
+    return h, {"k": k, "v": v}, {"k": xk, "v": xv}
 
 
-def _decode(params: Tree, batch, cfg: ModelConfig, collect_cache: bool):
+def _tokens(params: Tree, tokens: torch.Tensor, cfg: ModelConfig):
+    """The target's embeddings; under a mesh the ids join it replicated
+    (as ``lm._embed_inputs``)."""
+    return embed_tokens(params["embed"], like(tokens, params["embed"]["tok"]),
+                        cfg)
+
+
+def _decode(params: Tree, batch, cfg: ModelConfig, collect_cache: bool,
+            rules, mesh):
     """Encoder, then the decoder's layers and final norm: (h, cache or
     None)."""
-    enc_out = encode(params, batch["src_embeds"], cfg)
-    h = embed_tokens(params["embed"], batch["tokens"], cfg)
-    positions = _positions(h.shape[1], h.device)
-    block = _remat(cfg, lambda hh, lp: _decoder_block(cfg, lp, hh, enc_out,
-                                                      positions))
+    enc_out = encode(params, batch["src_embeds"], cfg, rules=rules,
+                     mesh=mesh)
+    h = _act(_tokens(params, batch["tokens"], cfg), rules, mesh)
+    positions = _positions(h)
+    block = _remat(cfg, lambda hh, lp: _decoder_block(
+        cfg, lp, hh, enc_out, positions, rules, mesh))
     selfs, crosses = [], []
     for i in range(cfg.n_layers):
         h, kv, xkv = block(h, _layer(params["decoder"], i))
@@ -173,45 +194,53 @@ def _decode(params: Tree, batch, cfg: ModelConfig, collect_cache: bool):
     return h, {"self": _stack(selfs), "cross": _stack(crosses)}
 
 
-def forward(params, batch, cfg: ModelConfig) -> torch.Tensor:
+def forward(params, batch, cfg: ModelConfig, *,
+            rules: ShardingRules = TRAIN_RULES, mesh=None) -> torch.Tensor:
     """batch: ``{"src_embeds": [B, S_src, D], "tokens": [B, S_tgt]}``;
     returns the logits ``[B, S_tgt, V]``."""
     params = params.tree() if isinstance(params, LM) else params
-    h, _ = _decode(params, batch, cfg, collect_cache=False)
-    return logits_from_hidden(params["embed"], h, cfg)
+    h, _ = _decode(params, batch, cfg, False, rules, mesh)
+    logits = logits_from_hidden(params["embed"], h, cfg)
+    return constrain(logits, ("batch", None, "vocab"), rules, mesh)
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
+def loss_fn(params, batch, cfg: ModelConfig, *,
+            rules: ShardingRules = TRAIN_RULES, mesh=None):
     """Mean next-token CE of ``batch["labels"]`` over the target, on the
     blockwise attention whatever ``cfg.use_pallas`` says; returns ``(loss,
     {"ce": loss, "aux": 0})``.  ``params`` is an ``LM`` or its tree."""
     params = params.tree() if isinstance(params, LM) else params
     cfg = dataclasses.replace(cfg, use_pallas=False)
-    h, _ = _decode(params, batch, cfg, collect_cache=False)
-    loss = chunked_lm_loss(params["embed"], h, batch["labels"], cfg)
+    h, _ = _decode(params, batch, cfg, False, rules, mesh)
+    labels = constrain(batch["labels"], ("batch", None), rules, mesh)
+    loss = chunked_lm_loss(params["embed"], h, labels, cfg, rules, mesh)
     return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
                                                  device=h.device)}
 
 
 @torch.no_grad()
-def prefill(params: LM, batch, cfg: ModelConfig):
+def prefill(params: LM, batch, cfg: ModelConfig, *,
+            rules: ShardingRules = TRAIN_RULES, mesh=None):
     """Encode the source and run the target prompt: the last position's
     logits ``[B, V]`` and the decode cache (``self``: the prompt's K/V;
     ``cross``: the cross-attention's K/V of the encoder's output)."""
-    params = params.tree()
-    h, cache = _decode(params, batch, cfg, collect_cache=True)
-    return logits_from_hidden(params["embed"], h[:, -1:], cfg)[:, 0], cache
+    params = params.tree() if isinstance(params, LM) else params
+    h, cache = _decode(params, batch, cfg, True, rules, mesh)
+    logits = logits_from_hidden(params["embed"], h[:, -1:], cfg)[:, 0]
+    return constrain(logits, ("batch", "vocab"), rules, mesh), cache
 
 
 @torch.no_grad()
 def decode_step(params: LM, tokens: torch.Tensor, pos: int, cache: Tree,
-                cfg: ModelConfig):
+                cfg: ModelConfig, *, rules: ShardingRules = TRAIN_RULES,
+                mesh=None):
     """One decoder token at position ``pos``; ``cache``: the
     ``cache_defs`` tree, its ``self`` K/V written in place at ``pos``, its
     ``cross`` K/V read whole.  Returns ``(logits [B, V], cache)``."""
-    params = params.tree()
-    h = embed_tokens(params["embed"], tokens[:, None], cfg)
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)
+    params = params.tree() if isinstance(params, LM) else params
+    h = _tokens(params, tokens[:, None], cfg)
+    positions = like(torch.full((1, 1), pos, dtype=torch.int32,
+                                device=h.device), h)
     sc, xc = cache["self"], cache["cross"]
     for i in range(cfg.n_layers):
         lp = _layer(params["decoder"], i)
@@ -229,4 +258,5 @@ def decode_step(params: LM, tokens: torch.Tensor, pos: int, cache: Tree,
         m = apply_norm(lp["ln2"], h, cfg)
         h = h + apply_mlp(lp["mlp"], m, cfg)
     h = apply_norm(params["final_norm"], h, cfg)
-    return logits_from_hidden(params["embed"], h, cfg)[:, 0], cache
+    logits = logits_from_hidden(params["embed"], h, cfg)[:, 0]
+    return constrain(logits, ("act_batch", "vocab"), rules, mesh), cache

@@ -21,7 +21,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.sharding.rules import (
+    ParamDef, constrain, gather_inner, like, mesh_of,
+)
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -38,6 +40,31 @@ def checkpointed(fn, *args, context_fn=None):
     return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
+class _WholeGrad(torch.autograd.Function):
+    """The identity, whose gradient comes back with its inner dims whole
+    (``gather_inner``)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_inner(g)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` over ``x``'s last dim.  Under a mesh ``x``'s inner dims
+    (the sequence) are gathered first, and so is the gradient that comes
+    back to the product's output: the product flattens ``[B, S]`` into
+    rows, which DTensor's view rule takes only with ``S`` whole, and a
+    sequence-parallel layout (``act_seq``) hands the backward pass a
+    gradient sharded along ``S``."""
+    if mesh_of(x) is None:
+        return x @ w
+    return _WholeGrad.apply(gather_inner(x) @ w)
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -52,6 +79,8 @@ def norm_defs(cfg: ModelConfig, layers: tuple[int, ...] = ()):
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig, eps: float = 1e-5) -> torch.Tensor:
+    """The norm of ``x``'s last dim; under a mesh its output has the
+    sequence whole (``gather_inner``: it enters the layer's products)."""
     xf = x.float()
     if cfg.norm == "rmsnorm":
         xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
@@ -61,7 +90,7 @@ def apply_norm(p, x: torch.Tensor, cfg: ModelConfig, eps: float = 1e-5) -> torch
         var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
         out = (xf - mu) * torch.rsqrt(var + eps)
         out = out * p["scale"].float() + p["bias"].float()
-    return out.to(x.dtype)
+    return gather_inner(out.to(x.dtype))
 
 
 def rms_norm_simple(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -88,12 +117,12 @@ def mlp_defs(cfg: ModelConfig, layers: tuple[int, ...] = (), d_ff: int | None = 
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
-    h = x @ p["wi"].to(dt)
+    h = mm(x, p["wi"].to(dt))
     if cfg.act == "swiglu":
-        h = F.silu(x @ p["wg"].to(dt)) * h
+        h = F.silu(mm(x, p["wg"].to(dt))) * h
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
-    return h @ p["wo"].to(dt)
+    return mm(h, p["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +142,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig) -> to
                           device=x.device)
     if rot == 0:
         return x
-    ang = positions[..., :, None].float() * inv            # [..., S, rot/2]
+    # [..., S, rot/2]
+    ang = positions[..., :, None].float() * like(inv, positions)
     sin = torch.sin(ang)[..., None, :]
     cos = torch.cos(ang)[..., None, :]
     xr, xp = x[..., :rot], x[..., rot:]
@@ -141,14 +171,23 @@ def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # tokens in a fixed order, where indexing's (an accumulating index_put_)
     # adds them with atomics, so a replayed training step would not repeat
     # its embedding gradient bit for bit.
-    return F.embedding(tokens, p["tok"]).to(compute_dtype(cfg))
+    h = F.embedding(tokens, p["tok"])
+    mesh = mesh_of(h)
+    if mesh is not None:
+        # a vocab-sharded lookup leaves masked partial rows, which the
+        # next op (a norm, a concat) cannot take: summed here, exactly
+        # (one rank holds each row)
+        from torch.distributed.tensor import Replicate
+        h = h.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                  for q in h.placements])
+    return h.to(compute_dtype(cfg))
 
 
 def logits_from_hidden(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     if cfg.tie_embeddings:
-        return x @ p["tok"].to(dt).T
-    return x @ p["unembed"].to(dt)
+        return mm(x, p["tok"].to(dt).T)
+    return mm(x, p["unembed"].to(dt))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -163,13 +202,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
-def _chunk_nll(embed_p, cfg, hc, lc):
+def _chunk_nll(embed_p, cfg, hc, lc, rules, mesh):
     """(sum of the chunk's NLL, its count of labels >= 0)."""
-    lf = logits_from_hidden(embed_p, hc, cfg).float()     # [B, chunk, V]
-    lse = torch.logsumexp(lf, dim=-1)                     # [B, chunk]
+    logits = logits_from_hidden(embed_p, hc, cfg)
+    lf = constrain(logits, ("batch", None, "vocab"), rules, mesh).float()
+    if mesh is None:
+        lse = torch.logsumexp(lf, dim=-1)                 # [B, chunk]
+    else:
+        # the log-sum-exp over a vocab sharded over ranks, from the max
+        # and sum reductions DTensor shards (it has no logsumexp rule)
+        top = torch.amax(lf, dim=-1).detach()
+        lse = top + torch.log(torch.sum(torch.exp(lf - top[..., None]),
+                                        dim=-1))
     # the gold logit by a select over the vocab, as the reference takes it
     # (its gradient is the reference's; a gather's would scatter)
-    iota = torch.arange(lf.shape[-1], device=lf.device)
+    iota = like(torch.arange(lf.shape[-1], device=lf.device), lf)
     gold = torch.sum(torch.where(iota == lc[..., None], lf, 0.0), dim=-1)
     valid = (lc >= 0).float()
     nll = (lse - gold) * valid
@@ -177,13 +224,16 @@ def _chunk_nll(embed_p, cfg, hc, lc):
 
 
 def chunked_lm_loss(embed_p, h: torch.Tensor, labels: torch.Tensor,
-                    cfg: ModelConfig, *, chunk: int = 1024) -> torch.Tensor:
+                    cfg: ModelConfig, rules=None, mesh=None, *,
+                    chunk: int = 1024) -> torch.Tensor:
     """Fused unembed + CE over sequence chunks: mean NLL of the labels >= 0.
 
     Never materializes the [B, S, V] logits: per chunk the [B, chunk, V]
     logits are computed, reduced to (lse, gold) and dropped, and the
     backward pass recomputes them chunk by chunk.  The sequence is padded
-    to a chunk multiple with label -1, which counts nowhere.
+    to a chunk multiple with label -1, which counts nowhere.  Under a mesh
+    each chunk's logits are laid out by ``rules`` (the vocab on ``model``
+    under the training rules: the log-sum-exp reduces over the shards).
     """
     B, S, D = h.shape
     chunk = min(chunk, S)
@@ -191,11 +241,11 @@ def chunked_lm_loss(embed_p, h: torch.Tensor, labels: torch.Tensor,
     if pad:
         h = F.pad(h, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    total = like(torch.zeros((), dtype=torch.float32, device=h.device), h)
+    count = like(torch.zeros((), dtype=torch.float32, device=h.device), h)
     for c0 in range(0, S + pad, chunk):
         nll, n = checkpointed(
-            lambda hc, lc: _chunk_nll(embed_p, cfg, hc, lc),
+            lambda hc, lc: _chunk_nll(embed_p, cfg, hc, lc, rules, mesh),
             h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
         total, count = total + nll, count + n
     return total / torch.clamp(count, min=1.0)

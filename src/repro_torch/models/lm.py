@@ -53,9 +53,12 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, apply_rope, checkpointed, chunked_lm_loss,
     compute_dtype, embed_defs, embed_tokens, logits_from_hidden, mlp_defs,
-    norm_defs, rms_norm_simple,
+    mm, norm_defs, rms_norm_simple,
 )
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.sharding.rules import (
+    TRAIN_RULES, ParamDef, ShardingRules, constrain, from_local_as, like,
+    local, mesh_of,
+)
 
 Tree = Dict[str, Any]
 
@@ -225,12 +228,12 @@ def _layer(tree: Tree, i: int) -> Tree:
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matrix product."""
-    y = x @ w.reshape(w.shape[0], -1).to(x.dtype)
+    y = mm(x, w.reshape(w.shape[0], -1).to(x.dtype))
     return y.unflatten(-1, w.shape[1:])
 
 
-def _attention_sublayer(cfg, p, h, positions, *, cache=None, pos=None,
-                        window):
+def _attention_sublayer(cfg, p, h, positions, rules, mesh, *, cache=None,
+                        pos=None, window):
     dt = h.dtype
     B, S, D = h.shape
     pa = p["attn"]
@@ -241,6 +244,8 @@ def _attention_sublayer(cfg, p, h, positions, *, cache=None, pos=None,
         k = rms_norm_simple(k) * pa["k_norm"].to(dt)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
+    q = constrain(q, ("batch", None, "heads", None), rules, mesh)
+    k = constrain(k, ("batch", None, "kv", None), rules, mesh)
 
     if cache is None:
         o = attn.attend(cfg, q, k, v, causal=True, window=window)
@@ -259,26 +264,30 @@ def _attention_sublayer(cfg, p, h, positions, *, cache=None, pos=None,
         else:
             o = attn.decode_attention(q, ck, cv, pos=pos, window=window)
         new_cache = cache
-    o = o.reshape(B, S, -1) @ pa["wo"].reshape(-1, D).to(dt)
+    o = mm(o.reshape(B, S, -1), pa["wo"].reshape(-1, D).to(dt))
+    o = constrain(o, ("act_batch", "act_seq", "act_embed"), rules, mesh)
     return h + o, new_cache
 
 
-def _block(cfg, p, h, positions, *, cache=None, pos=None):
+def _block(cfg, p, h, positions, rules, mesh, *, cache=None, pos=None):
     """One transformer layer (dense, moe, and hybrid's shared block);
     returns (h, the layer's K/V or its updated cache, the layer's aux:
     the moe balance loss, else 0)."""
     h, new_cache = _attention_sublayer(
-        cfg, p, h, positions, cache=cache, pos=pos, window=cfg.window)
+        cfg, p, h, positions, rules, mesh, cache=cache, pos=pos,
+        window=cfg.window)
     m = apply_norm(p["ln2"], h, cfg)
     if "moe" in p:
-        y, aux = moe_mod.apply_moe(p["moe"], m, cfg)
+        y, aux = moe_mod.apply_moe(p["moe"], m, cfg, rules, mesh)
     else:
         y = apply_mlp(p["mlp"], m, cfg)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h + y, new_cache, aux
+    y = constrain(y, ("act_batch", "act_seq", "act_embed"), rules, mesh)
+    h = constrain(h + y, ("act_batch", "act_seq", "act_embed"), rules, mesh)
+    return h, new_cache, aux
 
 
-def _rwkv_block(cfg, p, h, *, cache=None):
+def _rwkv_block(cfg, p, h, rules, mesh, *, cache=None):
     """One rwkv layer; returns (h, the layer's cache after it)."""
     a = apply_norm(p["ln1"], h, cfg)
     y, c_att = rwkv_mod.apply_time_mix(p["time_mix"], a, cfg, cache=cache)
@@ -286,7 +295,8 @@ def _rwkv_block(cfg, p, h, *, cache=None):
     m = apply_norm(p["ln2"], h, cfg)
     y, c_ffn = rwkv_mod.apply_channel_mix(p["channel_mix"], m, cfg,
                                           cache=cache)
-    return h + y, {**c_att, **c_ffn}
+    h = constrain(h + y, ("act_batch", "act_seq", "act_embed"), rules, mesh)
+    return h, {**c_att, **c_ffn}
 
 
 # ---------------------------------------------------------------------------
@@ -323,31 +333,50 @@ def _stack(caches: list) -> Tree:
             else torch.stack([c[n] for c in caches]) for n in caches[0]}
 
 
-def _stack_forward(cfg, params, h, positions, collect_cache: bool):
+def _stack_forward(cfg, params, h, positions, rules, mesh,
+                   collect_cache: bool):
     """The layers in turn, each under :func:`_maybe_remat`; returns (h,
     cache tree or None, the layers' aux summed)."""
     def layer(h, lp):
         if cfg.family == "rwkv":
-            h, c = _rwkv_block(cfg, lp, h)
+            h, c = _rwkv_block(cfg, lp, h, rules, mesh)
             return h, c, torch.zeros((), dtype=torch.float32, device=h.device)
-        return _block(cfg, lp, h, positions)
+        return _block(cfg, lp, h, positions, rules, mesh)
 
     layer = _maybe_remat(cfg, layer)
-    cache = None
+    cache = kv = None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         h, kv, a = layer(h, _layer(params["blocks"], i))
         aux = aux + a
         if collect_cache:
+            # each layer written into [L, ...] local shards as it comes (a
+            # DTensor's own new_empty would be replicated on every rank)
             if cache is None:
-                cache = {n: t.new_empty((cfg.n_layers,) + t.shape)
+                cache = {n: local(t).new_empty((cfg.n_layers,)
+                                               + local(t).shape)
                          for n, t in kv.items()}
             for n, t in kv.items():
-                cache[n][i] = t
+                cache[n][i] = local(t)
+    if cache is not None:
+        cache = {n: _stacked_like(c, kv[n]) for n, c in cache.items()}
     return h, cache, aux
 
 
-def _hybrid_forward(cfg, params, h, positions, collect_cache: bool):
+def _stacked_like(c: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A rank's ``[L, ...]`` cache shard ``c`` in the layout of its
+    layers' tensor ``t``: a DTensor of ``t``'s placements one dim on, or
+    ``c`` itself."""
+    mesh = mesh_of(t)
+    if mesh is None:
+        return c
+    from torch.distributed.tensor import Shard
+    place = [Shard(p.dim + 1) if p.is_shard() else p for p in t.placements]
+    return from_local_as(c, mesh, place, (c.shape[0],) + t.shape)
+
+
+def _hybrid_forward(cfg, params, h, positions, rules, mesh,
+                    collect_cache: bool):
     """Each group's ``attn_every`` Mamba2 layers, each added to the
     residual with no norm in front (as the reference), then the shared
     block; each group under :func:`_maybe_remat`.  Returns (h, the decode
@@ -358,9 +387,10 @@ def _hybrid_forward(cfg, params, h, positions, collect_cache: bool):
         ssm = []
         for j in range(cfg.attn_every):
             o, c = ssm_mod.apply_ssm(_layer(gp, j), h, cfg)
-            h = h + o
+            h = constrain(h + o, ("act_batch", "act_seq", "act_embed"),
+                          rules, mesh)
             ssm.append(c)
-        h, kv, a = _block(cfg, shared, h, positions)
+        h, kv, a = _block(cfg, shared, h, positions, rules, mesh)
         return h, ((kv, _stack(ssm)) if collect_cache else None), a
 
     group = _maybe_remat(cfg, group)
@@ -376,58 +406,76 @@ def _hybrid_forward(cfg, params, h, positions, collect_cache: bool):
     return h, {"attn": kv, **ssm}, aux
 
 
-def _embed_inputs(cfg, params, batch):
+def _embed_inputs(cfg, params, batch, rules, mesh):
     """Token embedding, for vlm behind the projected ``batch["patches"]``
     ``[B, n_front, D]`` where the batch has them; returns (h, positions,
-    n_front)."""
-    h = embed_tokens(params["embed"], batch["tokens"], cfg)
+    n_front).  Under a mesh the tokens and positions join it replicated
+    (DTensor's vocab-sharded lookup mis-sizes its mask when the ids are
+    sharded over another mesh dim), and the embeddings go to their ranks."""
+    tokens = like(batch["tokens"], params["embed"]["tok"])
+    h = embed_tokens(params["embed"], tokens, cfg)
     n_front = 0
     if cfg.family == "vlm" and "patches" in batch:
         dt = h.dtype
-        pat = batch["patches"].to(dt) @ params["frontend_proj"].to(dt)
+        patches = constrain(batch["patches"], ("batch", None, None), rules,
+                            mesh)
+        pat = mm(patches.to(dt), params["frontend_proj"].to(dt))
         h = torch.cat([pat, h], dim=1)
         n_front = pat.shape[1]
-    positions = torch.arange(h.shape[1], dtype=torch.int32,
-                             device=h.device)[None, :]
+    positions = like(torch.arange(h.shape[1], dtype=torch.int32,
+                                  device=h.device)[None, :], h)
+    h = constrain(h, ("act_batch", "act_seq", "act_embed"), rules, mesh)
     return h, positions, n_front
 
 
-def _backbone(params, batch, cfg: ModelConfig, *, collect_cache):
+def _backbone(params, batch, cfg: ModelConfig, *, rules, mesh,
+              collect_cache):
     """Embed + blocks + final norm; returns (h of the text positions,
     cache, aux).  A vlm cache covers the patches' positions too."""
     _require_family(cfg)
-    h, positions, n_front = _embed_inputs(cfg, params, batch)
+    h, positions, n_front = _embed_inputs(cfg, params, batch, rules, mesh)
     fwd = _hybrid_forward if cfg.family == "hybrid" else _stack_forward
-    h, cache, aux = fwd(cfg, params, h, positions, collect_cache)
+    h, cache, aux = fwd(cfg, params, h, positions, rules, mesh,
+                        collect_cache)
     h = apply_norm(params["final_norm"], h, cfg)
-    return h[:, n_front:], cache, aux
+    return (h[:, n_front:] if n_front else h), cache, aux
 
 
-def forward(params: LM, batch, cfg: ModelConfig, *, collect_cache=False,
-            last_only: bool = False):
+def forward(params: LM, batch, cfg: ModelConfig, *,
+            rules: ShardingRules = TRAIN_RULES, mesh=None,
+            collect_cache=False, last_only: bool = False):
     """Full-sequence forward.  Returns (logits, cache or None).
 
     ``last_only`` computes logits for the final position only (prefill never
-    pays the [B, S, V] unembed).
+    pays the [B, S, V] unembed).  Under ``mesh`` (a ``DeviceMesh``) the
+    parameters are DTensors laid out by ``rules`` (``ModelAPI.param_specs``)
+    and so are the logits and the cache.
     """
-    params = params.tree()
-    h, cache, _ = _backbone(params, batch, cfg, collect_cache=collect_cache)
+    params = params.tree() if isinstance(params, LM) else params
+    h, cache, _ = _backbone(params, batch, cfg, rules=rules, mesh=mesh,
+                            collect_cache=collect_cache)
     if last_only:
         h = h[:, -1:]
-    return logits_from_hidden(params["embed"], h, cfg), cache
+    logits = logits_from_hidden(params["embed"], h, cfg)
+    return constrain(logits, ("batch", None, "vocab"), rules, mesh), cache
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
+def loss_fn(params, batch, cfg: ModelConfig, *,
+            rules: ShardingRules = TRAIN_RULES, mesh=None):
     """Mean next-token CE of ``batch["labels"]`` (``chunked_lm_loss``).
     Returns ``(loss + 0.01 * aux, {"ce", "aux"})``, where ``aux`` is the
     moe layers' balance loss summed over the layers (0 for the other
     families).
 
     ``params`` is an ``LM`` or its tree, whose stacked layer leaves may be
-    sequences of per-layer tensors."""
+    sequences of per-layer tensors.  Under ``mesh`` the batch is the full
+    batch on every rank (each rank takes its rows) and the loss a
+    replicated DTensor."""
     params = params.tree() if isinstance(params, LM) else params
-    h, _, aux = _backbone(params, batch, cfg, collect_cache=False)
-    loss = chunked_lm_loss(params["embed"], h, batch["labels"], cfg)
+    h, _, aux = _backbone(params, batch, cfg, rules=rules, mesh=mesh,
+                          collect_cache=False)
+    labels = constrain(batch["labels"], ("batch", None), rules, mesh)
+    loss = chunked_lm_loss(params["embed"], h, labels, cfg, rules, mesh)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -436,7 +484,8 @@ def loss_fn(params, batch, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def prefill(params: LM, batch, cfg: ModelConfig):
+def prefill(params: LM, batch, cfg: ModelConfig, *,
+            rules: ShardingRules = TRAIN_RULES, mesh=None):
     """Process a full prompt; emit last-position logits and a cache.
 
     Dense, moe and vlm: the per-layer K/V of every prompt position,
@@ -451,20 +500,25 @@ def prefill(params: LM, batch, cfg: ModelConfig):
     JAX package's ``prefill`` returns no cache for rwkv and only the K/V
     for hybrid; its ``serve_batch`` builds the cache through decode steps
     instead.)"""
-    logits, cache = forward(params, batch, cfg, collect_cache=True,
-                            last_only=True)
+    logits, cache = forward(params, batch, cfg, rules=rules, mesh=mesh,
+                            collect_cache=True, last_only=True)
     return logits[:, -1], cache
 
 
 @torch.no_grad()
 def decode_step(params: LM, tokens: torch.Tensor, pos: int, cache: Tree,
-                cfg: ModelConfig):
+                cfg: ModelConfig, *, rules: ShardingRules = TRAIN_RULES,
+                mesh=None):
     """One decode step.  tokens: [B] ints; pos: the position they take;
-    cache: the ``cache_defs`` tree, updated in place and returned."""
+    cache: the ``cache_defs`` tree, updated in place and returned (under
+    ``mesh``, prefill's DTensor cache)."""
     _require_family(cfg)
-    params = params.tree()
+    params = params.tree() if isinstance(params, LM) else params
+    tokens = like(tokens, params["embed"]["tok"])    # as _embed_inputs
     h = embed_tokens(params["embed"], tokens[:, None], cfg)
-    positions = torch.full((1, 1), pos, dtype=torch.int32, device=h.device)
+    h = constrain(h, ("act_batch", None, "act_embed"), rules, mesh)
+    positions = like(torch.full((1, 1), pos, dtype=torch.int32,
+                                device=h.device), h)
     if cfg.family == "hybrid":
         kv = cache["attn"]
         for g in range(_groups(cfg)):
@@ -477,17 +531,20 @@ def decode_step(params: LM, tokens: torch.Tensor, pos: int, cache: Tree,
                 for n, t in new.items():  # in place, as the K/V
                     cache[n][g, j] = t
             h, _, _ = _block(cfg, params["shared_attn"], h, positions,
+                             rules, mesh,
                              cache={n: t[g] for n, t in kv.items()}, pos=pos)
     else:
         for i in range(cfg.n_layers):
             lp = _layer(params["blocks"], i)
             layer_cache = {n: t[i] for n, t in cache.items()}
             if cfg.family == "rwkv":
-                h, new = _rwkv_block(cfg, lp, h, cache=layer_cache)
+                h, new = _rwkv_block(cfg, lp, h, rules, mesh,
+                                     cache=layer_cache)
                 for n, t in new.items():      # in place, as the dense K/V
                     cache[n][i] = t
             else:
-                h, _, _ = _block(cfg, lp, h, positions, cache=layer_cache,
-                                 pos=pos)
+                h, _, _ = _block(cfg, lp, h, positions, rules, mesh,
+                                 cache=layer_cache, pos=pos)
     h = apply_norm(params["final_norm"], h, cfg)
-    return logits_from_hidden(params["embed"], h, cfg)[:, 0], cache
+    logits = logits_from_hidden(params["embed"], h, cfg)[:, 0]
+    return constrain(logits, ("act_batch", "vocab"), rules, mesh), cache

@@ -32,7 +32,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_mlp, mlp_defs
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.sharding.rules import (
+    ParamDef, constrain, from_local_as, mesh_of, to_local_as,
+)
 
 GROUP_MAX = 1024          # the longest dispatch group before it is halved
 
@@ -134,19 +136,64 @@ def dispatch_slots(gate_idx: torch.Tensor, nG: int, C: int, E: int):
     return torch.where(kept, ef * C + pos, E * C), kept
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ModelConfig
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, rules=None, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, D] -> (y [B, S, D], aux_loss f32 scalar)."""
+    """x: [B, S, D] -> (y [B, S, D], aux_loss f32 scalar).
+
+    Under a mesh (DTensor ``x``) the expert weights are laid out by
+    ``rules`` (``moe_wD``: gathered over data under the training rules),
+    then the routing, the capacity-bounded dispatch and the expert products
+    run on each rank's batch rows with the weights gathered whole (a row's
+    groups never cross ranks, so each row keeps the ``mesh=None``
+    grouping and drops); the balance loss averages over every row."""
+    E = cfg.n_experts
+    if mesh_of(x) is None:
+        y, probs, top1 = _dispatch(p, x, cfg)
+    else:
+        y, probs, top1 = _dispatch_rows(p, x, cfg, rules, mesh)
+    # Switch-style aux loss: E * sum_e f_e * p_e
+    me = probs.mean(dim=(0, 1))
+    ce = top1.mean(dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+    if cfg.n_shared_experts:
+        y = y + apply_mlp(p["shared"], x, cfg)
+    return y, aux
+
+
+def _dispatch_rows(p, x, cfg, rules, mesh):
+    """:func:`_dispatch` on each rank's batch rows (the mesh dims that
+    shard ``x``'s dim 0; every other dim gathered), the weights whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    dt = x.dtype
+    weights = {"router": p["router"]}
+    for n, axes in (("wi", ("experts", "moe_wD", "mlp")),
+                    ("wg", ("experts", "moe_wD", "mlp")),
+                    ("wo", ("experts", "mlp", "moe_wD"))):
+        weights[n] = constrain(p[n].to(dt), axes, rules, mesh)
+    whole = [Replicate()] * mesh.ndim
+    rows = [Shard(0) if q.is_shard(0) else Replicate() for q in x.placements]
+    split = [q.is_shard() for q in rows]
+    y, probs, top1 = _dispatch(
+        {n: to_local_as(w, mesh, whole, split) for n, w in weights.items()},
+        to_local_as(x, mesh, rows, split), cfg)
+    B, S, _ = x.shape
+    E = cfg.n_experts
+    y = from_local_as(y, mesh, rows, x.shape)
+    y = constrain(y, ("act_batch", "act_seq", "act_embed"), rules, mesh)
+    return (y, from_local_as(probs, mesh, rows, (B, S, E)),
+            from_local_as(top1, mesh, rows, (B, S, E)))
+
+
+def _dispatch(p, x: torch.Tensor, cfg: ModelConfig):
+    """The routed experts' output ``y`` [B, S, D] (no shared expert), the
+    router probabilities [B, S, E] and each token's top-1 expert one-hot
+    (f32), the two terms of the balance loss."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     dt = x.dtype
     probs, gate_val, gate_idx, margin = route(
         p, x, cfg, None if _FORCE is None else _FORCE.pop(0))
-
-    # Switch-style aux loss: E * sum_e f_e * p_e
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * torch.sum(me * ce)
+    top1 = F.one_hot(gate_idx[..., 0], E).float()
 
     nG = n_groups(S)
     S_g = S // nG
@@ -172,7 +219,4 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig
     picked = torch.gather(yy, 1, slot[..., None].expand(R, T, D))
     picked = picked * gate_val.reshape(R, T, 1).to(dt)
     y = picked.reshape(R, S_g, K, D).sum(dim=2).reshape(B, S, D)
-
-    if cfg.n_shared_experts:
-        y = y + apply_mlp(p["shared"], x, cfg)
-    return y, aux
+    return y, probs, top1

@@ -31,8 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.linattn_scan.ops import linattn
-from repro_torch.models.layers import checkpointed, rms_norm_simple
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.models.layers import checkpointed, mm, rms_norm_simple
+from repro_torch.sharding.rules import ParamDef, on_local_heads
 
 LORA_R = 64
 HEAD = 64     # head width of the recurrence (the JAX package's hd = 64)
@@ -139,6 +139,18 @@ def wkv_step(r, k, v, logw, u, state):
     return y.to(r.dtype), state
 
 
+def _wkv(cfg: ModelConfig, r, k, v, logw, u):
+    """The whole sequence's WKV: the kernel under ``cfg.use_pallas``, else
+    ``wkv_chunked``; (y [B, S, H, K], state [B, H, K, K])."""
+    if cfg.use_pallas:
+        # [B, H, S, K] views of the [B, S, H, K] tensors: the kernel reads
+        # them in place and writes y in r's layout, so y's view is contiguous
+        y, state = linattn(*(a.transpose(1, 2) for a in (r, k, v, logw)), u,
+                           chunk=cfg.rwkv_chunk, return_state=True)
+        return y.transpose(1, 2), state
+    return wkv_chunked(r, k, v, logw, u, cfg.rwkv_chunk)
+
+
 def apply_time_mix(
     p, x: torch.Tensor, cfg: ModelConfig,
     *, cache: Optional[dict] = None,
@@ -152,11 +164,11 @@ def apply_time_mix(
     z, last = _token_shift(x, None if cache is None else cache["shift_att"])
     mu = p["mu"].to(dt)
     xr, xk, xv, xg, xw = (_mix(x, z, mu[i]) for i in range(5))
-    r = (xr @ p["wr"].to(dt)).reshape(B, S, H, HEAD)
-    k = (xk @ p["wk"].to(dt)).reshape(B, S, H, HEAD)
-    v = (xv @ p["wv"].to(dt)).reshape(B, S, H, HEAD)
-    g = xg @ p["wg"].to(dt)
-    lora = torch.tanh(xw.float()) @ p["wa"].float() @ p["wb"].float()
+    r = mm(xr, p["wr"].to(dt)).reshape(B, S, H, HEAD)
+    k = mm(xk, p["wk"].to(dt)).reshape(B, S, H, HEAD)
+    v = mm(xv, p["wv"].to(dt)).reshape(B, S, H, HEAD)
+    g = mm(xg, p["wg"].to(dt))
+    lora = mm(mm(torch.tanh(xw.float()), p["wa"].float()), p["wb"].float())
     logw = -torch.exp(p["w0"].float()[None, None] + lora)   # < 0
     logw = logw.reshape(B, S, H, HEAD)
     u = p["u"].float().reshape(H, HEAD)
@@ -165,18 +177,16 @@ def apply_time_mix(
         y, state = wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u,
                             cache["wkv"])
         y = y[:, None]
-    elif cfg.use_pallas:
-        # [B, H, S, K] views of the [B, S, H, K] tensors: the kernel reads
-        # them in place and writes y in r's layout, so y's view is contiguous
-        y, state = linattn(*(a.transpose(1, 2) for a in (r, k, v, logw)), u,
-                           chunk=cfg.rwkv_chunk, return_state=True)
-        y = y.transpose(1, 2)
     else:
-        y, state = wkv_chunked(r, k, v, logw, u, cfg.rwkv_chunk)
+        # the state [B, H, K, K]; u [H, K] split with the heads
+        y, state = on_local_heads(
+            lambda *a: _wkv(cfg, *a), (r, k, v, logw, u),
+            ((0, 2),) * 4 + ((None, 0),),
+            (((0, 2), r.shape), ((0, 1), (B, H, HEAD, HEAD))), (H,))
 
     y = rms_norm_simple(y.reshape(B, S, D)) * p["ln_scale"].to(dt)
     y = y * F.silu(g)
-    return y @ p["wo"].to(dt), {"wkv": state, "shift_att": last}
+    return mm(y, p["wo"].to(dt)), {"wkv": state, "shift_att": last}
 
 
 def apply_channel_mix(
@@ -189,9 +199,9 @@ def apply_channel_mix(
     z, last = _token_shift(x, None if cache is None else cache["shift_ffn"])
     mu = p["mu"].to(dt)
     xk, xr = _mix(x, z, mu[0]), _mix(x, z, mu[1])
-    k = torch.square(torch.relu(xk @ p["wk"].to(dt)))
-    kv = k @ p["wv"].to(dt)
-    r = torch.sigmoid(xr @ p["wr"].to(dt))
+    k = torch.square(torch.relu(mm(xk, p["wk"].to(dt))))
+    kv = mm(k, p["wv"].to(dt))
+    r = torch.sigmoid(mm(xr, p["wr"].to(dt)))
     return r * kv, {"shift_ffn": last}
 
 

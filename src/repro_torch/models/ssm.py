@@ -27,8 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import rms_norm_simple
-from repro_torch.sharding.rules import ParamDef
+from repro_torch.models.layers import mm, rms_norm_simple
+from repro_torch.sharding.rules import ParamDef, on_local_heads
 
 CONV_K = 4  # depthwise causal conv width (mamba2 default)
 
@@ -124,7 +124,7 @@ def scan_inputs(p, x: torch.Tensor, cfg: ModelConfig,
     B, S, D = x.shape
     H, P, N, DI = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
     dt_f = x.dtype
-    proj = x @ p["w_in"].to(dt_f)
+    proj = mm(x, p["w_in"].to(dt_f))
     z, xBC, dt_raw = _split_proj(cfg, proj)
     xBC, conv_state = _causal_conv(
         xBC, p["conv_w"].to(dt_f), p["conv_b"].to(dt_f), conv_state)
@@ -145,7 +145,15 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, *,
         p, x, cfg, None if cache is None else cache["conv"])
 
     if cache is None:
-        y, st = _ssd_chunked(xin, dt.to(dt_f), A, Bm, Cm, cfg.ssm_chunk)
+        # dt and A split with the heads, Bm and Cm shared by them; the
+        # state [B, H, P, N]
+        y, st = on_local_heads(
+            lambda *a: _ssd_chunked(*a, cfg.ssm_chunk),
+            (xin, dt.to(dt_f), A, Bm, Cm),
+            ((0, 2), (0, 2), (None, 0), (0, None), (0, None)),
+            (((0, 2), xin.shape),
+             ((0, 1), xin.shape[:1] + xin.shape[2:] + Bm.shape[-1:])),
+            (xin.shape[2],))
     else:
         st = cache["ssm_state"]                            # [B, H, P, N]
         a = torch.exp(dt[:, 0] * A)                        # [B, H]
@@ -157,7 +165,7 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig, *,
     y = y + xin * p["D_skip"].to(dt_f)[:, None]
     y = y.reshape(B, S, cfg.d_inner)
     y = rms_norm_simple(y * F.silu(z)) * p["norm_scale"].to(dt_f)
-    return y @ p["w_out"].to(dt_f), {"ssm_state": st, "conv": conv_state}
+    return mm(y, p["w_out"].to(dt_f)), {"ssm_state": st, "conv": conv_state}
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device=None) -> dict:

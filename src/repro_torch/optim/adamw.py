@@ -13,6 +13,13 @@ leaf at a time and a slice of at most ``SLICE`` elements at a time: at
 full width (llama3.2-3b: 12.85 GB of f32 master weights, 51.4 GB with the
 gradients and both moments) a functional update of the whole tree, or one
 ``_foreach`` call over every leaf, would need the state twice over.
+
+Under a mesh the leaves are DTensors of one layout per parameter (the
+gradients redistributed to their parameter's placements first): the
+update runs elementwise on each rank's local shards, and the gradient norm
+sums each rank's local squares, each element counted once (a leaf
+replicated over ``n`` ranks adds ``1/n`` of its squares on each), then
+all-reduces the sum over the mesh.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.sharding.rules import (
+    all_reduce_mesh, local, mesh_of, replicas,
+)
 from repro_torch.tree import tree_leaves, tree_map
 
 SLICE = 1 << 24          # elements an update step touches at once (64 MB f32)
@@ -81,11 +91,15 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def global_norm(tree) -> torch.Tensor:
     """The f32 L2 norm of every leaf together, summed leaf by leaf in the
-    reference's order."""
-    total = 0
+    reference's order (under a mesh each rank's share, then all-reduced)."""
+    total, mesh = 0, None
     for x in tree_leaves(tree):
-        for s in _slices(x):
-            total = total + torch.sum(torch.square(s.float()))
+        mesh, n = mesh or mesh_of(x), replicas(x)
+        for s in _slices(local(x)):
+            sq = torch.sum(torch.square(s.float()))
+            total = total + (sq if n == 1 else sq / n)
+    if mesh is not None:
+        total = all_reduce_mesh(total, mesh)
     return torch.sqrt(total)
 
 
@@ -106,7 +120,7 @@ def adamw_update(
     bc2 = 1 - b2 ** step.float()
     for p, g, m, v in zip(*(tree_leaves(t) for t in (params, grads, state.m,
                                                        state.v))):
-        for ps, gs, ms, vs in zip(*map(_slices, (p, g, m, v))):
+        for ps, gs, ms, vs in zip(*(_slices(local(t)) for t in (p, g, m, v))):
             gf = gs.float() * scale
             ms.copy_(b1 * ms + (1 - b1) * gf)
             vs.copy_(b2 * vs + (1 - b2) * gf * gf)

@@ -10,16 +10,25 @@ applied where the reduction would be.
 
 Per leaf: ``g + residual`` is scaled by its largest magnitude over 127 and
 rounded half to even (``torch.round``, as ``jnp.round``), so the same
-inputs give the reference's int8 payload bit for bit.
+inputs give the reference's int8 payload bit for bit.  A first pass keeps
+only each leaf's largest magnitude and a second quantizes leaf by leaf, so
+no more than one leaf's f32 ``g + residual`` is alive at once.  Under a
+mesh (DTensor leaves) each rank quantizes its local shard with the leaf's
+scale, the largest magnitudes all-reduced between the passes (one
+collective for every leaf a mesh dim), so the payload equals the
+unsharded one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding.rules import (
+    all_reduce_mesh, from_local_as, local, mesh_of, replicas,
+)
 from repro_torch.tree import (
     tree_items, tree_leaves, tree_map, tree_map_with_path,
 )
@@ -35,9 +44,13 @@ def compression_init(params) -> CompressionState:
         lambda p: torch.zeros_like(p, dtype=torch.float32), params))
 
 
-def _quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(q int8, scale)`` with ``x ~ q * scale``, ``|q| <= 127``."""
-    absmax = torch.max(torch.abs(x))
+def _quantize_int8(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(q int8, scale)`` with ``x ~ q * scale``, ``|q| <= 127``;
+    ``absmax`` is the largest magnitude of the whole leaf ``x`` is a shard
+    of (by default ``x``'s own)."""
+    if absmax is None:
+        absmax = torch.max(torch.abs(x))
     scale = torch.clamp(absmax, min=1e-12) / torch.tensor(
         127.0, dtype=torch.float32, device=x.device)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
@@ -49,19 +62,49 @@ def compress_gradients(
     grads, state: CompressionState,
 ) -> Tuple[Any, CompressionState, dict]:
     """Returns (dequantized grads, new residual state, {"ef_l1"})."""
-    residual, new_residual = dict(tree_items(state.residual)), {}
+    residual = dict(tree_items(state.residual))
+    items = tree_items(grads)
 
-    def one(path, g):
-        gf = g.float() + residual[path]
-        q, scale = _quantize_int8(gf)
+    def gf(path, g):        # made again in each pass: one leaf's at a time
+        return local(g).float() + local(residual[path])
+
+    absmax = [torch.max(torch.abs(gf(path, g))) for path, g in items]
+    mesh = next((mesh_of(g) for _, g in items if mesh_of(g) is not None),
+                None)
+    if mesh is not None:
+        import torch.distributed as dist
+        absmax = all_reduce_mesh(torch.stack(absmax), mesh,
+                                 dist.ReduceOp.MAX).unbind()
+    new_grads, new_residual = {}, {}
+    for (path, g), m in zip(items, absmax):
+        x = gf(path, g)
+        q, scale = _quantize_int8(x, m)
         deq = q.float() * scale
-        new_residual[path] = gf - deq
-        return deq.to(g.dtype)
+        new_residual[path] = _like_leaf(x - deq, g)
+        new_grads[path] = _like_leaf(deq.to(g.dtype), g)
 
-    newg = tree_map_with_path(one, grads)
+    newg = tree_map_with_path(lambda path, _: new_grads[path], grads)
     newr = tree_map_with_path(lambda path, _: new_residual[path], grads)
-    err = sum(torch.sum(torch.abs(r)) for r in tree_leaves(newr))
+    err = sum(_share(torch.sum(torch.abs(local(r))), r)
+              for r in tree_leaves(newr))
+    if mesh is not None:
+        err = all_reduce_mesh(err, mesh)
     return newg, CompressionState(residual=newr), {"ef_l1": err}
+
+
+def _share(total: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A sum over ``leaf``'s local shard as this rank's share of the mesh
+    sum: divided by the ranks that hold the same elements."""
+    n = replicas(leaf)
+    return total if n == 1 else total / n
+
+
+def _like_leaf(x: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """Local result ``x`` in ``leaf``'s layout (a DTensor of its
+    placements, or ``x`` itself)."""
+    mesh = mesh_of(leaf)
+    return x if mesh is None else from_local_as(x, mesh, leaf.placements,
+                                                leaf.shape)
 
 
 def payload_bytes(grads, compressed: bool) -> int:

@@ -17,6 +17,17 @@ the parameters in which each stacked ``[L, ...]`` layer leaf is a list of
 per-layer leaves sharing its storage, each with its slice of the stacked
 gradient buffer as ``.grad``: a layer's backward pass then adds into its
 own slice instead of building a full ``[L, ...]`` gradient for every layer.
+
+Over a mesh (``Trainer(mesh=, rules=)``, the sharded layout) the
+parameters, gradient buffers, both moments and the compression residuals
+are DTensors with each parameter's placements (``ModelAPI.param_specs``).
+Every rank draws the same pipeline step and the model takes each rank's
+rows (``batch``).  After each microbatch's backward pass a layer's gradient
+(a partial sum where the batch was split) is redistributed to its
+parameter's placements and added into the rank's shard of its buffer;
+compression and AdamW then run on local shards, with the clip norm and
+each leaf's quantization scale reduced over the mesh.  Checkpoints hold
+whole arrays, written by the mesh's first rank.
 """
 
 from __future__ import annotations
@@ -30,12 +41,18 @@ import torch
 from repro_torch.ckpt.store import CheckpointManager, latest_step
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.jobs import resolve_device
+from repro_torch.launch.mesh import mesh_device
 from repro_torch.models.api import get_model
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import (
+    AdamWConfig, OptState, adamw_init, adamw_update,
+)
 from repro_torch.optim.compression import (
     CompressionState, compress_gradients, compression_init,
 )
 from repro_torch.runtime.straggler import StragglerMonitor
+from repro_torch.sharding.rules import (
+    TRAIN_RULES, distribute_tree, local, mesh_of,
+)
 from repro_torch.tree import as_tree, tree_leaves, tree_map
 
 
@@ -58,34 +75,49 @@ class _InjectedFailure(RuntimeError):
     pass
 
 
-def _trainable_view(params, grads):
+def _trainable_view(params, grads, pairs=None):
     """The leaves autograd differentiates: each leaf of ``params`` detached
     (sharing its storage) with its ``grads`` buffer as ``.grad``, and each
-    stacked leaf under ``blocks`` as a list of such per-layer leaves."""
+    stacked leaf under ``blocks`` as a list of such per-layer leaves.
+
+    With ``pairs`` (a list, over a mesh) no ``.grad`` is set: each view
+    leaf is appended with this rank's shard of its buffer (a layer's slice
+    for a stacked leaf), for :meth:`Trainer._fold_grads`."""
     def leaf(p, g):
         t = p.detach().requires_grad_()
-        t.grad = g
+        if pairs is None:
+            t.grad = g
+        else:
+            pairs.append((t, g))
         return t
 
     return {k: tree_map(
-        (lambda p, g: [leaf(p[i], g[i]) for i in range(p.shape[0])])
-        if k == "blocks" else leaf, x, grads[k])
+        (lambda p, g: [leaf(p[i], local(g)[i]) for i in range(p.shape[0])])
+        if k == "blocks" else (lambda p, g: leaf(p, local(g))), x, grads[k])
         for k, x in params.items()}
+
+
+def _plain(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor gathered)."""
+    return x if mesh_of(x) is None else x.full_tensor()
 
 
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, opt_cfg: AdamWConfig,
-                 tcfg: TrainerConfig, dataset, *, mesh=None, rules=None,
-                 log: Callable[[str], None] = print, device=None):
+                 tcfg: TrainerConfig, dataset, *, mesh=None,
+                 rules=TRAIN_RULES, log: Callable[[str], None] = print,
+                 device=None):
         """``device`` defaults to cuda and raises without a card; CPU
-        callers pass ``device="cpu"``.  ``rules`` (the logical-axis
-        sharding rules) are ignored on one device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port trains on one device; a mesh waits for the "
-                "sharded layout (ROADMAP Queue 1 item 10(f))")
-        del rules
-        self.device = resolve_device(device)
+        callers pass ``device="cpu"``.  Over ``mesh`` (a ``DeviceMesh``
+        with the ``rules``' axes) the device is the rank's own
+        (``launch.mesh.mesh_device``: a ``cuda`` mesh runs on the cards, a
+        ``cpu`` mesh on the CPU)."""
+        if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, "
+                            f"got {type(mesh).__name__}")
+        self.mesh, self.rules = mesh, rules
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh_device(mesh, device))
         self.model = get_model(model_cfg)
         self.cfg = model_cfg
         self.opt_cfg = opt_cfg
@@ -101,7 +133,45 @@ class Trainer:
     def _bind(self, params) -> None:
         """Gradient buffers and the trainable view for ``params``."""
         self._grads = tree_map(torch.zeros_like, params)
-        self._view = _trainable_view(params, self._grads)
+        self._pairs = None if self.mesh is None else []
+        self._view = _trainable_view(params, self._grads, self._pairs)
+
+    @torch.no_grad()
+    def _fold_grads(self) -> None:
+        """Over a mesh, after a backward pass: each view leaf's gradient
+        redistributed to its parameter's placements (a partial sum is
+        reduced) and added into this rank's shard of its buffer."""
+        if self.mesh is None:
+            return
+        for t, g in self._pairs:
+            if t.grad is not None:
+                g.add_(t.grad.redistribute(self.mesh, t.placements)
+                       .to_local())
+                t.grad = None
+
+    def _loss(self, batch):
+        loss, m = self.model.loss_fn(self._view, batch, rules=self.rules,
+                                     mesh=self.mesh)
+        loss.backward()
+        self._fold_grads()
+        return _plain(loss.detach()), {k: _plain(x.detach())
+                                        for k, x in m.items()}
+
+    def _distribute(self, params, opt, comp):
+        """Full trees (the same on every rank) as DTensors of each
+        parameter's placements."""
+        specs = self.model.param_specs(self.rules, self.mesh)
+
+        def dist(tree):
+            return distribute_tree(tree_map(torch.Tensor.detach, tree), specs,
+                                   self.mesh)
+
+        residual = comp.residual
+        if isinstance(residual, dict):
+            residual = dist(residual)
+        return (dist(params), OptState(m=dist(opt.m), v=dist(opt.v),
+                                       step=opt.step),
+                CompressionState(residual=residual))
 
     def _train_step(self, params, opt, comp, batch):
         for g in tree_leaves(self._grads):
@@ -112,18 +182,14 @@ class Trainer:
             for i in range(accum):
                 mb = {k: x.reshape((accum, -1) + x.shape[1:])[i]
                       for k, x in batch.items()}
-                loss, m = self.model.loss_fn(self._view, mb)
-                loss.backward()
-                ces.append(m["ce"].detach())
+                ces.append(self._loss(mb)[1]["ce"])
             n = torch.tensor(float(accum), device=self.device)
             for g in tree_leaves(self._grads):
-                g.div_(n)
+                local(g).div_(n)
             loss = torch.stack(ces).mean()
             metrics = {"ce": loss, "aux": torch.zeros((), device=self.device)}
         else:
-            loss, m = self.model.loss_fn(self._view, batch)
-            loss.backward()
-            loss, metrics = loss.detach(), {k: x.detach() for k, x in m.items()}
+            loss, metrics = self._loss(batch)
         grads = self._grads
         if self.tcfg.compress_grads:
             grads, comp, cm = compress_gradients(grads, comp)
@@ -145,6 +211,8 @@ class Trainer:
     def _restore_or_init(self, mgr: Optional[CheckpointManager]):
         params, opt, comp = self._init_state()
         params = as_tree(params)
+        if self.mesh is not None:
+            params, opt, comp = self._distribute(params, opt, comp)
         start = 0
         if mgr and latest_step(mgr.ckpt_dir) is not None:
             (params, opt, comp), step, extra = mgr.restore((params, opt, comp))
@@ -157,7 +225,7 @@ class Trainer:
     def run(self) -> Dict[str, Any]:
         tcfg = self.tcfg
         mgr = (CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep,
-                                 async_save=tcfg.async_ckpt)
+                                 async_save=tcfg.async_ckpt, mesh=self.mesh)
                if tcfg.ckpt_dir else None)
         params, opt, comp, start = self._restore_or_init(mgr)
         self.ds.state.step = start
@@ -176,6 +244,7 @@ class Trainer:
                 t0 = time.time()
                 params, opt, comp, metrics = self._train_step(
                     params, opt, comp, batch)
+                self.state = (params, opt, comp)    # the state after it
                 names = sorted(metrics)
                 values = torch.stack([metrics[k].float() for k in names])
                 values = dict(zip(names, values.tolist()))   # one read

@@ -307,7 +307,7 @@ def test_grad_accum_matches_full_batch():
 def test_trainer_defaults_to_cuda_and_refuses_a_mesh():
     _, cfg = tt.configs("llama3.2-3b")
     ds = SyntheticTokens(cfg.vocab, batch=2, seq=8)
-    with pytest.raises(NotImplementedError, match=r"10\(f\)"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(cfg, AdamWConfig(), TrainerConfig(), ds, mesh=object(),
                 device="cpu")
     if not torch.cuda.is_available():
